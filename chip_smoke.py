@@ -1,29 +1,52 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: Decision Diffuser
-planning at the shipped width, through the hand-written Hopper kernel.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: Decision Diffuser (DD)
+planning and Diffuser planning at the shipped widths, through the
+hand-written Hopper kernels.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0):
 
-1. device  - a CUDA device must be present (there is no CPU path); prints
-             the `nvidia-smi` name and power limit.
-2. build   - builds the fused DiT block kernel (csrc/dit_block.cu) with nvcc
-             from the sources in this checkout; prints the seconds it took
-             and the compiler's register / shared-memory report.
-3. kernel  - the kernel against its plain PyTorch version at the plan's
-             shape (B=100, H=32, D=320, 10 heads, f32), on seeded non-zero
-             weights and modulation; prints the error and both times.
-4. slice   - builds DDPipeline on the GPU from configs/dd/mujoco (task
-             halfcheetah-medium-v2), loads seeded non-zero weights through
-             the JAX-layout converter, serves 5 `act` requests for 50 envs,
-             checks the actions, the inpainted first state and the kernel's
-             launch count (40 per request: 20 steps x 2 blocks), and holds
-             one plan through the kernel against the same plan through the
-             plain version, with the same explicit noise.
+1. device    - a CUDA device must be present (there is no CPU path); prints
+               the `nvidia-smi` name and power limit.
+2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/film_resblock.cu)
+               with nvcc from the sources in this checkout, one nvcc each, in
+               parallel; prints the seconds and the compiler's register /
+               shared-memory report; compiles the Triton solver-update kernel.
+3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
+               (B=100, H=32, D=320, 10 heads, f32); error and both times.
+4. film_resblock - K3 against its plain version at every distinct block
+               shape of the shipped Diffuser U-Net (B=3200 candidate
+               trajectories, K=5, 8 groups, eps 1e-6): error and both times
+               per shape, and their sums over the 16 blocks of one U-Net
+               call.
+5. solver_update - K2 against its plain version at the plan's state shape
+               (3200, 32, 23) with a real ddpm step's coefficients: exact
+               without noise, N(0, 1) moments of the in-kernel noise over
+               2.4 M draws, seeded; both times.
+6. DD slice  - builds DDPipeline on the GPU from configs/dd/mujoco (task
+               halfcheetah-medium-v2), loads seeded non-zero weights through
+               the JAX-layout converter, serves 5 `act` requests for 50 envs,
+               checks the actions, the inpainted first state and K1's launch
+               count (40 per request: 20 steps x 2 blocks), and holds one plan
+               through K1 against the same plan through the plain version,
+               with the same explicit noise.
+7. Diffuser slice - builds DiffuserPipeline on the GPU from
+               configs/diffuser/mujoco (halfcheetah-medium-v2) with the fused
+               block on, loads seeded non-zero weights (U-Net, classifier and
+               both EMAs), serves 5 `act` requests for 50 envs x 64
+               candidates with classifier guidance, checks the actions, the
+               inpainted first state and K3's launch count (5 x 20 steps x 16
+               blocks), holds one plan through K3 against the same plan
+               through the plain block (every candidate and its log p; the
+               chosen index wherever the top two are apart; the actions),
+               and serves one request with the fused solver update (20 K2
+               launches).
 
-The line before the last is a JSON object with one record per kernel; the
-last line is {"ok": true, "device": {...}}. TF32 is off for every
-comparison (matmul and cuDNN), so both sides compute in full float32.
+Each slice resets every launch count just before its requests and reads the
+counts just after. The line before the last is a JSON object with one
+record per kernel; the last line is {"ok": true, "device": {...}}. TF32 is
+off for every comparison (matmul and cuDNN), so both sides compute in full
+float32.
 """
 
 from __future__ import annotations
@@ -41,13 +64,23 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from cleandiffuser_tpu_torch.diffusion.vp_solvers import ddpm_coefficients  # noqa: E402
 from cleandiffuser_tpu_torch.ops import build  # noqa: E402
 from cleandiffuser_tpu_torch.ops.dit_block import (  # noqa: E402
     dit_block_reference,
     fused_dit_block,
     load_dit_block_library,
 )
-from cleandiffuser_tpu_torch.pipelines import DDPipeline  # noqa: E402
+from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
+    film_resblock_reference,
+    fused_film_resblock,
+    load_film_resblock_library,
+)
+from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
+    fused_solver_update,
+    solver_update_reference,
+)
+from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline  # noqa: E402
 from cleandiffuser_tpu_torch.utils.config import load_config  # noqa: E402
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of  # noqa: E402
 
@@ -58,8 +91,22 @@ N_REQUESTS = 5
 # against PyTorch's versions, a few 1e-6 relative; 1e-4 leaves margin.
 BLOCK_ATOL = BLOCK_RTOL = 1e-4
 # One 20-step plan, kernel vs plain with the same noise: the per-block
-# differences above pass through 20 x 2 blocks and the sampler.
+# differences above pass through 20 x 2 (DD) or 20 x 16 (Diffuser) blocks,
+# the classifier's guidance and the sampler.
 PLAN_ATOL = 1e-3
+# K2 without noise: c_xt*xt + c_eps*eps on both sides, at most an FMA's
+# rounding apart; with noise, the N(0, 1) moments over >= 2 M draws (the
+# standard error of the mean is 7e-4, of the std 5e-4).
+SOLVER_ATOL = 1e-6
+MOMENT_TOL = 5e-3
+# (H, Cin, Cout) of the 16 residual blocks of the shipped Diffuser U-Net
+# (obs 17 + act 6 = 23 channels in, model_dim 32, dim_mult (1, 2, 2, 2),
+# horizon 32), in the order the net runs them
+UNET_BLOCKS = [(32, 23, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64), (8, 64, 128),
+               (8, 128, 128), (4, 128, 256), (4, 256, 256), (4, 256, 256), (4, 256, 256),
+               (4, 512, 128), (4, 128, 128), (8, 256, 64), (8, 64, 64), (16, 128, 32),
+               (16, 32, 32)]
+KERNELS = (fused_dit_block, fused_film_resblock, fused_solver_update)
 
 
 def phase(name):
@@ -83,17 +130,43 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def seeded_tree(tree: dict, rng: np.random.Generator) -> dict:
-    """Same structure, every leaf refilled with seeded normals: matrices at
-    std 1/sqrt(fan_in), vectors at 0.1. Fresh adaLN-Zero weights are zero,
-    which would make every block the identity and the net output 0."""
+    """Same structure, every leaf refilled with seeded normals: dense and
+    conv kernels (flax layout, fan-in first) at std 1/sqrt(fan_in), norm
+    scales at 1 + 0.1 N, other vectors at 0.1 N. Fresh adaLN-Zero weights
+    are zero, which would make every block the identity and the net output 0."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = seeded_tree(v, rng)
+            continue
+        z = rng.standard_normal(v.shape)
+        if v.ndim >= 2:
+            z = z / np.sqrt(np.prod(v.shape[:-1]))
         else:
-            std = 1.0 / np.sqrt(v.shape[0]) if v.ndim == 2 else 0.1
-            out[k] = (rng.standard_normal(v.shape) * std).astype(np.float32)
+            z = z * 0.1 + (1.0 if k == "scale" else 0.0)
+        out[k] = z.astype(np.float32)
     return out
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def time_in_turns(kern, plain, iters: int):
+    """Device ms of kern() and plain(), each the mean of 2 runs of `iters`
+    calls, in turns plain, kernel, kernel, plain, after a warm-up."""
+    for f in (kern, plain):
+        cuda_ms(f, 3)
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        times[name].append(cuda_ms(kern if name == "kernel" else plain, iters))
+    return statistics.mean(times["kernel"]), statistics.mean(times["plain"]), times
+
+
+def errors(out, ref):
+    err = (out - ref).abs()
+    return err.max().item(), (err / ref.abs().clamp_min(1e-3)).max().item()
 
 
 def check_device() -> str:
@@ -111,14 +184,23 @@ def check_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
-def build_kernels():
+def build_kernels(dev):
     phase("build")
-    t0 = time.perf_counter()
+    seconds = build.build_libraries(["dit_block", "film_resblock"])
     load_dit_block_library()
-    print(f"dit_block built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_log("dit_block").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    load_film_resblock_library()
+    for name in ("dit_block", "film_resblock"):
+        print(f"{name}.cu built in {seconds[name]:.2f} s (nvcc processes run in parallel)")
+        for line in build.build_log(name).splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
+                print("  ptxas:", line.strip())
+    x = torch.zeros(1024, device=dev)
+    for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
+        t0 = time.perf_counter()
+        fused_solver_update(x, x, (1.0, 0.0, c_noise), 0)
+        torch.cuda.synchronize()
+        print(f"solver_update Triton kernel (noise={c_noise != 0}) compiled and run in "
+              f"{time.perf_counter() - t0:.2f} s")
 
 
 def check_kernel(dev) -> dict:
@@ -145,14 +227,91 @@ def check_kernel(dev) -> dict:
 
     kern = lambda: fused_dit_block(x, mod, *ws, n_heads=NH)
     plain = lambda: dit_block_reference(x, mod, *ws, n_heads=NH)
-    for f in (kern, plain):  # warm-up
-        cuda_ms(f, 5)
-    # in turns: plain, kernel, kernel, plain
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        times[name].append(cuda_ms(kern if name == "kernel" else plain, 50))
-    ms, plain_ms = statistics.mean(times["kernel"]), statistics.mean(times["plain"])
+    ms, plain_ms, times = time_in_turns(kern, plain, 50)
     print(f"device time per block (weights hot in L2): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(runs {times['kernel']} / {times['plain']})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_film_kernel(dev) -> dict:
+    phase("film_resblock vs plain version")
+    B, K, G = 3200, 5, 8
+    rng = np.random.default_rng(SEED + 2)
+
+    def t(*shape, std=1.0, mean=0.0):
+        z = mean + rng.standard_normal(shape) * std
+        return torch.from_numpy(z.astype(np.float32)).to(dev)
+
+    worst, timed = 0.0, {}
+    shapes = list(dict.fromkeys(UNET_BLOCKS))
+    most_frequent = max(shapes, key=UNET_BLOCKS.count)
+    for H, Cin, Cout in shapes:
+        args = [t(B, H, Cin), t(B, Cout, std=0.5),
+                t(K, Cin, Cout, std=(K * Cin) ** -0.5), t(Cout, std=0.1),
+                t(Cout, std=0.1, mean=1.0), t(Cout, std=0.1),
+                t(K, Cout, Cout, std=(K * Cout) ** -0.5), t(Cout, std=0.1),
+                t(Cout, std=0.1, mean=1.0), t(Cout, std=0.1)]
+        if Cin != Cout:
+            args += [t(Cin, Cout, std=Cin ** -0.5), t(Cout, std=0.1)]
+        kw = dict(K=K, groups=G, eps=1e-6)
+        out = fused_film_resblock(*args, **kw)
+        ref = film_resblock_reference(*args, **kw)
+        torch.cuda.synchronize()
+        max_abs, max_rel = errors(out, ref)
+        worst = max(worst, max_abs)
+        print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}) "
+              f"x{UNET_BLOCKS.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
+              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f})", flush=True)
+        torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+        ms, plain_ms, times = timed[(H, Cin, Cout)] = time_in_turns(
+            lambda: fused_film_resblock(*args, **kw),
+            lambda: film_resblock_reference(*args, **kw), 20)
+        print(f"  device time per block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(runs {times['kernel']} / {times['plain']})", flush=True)
+    print(f"sum over the {len(UNET_BLOCKS)} blocks of one U-Net call: kernel "
+          f"{sum(timed[s][0] for s in UNET_BLOCKS):.4f} ms, plain "
+          f"{sum(timed[s][1] for s in UNET_BLOCKS):.4f} ms; most frequent shape {most_frequent}")
+    ms, plain_ms, _ = timed[most_frequent]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def check_solver_kernel(dev) -> dict:
+    phase("solver_update vs plain version")
+    shape = (3200, 32, 23)
+    rng = np.random.default_rng(SEED + 3)
+    xt, eps = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+               for _ in range(2))
+    # a real step: level 10 of 20 of the shipped Diffuser's ddpm sampler
+    probe = DiffuserPipeline(17, 6)
+    _, alphas, sigmas = probe.agent._sample_tables("uniform", 20)
+    stds = torch.cat([torch.zeros(1), sigmas[:-1] / sigmas[1:]
+                      * torch.sqrt(1 - (alphas[1:] / alphas[:-1]) ** 2)])
+    coefs = ddpm_coefficients(10, alphas, sigmas, stds)
+    print(f"coefficients (c_xt, c_eps, c_noise) = {coefs}")
+
+    quiet = (coefs[0], coefs[1], 0.0)
+    max_abs, _ = errors(fused_solver_update(xt, eps, quiet, 1),
+                        solver_update_reference(xt, eps, quiet))
+    print(f"c_noise = 0: max_abs_err {max_abs:.3e} (limit {SOLVER_ATOL})")
+    if not max_abs <= SOLVER_ATOL:
+        raise AssertionError("solver_update without noise disagrees with its plain version")
+
+    out = fused_solver_update(xt, eps, coefs, 7)
+    z = (out.double() - coefs[0] * xt.double() - coefs[1] * eps.double()) / coefs[2]
+    mean, std = z.mean().item(), z.std().item()
+    print(f"noise over {z.numel()} draws: mean {mean:.3e}, std {std:.6f} (limit {MOMENT_TOL})")
+    if not (abs(mean) < MOMENT_TOL and abs(std - 1) < MOMENT_TOL):
+        raise AssertionError("solver_update noise is not standard normal")
+    same = torch.equal(out, fused_solver_update(xt, eps, coefs, 7))
+    other = not torch.equal(out, fused_solver_update(xt, eps, coefs, 8))
+    print(f"same seed, same output: {same}; another seed, another output: {other}")
+    if not (same and other):
+        raise AssertionError("solver_update noise is not a function of the seed")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ms, plain_ms, times = time_in_turns(lambda: fused_solver_update(xt, eps, coefs, 7),
+                                        lambda: solver_update_reference(xt, eps, coefs, gen), 200)
+    print(f"device time per step at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(runs {times['kernel']} / {times['plain']})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
@@ -223,7 +382,7 @@ def check_slice(dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     cold = serve(pipe, obs[:1], gen)  # first request: allocator and library warm-up
 
-    fused_dit_block.launches = 0
+    reset_counts()
     lat = serve(pipe, obs[1:], gen)
     launches = fused_dit_block.launches
     expected = N_REQUESTS * args.sampling_steps * args.depth
@@ -252,19 +411,142 @@ def check_slice(dev) -> int:
     return launches
 
 
+def serve_diffuser(pipe: DiffuserPipeline, obs_batches, K: int, generator) -> list:
+    """Serve one Diffuser `act` request per batch (K candidates per env);
+    returns per-request ms."""
+    lat = []
+    for obs in obs_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act, info = pipe.act(obs, num_candidates=K, generator=generator)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if tuple(act.shape) != (obs.shape[0], pipe.act_dim):
+            raise AssertionError(f"actions {tuple(act.shape)}")
+        if not (torch.isfinite(act).all() and torch.isfinite(info["candidates"]).all()
+                and torch.isfinite(info["candidate_logp"]).all()):
+            raise AssertionError("non-finite actions, plans or log p")
+        if act.abs().max().item() > 1.0:
+            raise AssertionError("actions outside [-1, 1]")
+        if not torch.equal(info["traj"][:, 0, :pipe.obs_dim], obs):
+            raise AssertionError("plan's first state is not the observation")
+    return lat
+
+
+def check_diffuser_slice(dev):
+    """Returns (K3 launches in the 5 served requests, K2 launches in the
+    fused-update request)."""
+    phase("slice: Diffuser planning")
+    args = load_config(ROOT / "configs/diffuser/mujoco", "mujoco")
+    E, K, O, A = args.num_envs, args.num_candidates, args.task.obs_dim, args.task.act_dim
+    rng = np.random.default_rng(SEED + 4)
+    kw = dict(obs_dim=O, act_dim=A, horizon=args.task.horizon, model_dim=args.model_dim,
+              dim_mult=tuple(args.task.dim_mult), diffusion_steps=args.diffusion_steps,
+              sampling_steps=args.sampling_steps, solver=args.solver,
+              predict_noise=args.predict_noise, action_loss_weight=args.action_loss_weight,
+              w_cg=args.task.w_cg, temperature=args.temperature, rng=args.seed)
+    # seeded weights in the JAX package's layout (shapes taken from a CPU
+    # build of the same config), carried in by the converter
+    probe = DiffuserPipeline(**kw)
+    weights = {
+        "params": seeded_tree(agent_params_of(probe.agent.params), rng),
+        "ema_params": seeded_tree(agent_params_of(probe.agent.ema_params), rng),
+        "cls_params": {"params": seeded_tree(jax_params_of(probe.classifier.params), rng)},
+        "cls_ema_params": {"params": seeded_tree(jax_params_of(probe.classifier.ema_params),
+                                                 rng)},
+    }
+    del probe
+    pipe = DiffuserPipeline(**kw, use_pallas_block=True, device=dev)
+    plain = DiffuserPipeline(**kw, use_pallas_block=False, device=dev)
+    for p in (pipe, plain):
+        p.load_jax_params(**weights)
+    print(f"config: obs {O} act {A} horizon {args.task.horizon} model_dim {args.model_dim} "
+          f"dim_mult {tuple(args.task.dim_mult)} {args.solver} x {args.sampling_steps} "
+          f"(T={args.diffusion_steps}) predict_noise {args.predict_noise} w_cg {args.task.w_cg} "
+          f"temperature {args.temperature} envs {E} x candidates {K} = {E * K} trajectories")
+
+    # the block shapes the main path gives K3, seen on the way in
+    seen = []
+    hooks = [b.register_forward_pre_hook(lambda m, a: seen.append(tuple(a[0].shape[1:]) + (
+        m.conv1.kernel.shape[-1],))) for b in pipe.agent.ema_params["diffusion"].blocks]
+    obs = [torch.from_numpy(rng.standard_normal((E, O)).astype(np.float32)).to(dev)
+           for _ in range(N_REQUESTS + 1)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cold = serve_diffuser(pipe, obs[:1], K, gen)  # first request: warm-up
+    for h in hooks:
+        h.remove()
+    if seen[:len(UNET_BLOCKS)] != UNET_BLOCKS:
+        raise AssertionError(f"U-Net block shapes {seen[:16]} are not {UNET_BLOCKS}")
+
+    reset_counts()
+    lat = serve_diffuser(pipe, obs[1:], K, gen)
+    k3 = fused_film_resblock.launches
+    expected = N_REQUESTS * args.sampling_steps * len(UNET_BLOCKS)
+    print(f"{N_REQUESTS} requests x {E} envs x {K} candidates: latency ms "
+          f"{[round(v, 3) for v in lat]} (median {statistics.median(lat):.3f}; cold first "
+          f"request {cold[0]:.3f}); film_resblock launches {k3} (expected {expected})")
+    if k3 != expected:
+        raise AssertionError(f"film_resblock launched {k3} times, expected {expected}")
+
+    plain_lat = serve_diffuser(plain, obs[1:], K, gen)
+    print(f"same requests through the plain block: latency ms "
+          f"{[round(v, 3) for v in plain_lat]} (median {statistics.median(plain_lat):.3f})")
+
+    # one plan, kernel vs plain block, same explicit noise
+    shape = (K * E, args.task.horizon, O + A)
+    noise = (torch.randn(shape, generator=gen, device=dev),
+             torch.randn((args.sampling_steps,) + shape, generator=gen, device=dev))
+    act_k, info_k = pipe.act(obs[1], num_candidates=K, noise=noise)
+    act_p, info_p = plain.act(obs[1], num_candidates=K, noise=noise)
+    d_traj = (info_k["candidates"] - info_p["candidates"]).abs().max().item()
+    d_logp = (info_k["candidate_logp"] - info_p["candidate_logp"]).abs().max().item()
+    top2 = info_p["candidate_logp"].topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > PLAN_ATOL  # envs whose best candidate is not a near-tie
+    same_idx = info_k["idx"] == info_p["idx"]
+    d_act = (act_k - act_p).abs()[same_idx].max().item() if same_idx.any() else 0.0
+    print(f"plan kernel vs plain: max |candidate diff| {d_traj:.3e}, max |logp diff| "
+          f"{d_logp:.3e}, chosen index equal in {int(same_idx.sum())}/{E} envs "
+          f"({int(clear.sum())} with a top-two gap > {PLAN_ATOL}), max |act diff| where equal "
+          f"{d_act:.3e} (max |traj| {info_p['candidates'].abs().max().item():.3f}; "
+          f"atol {PLAN_ATOL})")
+    if not (d_traj <= PLAN_ATOL and d_logp <= PLAN_ATOL and d_act <= PLAN_ATOL
+            and bool(same_idx[clear].all())):
+        raise AssertionError("plan through the kernel disagrees with the plain version")
+
+    # one request through the fused solver update too
+    pipe.fused_update = True
+    reset_counts()
+    fused_lat = serve_diffuser(pipe, obs[1:2], K, gen)
+    k2 = fused_solver_update.launches
+    print(f"1 request with fused_update: latency {fused_lat[0]:.3f} ms (first, includes plan "
+          f"setup); solver_update launches {k2} (expected {args.sampling_steps}), "
+          f"film_resblock launches {fused_film_resblock.launches}")
+    if k2 != args.sampling_steps:
+        raise AssertionError(f"solver_update launched {k2} times, expected {args.sampling_steps}")
+    return k3, k2
+
+
 def main() -> int:
     kind = check_device()
     dev = torch.device("cuda", 0)
-    build_kernels()
-    k = check_kernel(dev)
-    launches = check_slice(dev)
-    print(json.dumps({"kernels": [{
-        "name": "dit_block", "route": "cuda",
-        "source": "cleandiffuser_tpu_torch/csrc/dit_block.cu",
-        "replaces": "cleandiffuser_tpu/ops/dit_block.py:125",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-    }]}))
+    build_kernels(dev)
+    k1 = check_kernel(dev)
+    k3 = check_film_kernel(dev)
+    k2 = check_solver_kernel(dev)
+    k1_launches = check_slice(dev)
+    k3_launches, k2_launches = check_diffuser_slice(dev)
+    record = lambda name, route, source, replaces, launches, k: {
+        "name": name, "route": route, "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"]}
+    print(json.dumps({"kernels": [
+        record("dit_block", "cuda", "cleandiffuser_tpu_torch/csrc/dit_block.cu",
+               "cleandiffuser_tpu/ops/dit_block.py:125", k1_launches, k1),
+        record("film_resblock", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",
+               "cleandiffuser_tpu/ops/film_resblock.py:159", k3_launches, k3),
+        record("solver_update", "triton", "cleandiffuser_tpu_torch/ops/solver_update.py",
+               "cleandiffuser_tpu/ops/solver_update.py:75", k2_launches, k2),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -6,9 +6,14 @@ It imports torch and numpy only. Every Pallas kernel of the reference that
 the port runs becomes a hand-written kernel for NVIDIA Hopper (`csrc/`),
 with a plain PyTorch version of the same math beside it in `ops/`.
 
-Ported so far: Decision Diffuser planning (`pipelines/dd.py`), i.e. the
-DiT1d backbone with the fused adaLN-Zero block kernel, the MLP condition,
-the MLP inverse dynamics, and the continuous VP-SDE sampler.
+Ported so far:
+- Decision Diffuser planning (`pipelines/dd.py`): the DiT1d backbone with
+  the fused adaLN-Zero block kernel, the MLP condition, the MLP inverse
+  dynamics, and the continuous VP-SDE sampler.
+- Diffuser planning (`pipelines/diffuser.py`): the Janner U-Net with the
+  fused FiLM residual-block kernel, the half-U-Net classifier for guidance,
+  and the discrete VP-SDE sampler, whose ddpm step can run the fused
+  solver-update kernel.
 """
 
 __version__ = "0.1.0"

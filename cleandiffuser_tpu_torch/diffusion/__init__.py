@@ -1,3 +1,3 @@
 from .basic import DiffusionModel
-from .diffusionsde import BaseDiffusionSDE, ContinuousDiffusionSDE
+from .diffusionsde import BaseDiffusionSDE, ContinuousDiffusionSDE, DiscreteDiffusionSDE
 from .vp_solvers import SUPPORTED_SOLVERS

@@ -3,7 +3,9 @@
 The reference keeps one immutable pytree of parameters plus an EMA copy;
 here both are `nn.ModuleDict({"diffusion": backbone, "condition":
 encoder})` on one explicit device, and the pure `apply_*` helpers take
-either of them as their `params`. The optimizer, `update`, the EMA step and
+either of them as their `params`. A classifier for guidance
+(classifier/base.py) holds its own parameters and EMA; the engine keeps it
+in its `classifier` slot. The optimizer, `update`, the EMA step and
 checkpoints come with the training path.
 """
 
@@ -27,9 +29,11 @@ class DiffusionModel:
         nn_condition: Optional[nn.Module] = None,
         fix_mask=None,
         loss_weight=None,
+        classifier=None,
         device="cpu",
     ):
         self.device = torch.device(device)
+        self.classifier = classifier
         cond = nn_condition if nn_condition is not None else IdentityCondition()
         self.params = nn.ModuleDict({"diffusion": nn_diffusion, "condition": cond})
         self.params.to(self.device)

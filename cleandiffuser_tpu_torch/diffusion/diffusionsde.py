@@ -1,11 +1,13 @@
-"""Continuous VP-SDE diffusion engine with a k-step sampler (counterpart of
-cleandiffuser_tpu/diffusion/diffusionsde.py).
+"""Discrete and continuous VP-SDE diffusion engines with a k-step sampler
+(counterpart of cleandiffuser_tpu/diffusion/diffusionsde.py).
 
 The reference traces its whole denoising loop into one `lax.scan`; here it
 is a Python loop over the steps, whose per-step scalars come from float32
 host tables (vp_solvers.py), so the loop never waits on the device. Each
-step: guided prediction (CFG doubled-batch forward), prediction clipping,
-solver update with noise injection, fix_mask re-pinning.
+step: guided prediction (CFG doubled-batch forward, then the classifier's
+gradient), prediction clipping, solver update with noise injection,
+fix_mask re-pinning. With a classifier, the sampler can score the final
+sample with its log p at t = 0 (`final_logp`).
 
 Randomness comes from an explicit `torch.Generator`, or from explicit
 noise: `noise=(initial, per_step)` with `initial` of the prior's shape and
@@ -14,9 +16,14 @@ step. The reference draws the same roles from its key splits
 (`k_init, k_scan = split(rng)`, then `rng, k_noise = split(rng)` per step),
 which is how the tests hand both samplers the same numbers.
 
-Ported so far: the solvers, CFG in mix / cond / uncond modes, clipping and
-inpainting. Classifier guidance, warm start, diffusion-x steps, history and
-the parallel-in-time sampler come later.
+`fused_update=True` (ddpm only, off by default as in the reference) takes
+each step through the fused solver-update kernel (ops/solver_update.py),
+which draws its own noise from a per-step seed; the seeds come from the
+generator, all at the start of a sample.
+
+Ported so far: the solvers, CFG in mix / cond / uncond modes, classifier
+guidance, final log p, clipping and inpainting. Warm start, diffusion-x
+steps, history and the parallel-in-time sampler come later.
 """
 
 from __future__ import annotations
@@ -24,17 +31,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.schedules import SUPPORTED_NOISE_SCHEDULES, SUPPORTED_SAMPLING_STEP_SCHEDULE
+from ..ops.solver_update import solver_update_op
+from ..utils.schedules import (
+    SUPPORTED_NOISE_SCHEDULES,
+    SUPPORTED_SAMPLING_STEP_SCHEDULE,
+    uniform_discretization,
+)
 from .basic import DiffusionModel
 from .vp_solvers import (
     SUPPORTED_SOLVERS,
+    ddpm_coefficients,
     epstheta_to_xtheta,
     solver_step,
     solver_uses_noise,
     xtheta_to_epstheta,
 )
 
-__all__ = ["BaseDiffusionSDE", "ContinuousDiffusionSDE"]
+__all__ = ["BaseDiffusionSDE", "DiscreteDiffusionSDE", "ContinuousDiffusionSDE"]
 
 
 def _cat_zeros(emb):
@@ -50,13 +63,14 @@ class BaseDiffusionSDE(DiffusionModel):
         nn_condition=None,
         fix_mask=None,
         loss_weight=None,
+        classifier=None,
         epsilon: float = 1e-3,
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
         device="cpu",
     ):
-        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, device)
+        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier, device)
         self.predict_noise = predict_noise
         self.epsilon = epsilon
         as_t = lambda v: None if v is None else torch.as_tensor(
@@ -77,9 +91,11 @@ class BaseDiffusionSDE(DiffusionModel):
             return torch.clamp(pred, lower, upper)
         return torch.clamp(pred, self.x_min, self.x_max)
 
-    def _guided_pred(self, params, xt, t, emb, w_cfg: float, cfg_mode: str):
+    def _guided_pred(self, params, xt, t, emb, w_cfg: float, cfg_mode: str,
+                     cls_params=None, condition_cg=None, cg_coef: float = 0.0):
         """Classifier-free guidance: [cond; uncond] in one doubled forward,
-        combined as w*cond + (1-w)*uncond."""
+        combined as w*cond + (1-w)*uncond; then, with `cg_coef` != 0,
+        classifier guidance: pred + cg_coef * d logp / dx."""
         if cfg_mode == "mix":
             b = xt.shape[0]
             pred_all = self.apply_diffusion(
@@ -87,15 +103,28 @@ class BaseDiffusionSDE(DiffusionModel):
             pred, pred_uncond = pred_all[:b], pred_all[b:]
             # both weights rounded to float32 first, as the reference's are
             w = np.float32(w_cfg)
-            return float(w) * pred + float(np.float32(1) - w) * pred_uncond
-        if cfg_mode == "cond":
-            return self.apply_diffusion(params, xt, t, emb)
-        if cfg_mode == "uncond":
-            return self.apply_diffusion(params, xt, t, None)
-        raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
+            pred = float(w) * pred + float(np.float32(1) - w) * pred_uncond
+        elif cfg_mode == "cond":
+            pred = self.apply_diffusion(params, xt, t, emb)
+        elif cfg_mode == "uncond":
+            pred = self.apply_diffusion(params, xt, t, None)
+        else:
+            raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
+        if cg_coef != 0.0:
+            _, grad = self.classifier.gradients(cls_params, xt, t, condition_cg)
+            pred = pred + cg_coef * grad
+        return pred
+
+    def _cg_coef(self, w_cg: float, a_i, s_i) -> float:
+        """The guidance gradient's weight at level (alpha_i, sigma_i), in
+        float32 as the reference's: -w*sigma (eps prediction) or
+        w*sigma^2/alpha (x0 prediction)."""
+        w = torch.tensor(w_cg, dtype=torch.float32)
+        return float(-(w * s_i) if self.predict_noise else w * (s_i**2 / a_i))
 
     def _sample_tables(self, sample_step_schedule: str, sample_steps: int):
-        """(ts, alphas, sigmas), each a float32 (steps+1,) host tensor."""
+        """(ts, alphas, sigmas), each a (steps+1,) host tensor; alphas and
+        sigmas float32, ts of the dtype the network takes as t."""
         raise NotImplementedError
 
     def build_sample_fn(
@@ -104,16 +133,28 @@ class BaseDiffusionSDE(DiffusionModel):
         sample_steps: int = 5,
         sample_step_schedule: str = "uniform",
         cfg_mode: str = "uncond",
+        use_cg: bool = False,
+        final_logp=None,
+        fused_update: bool = False,
     ):
         """Build the k-step sampler.
 
             fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
-               w_cfg=0.0, temperature=1.0, noise=None) -> (x0, log dict)
+               w_cfg=0.0, temperature=1.0, noise=None, cls_params=None,
+               condition_cg=None, w_cg=0.0) -> (x0, log dict)
 
-        `params` is `self.params` or `self.ema_params`.
+        `params` is `self.params` or `self.ema_params`, `cls_params` the
+        classifier's. With `final_logp` (default: whether there is a
+        classifier) the log holds "log_p" of the final sample at t = 0.
         """
         if solver not in SUPPORTED_SOLVERS:
             raise ValueError(f"Solver {solver} is not supported.")
+        if fused_update and solver != "ddpm":
+            raise ValueError(f"fused_update takes the ddpm step only, not {solver}")
+        if (use_cg or final_logp) and self.classifier is None:
+            raise ValueError("classifier guidance and final_logp need a classifier")
+        if final_logp is None:
+            final_logp = self.classifier is not None
         fix_mask = self.fix_mask
         ts, alphas, sigmas = self._sample_tables(sample_step_schedule, sample_steps)
         logSNRs = torch.log(alphas / sigmas)
@@ -124,37 +165,93 @@ class BaseDiffusionSDE(DiffusionModel):
 
         @torch.no_grad()
         def fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
-               w_cfg: float = 0.0, temperature: float = 1.0, noise=None):
+               w_cfg: float = 0.0, temperature: float = 1.0, noise=None, cls_params=None,
+               condition_cg=None, w_cg: float = 0.0):
             def draw(n):
                 if noise is not None:
                     return noise[0] if n < 0 else noise[1][n]
                 return torch.randn(prior.shape, generator=generator, device=prior.device)
 
+            if fused_update:
+                if noise is not None:
+                    raise ValueError("fused_update draws its noise in the kernel: it takes "
+                                     "no explicit noise")
+                # one seed per step, drawn at once: a single device-to-host copy
+                seeds = torch.randint(2**31 - 1, (sample_steps,), generator=generator,
+                                      device=generator.device).tolist()
             xt = draw(-1) * temperature
             if fix_mask is not None:
                 xt = xt * (1.0 - fix_mask) + prior * fix_mask
             emb = self.apply_condition(params, condition_cfg, mask=mask_cfg)
             prev_x_theta = torch.zeros_like(xt)
+            B = prior.shape[0]
             for n, i in enumerate(range(sample_steps, 0, -1)):
-                t = torch.full((prior.shape[0],), float(ts[i]), device=prior.device)
+                t = torch.full((B,), ts[i].item(), dtype=ts.dtype, device=prior.device)
                 a_i, s_i = float(alphas[i]), float(sigmas[i])
-                pred = self._guided_pred(params, xt, t, emb, w_cfg, cfg_mode)
+                cg_coef = self._cg_coef(w_cg, alphas[i], sigmas[i]) if use_cg else 0.0
+                pred = self._guided_pred(params, xt, t, emb, w_cfg, cfg_mode,
+                                         cls_params, condition_cg, cg_coef)
                 pred = self.clip_prediction(pred, xt, a_i, s_i)
                 if self.predict_noise:
                     eps_theta, x_theta = pred, epstheta_to_xtheta(xt, a_i, s_i, pred)
                 else:
                     eps_theta, x_theta = xtheta_to_epstheta(xt, a_i, s_i, pred), pred
-                z = draw(n) if solver_uses_noise(solver, i) else None
-                x_next = solver_step(solver, xt, eps_theta, x_theta, prev_x_theta, n == 0,
-                                     i, alphas, sigmas, hs, stds, z)
+                if fused_update:
+                    x_next = solver_update_op(xt, eps_theta,
+                                              ddpm_coefficients(i, alphas, sigmas, stds), seeds[n])
+                else:
+                    z = draw(n) if solver_uses_noise(solver, i) else None
+                    x_next = solver_step(solver, xt, eps_theta, x_theta, prev_x_theta, n == 0,
+                                         i, alphas, sigmas, hs, stds, z)
                 if fix_mask is not None:
                     x_next = x_next * (1.0 - fix_mask) + prior * fix_mask
                 xt, prev_x_theta = x_next, x_theta
+            log = {}
+            if final_logp:
+                t0 = torch.zeros((B,), dtype=ts.dtype, device=prior.device)
+                log["log_p"] = self.classifier.logp(cls_params, xt, t0, condition_cg)
             if self.clip_pred:
                 xt = torch.clamp(xt, self.x_min, self.x_max)
-            return xt, {}
+            return xt, log
 
         return fn
+
+
+class DiscreteDiffusionSDE(BaseDiffusionSDE):
+    """Discrete-time VP-SDE: time lives on a uniform T-point grid mapping
+    [epsilon, 1] -> [0, T-1]; alpha and sigma are (T,) float32 tables and
+    the network takes the integer level as t."""
+
+    def __init__(
+        self,
+        nn_diffusion,
+        nn_condition=None,
+        fix_mask=None,
+        loss_weight=None,
+        classifier=None,
+        epsilon: float = 1e-3,
+        diffusion_steps: int = 1000,
+        noise_schedule: str = "cosine",
+        x_max=None,
+        x_min=None,
+        predict_noise: bool = True,
+        device="cpu",
+    ):
+        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
+                         epsilon, x_max, x_min, predict_noise, device)
+        if 1.0 / diffusion_steps < epsilon:
+            raise ValueError("epsilon is too large for the number of diffusion steps")
+        if noise_schedule not in SUPPORTED_NOISE_SCHEDULES:
+            raise ValueError(f"Noise schedule {noise_schedule} is not supported.")
+        self.diffusion_steps = diffusion_steps
+        self.t_diffusion = uniform_discretization(diffusion_steps, epsilon)
+        self.alpha, self.sigma = SUPPORTED_NOISE_SCHEDULES[noise_schedule]["forward"](
+            self.t_diffusion)
+
+    def _sample_tables(self, sample_step_schedule, sample_steps):
+        sched = SUPPORTED_SAMPLING_STEP_SCHEDULE[sample_step_schedule](
+            self.diffusion_steps, sample_steps).long()
+        return sched.to(torch.int32), self.alpha[sched], self.sigma[sched]
 
 
 class ContinuousDiffusionSDE(BaseDiffusionSDE):
@@ -166,6 +263,7 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         nn_condition=None,
         fix_mask=None,
         loss_weight=None,
+        classifier=None,
         epsilon: float = 1e-3,
         noise_schedule: str = "cosine",
         x_max=None,
@@ -173,8 +271,8 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         predict_noise: bool = True,
         device="cpu",
     ):
-        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, epsilon,
-                         x_max, x_min, predict_noise, device)
+        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
+                         epsilon, x_max, x_min, predict_noise, device)
         # cosine alpha hits 0 at t=0.9946
         self.t_diffusion = [epsilon, 0.9946] if noise_schedule == "cosine" else [epsilon, 1.0]
         if noise_schedule not in SUPPORTED_NOISE_SCHEDULES:

@@ -28,7 +28,7 @@ SUPPORTED_SOLVERS = [
     "sde_dpmsolver++_2M",
 ]
 
-__all__ = ["SUPPORTED_SOLVERS", "solver_step", "solver_uses_noise",
+__all__ = ["SUPPORTED_SOLVERS", "solver_step", "solver_uses_noise", "ddpm_coefficients",
            "epstheta_to_xtheta", "xtheta_to_epstheta"]
 
 
@@ -46,6 +46,17 @@ def solver_uses_noise(solver: str, i: int) -> bool:
     """Whether `solver_step` at level i reads `noise` (ddpm adds none when
     stepping onto the final level)."""
     return solver.startswith("sde_") or (solver == "ddpm" and i > 1)
+
+
+def ddpm_coefficients(i: int, alphas, sigmas, stds):
+    """The ddpm step as (c_xt, c_eps, c_noise), float32 on the host, for
+    x = c_xt * xt + c_eps * eps_theta + c_noise * noise
+    (ops/solver_update.py): the same update as `solver_step("ddpm", ...)`,
+    with its two eps_theta terms folded into one coefficient."""
+    a_i, a_p, s_i, s_p, std_i = alphas[i], alphas[i - 1], sigmas[i], sigmas[i - 1], stds[i]
+    c_xt = a_p / a_i
+    c = torch.sqrt(torch.clamp(s_p**2 - std_i**2, min=0.0) + 1e-8)
+    return float(c_xt), float(-c_xt * s_i + c), float(std_i) if i > 1 else 0.0
 
 
 def solver_step(solver: str, xt, eps_theta, x_theta, prev_x_theta, is_first: bool,

@@ -1,0 +1,96 @@
+"""Trajectory classifier head: the down half of the Janner U-Net and an MLP
+(counterpart of `HalfJannerUNet1d` in
+cleandiffuser_tpu/nn_classifier/half_nets.py). Maps (b, H, in_dim) x (b,)
+[x cond] -> (b, out_dim), e.g. a trajectory-return prediction for
+classifier guidance. `HalfDiT1d` comes later.
+
+The classifier is differentiated with respect to its input at every
+sampler step, so its residual blocks always take the plain path (the fused
+block has no backward).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..nn_diffusion.base import timestep_embedding_module
+from ..nn_diffusion.jannerunet import Downsample1d, ResidualBlock1d
+from ..utils.blocks import dense
+from ..utils.embeddings import mish
+from .mlp import BaseNNClassifier
+
+__all__ = ["HalfJannerUNet1d"]
+
+
+class HalfJannerUNet1d(BaseNNClassifier):
+    """Down-half of JannerUNet + MLP head -> (b, out_dim)."""
+
+    def __init__(
+        self,
+        horizon: int,
+        in_dim: int,
+        out_dim: int = 1,
+        kernel_size: int = 3,
+        model_dim: int = 32,
+        emb_dim: int = 32,
+        dim_mult: Sequence[int] = (1, 2, 2, 2),
+        timestep_emb_type: str = "positional",
+        norm_type: str = "groupnorm",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        g = generator
+        self.t_emb = timestep_embedding_module(emb_dim, timestep_emb_type, None, g)
+        self.t_dense1 = dense(emb_dim, model_dim * 4, generator=g)
+        self.t_dense2 = dense(model_dim * 4, model_dim, generator=g)
+
+        dims = [in_dim] + [model_dim * int(m) for m in np.cumprod(dim_mult)]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        blocks, downs = [], []
+        for ind, (dim_in, dim_out) in enumerate(in_out):
+            blocks += [ResidualBlock1d(dim_in, dim_out, model_dim, kernel_size, norm_type,
+                                       generator=g),
+                       ResidualBlock1d(dim_out, dim_out, model_dim, kernel_size, norm_type,
+                                       generator=g)]
+            if ind < len(in_out) - 1:
+                downs.append(Downsample1d(dim_out, g))
+                horizon //= 2
+        mid = dims[-1]
+        mid_2, mid_3 = mid // 2, mid // 4
+        blocks.append(ResidualBlock1d(mid, mid_2, model_dim, 5, norm_type, generator=g))
+        downs.append(Downsample1d(mid_2, g))
+        blocks.append(ResidualBlock1d(mid_2, mid_3, model_dim, 5, norm_type, generator=g))
+        downs.append(Downsample1d(mid_3, g))
+        horizon //= 4
+        self.n_levels = len(in_out)
+        self.blocks = nn.ModuleList(blocks)
+        self.downs = nn.ModuleList(downs)
+        fc_dim = mid_3 * max(horizon, 1)
+        self.head1 = dense(fc_dim + model_dim, fc_dim // 2, generator=g)
+        self.head2 = dense(fc_dim // 2, out_dim, generator=g)
+        self.JAX_NAMES = {
+            "t_emb": f"{type(self.t_emb).__name__}_0", "t_dense1": "Dense_0",
+            "t_dense2": "Dense_1", "blocks": "ResidualBlock1d_{}",
+            "downs": "Downsample1d_{}", "head1": "Dense_2", "head2": "Dense_3",
+        }
+
+    def forward(self, x, t, y=None):
+        te = self.t_emb(t)
+        if y is not None:
+            te = te + y
+        te = self.t_dense2(mish(self.t_dense1(te)))
+        blocks, downs = iter(self.blocks), iter(self.downs)
+        for ind in range(self.n_levels):
+            x = next(blocks)(x, te)
+            x = next(blocks)(x, te)
+            if ind < self.n_levels - 1:
+                x = next(downs)(x)
+        for _ in range(2):
+            x = next(downs)(next(blocks)(x, te))
+        # channels-last flatten, as the JAX head's Dense expects
+        h = torch.cat([x.reshape(x.shape[0], -1), te], dim=-1)
+        return self.head2(mish(self.head1(h)))

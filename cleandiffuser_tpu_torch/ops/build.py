@@ -16,9 +16,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "load_library", "build_log"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_libraries", "load_library",
+           "build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -53,22 +55,43 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if its library is missing, then load it.
-    Reads and hashes the source: callers load once and keep the handle."""
-    lib_path = _library_path(name)
-    if not lib_path.exists():
+def build_libraries(names) -> dict:
+    """Build every `csrc/<name>.cu` whose library is missing, one nvcc
+    process each, all started together; wait for all of them. Returns the
+    seconds from the start until each build was seen done (0.0 for a
+    library already built). Raises if a build fails."""
+    t0 = time.perf_counter()
+    seconds = {name: 0.0 for name in names}
+    jobs = []
+    for name in dict.fromkeys(names):
+        lib_path = _library_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build to a private name, then rename: a concurrent build of the
         # same source never exposes a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, lib_path, tmp, cmd, proc))
+    failed = []
+    for name, lib_path, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {name}.cu:\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            failed.append(f"nvcc failed building {name}.cu:\n{' '.join(cmd)}\n{out}\n{err}")
+            continue
+        lib_path.with_suffix(".log").write_text(out + err)
         os.replace(tmp, lib_path)
-    return ctypes.CDLL(str(lib_path))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if its library is missing, then load it.
+    Reads and hashes the source: callers load once and keep the handle."""
+    build_libraries([name])
+    return ctypes.CDLL(str(_library_path(name)))

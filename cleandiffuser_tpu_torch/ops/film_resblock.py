@@ -1,0 +1,168 @@
+"""Fused FiLM Conv1d residual block: the Hopper kernel, its wrapper and its
+plain PyTorch version.
+
+Counterpart of cleandiffuser_tpu/ops/film_resblock.py, whose Pallas TPU
+kernel `film_resblock` is replaced by the CUDA C++ kernel in
+`csrc/film_resblock.cu` (built for sm_90a, bound with ctypes; the source
+note there says what bounds it on the card and how the design answers that).
+The math of `ResidualBlock1d` (nn_diffusion/jannerunet.py), channels-last:
+
+    h   = mish(GN(conv1(x)))                    conv: K taps, SAME padding
+    h   = h + emb   (or emb[:C] * h + emb[C:] with `film_scale`)
+    h   = mish(GN(conv2(h)))
+    out = h + (x @ wskip + bskip  or  x)
+
+GroupNorm takes its statistics per sample over (H, C/groups), two-pass.
+Its eps is an argument: the TPU kernel hard-codes 1e-5, while the flax
+`nn.GroupNorm` of the U-Net uses 1e-6. The FiLM projection
+`Dense(mish(t_emb))` is computed outside, as in the reference. Weights keep
+the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout), so the kernel
+reads them as they are stored.
+
+Dispatch (`film_resblock_op`): a CPU tensor takes `film_resblock_reference`;
+a CUDA tensor launches the kernel or raises. The kernel has no backward, as
+the TPU kernel has none: with grad mode on and an input that requires
+grad, the launcher raises rather than fall back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..utils.blocks import conv1d, group_norm
+from ..utils.embeddings import mish
+from .build import load_library
+
+__all__ = ["fused_film_resblock", "film_resblock_op", "film_resblock_reference",
+           "load_film_resblock_library"]
+
+_LIB_NAME = "film_resblock"
+
+
+def film_resblock_reference(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
+                            *, K: int, groups: int, film_scale: bool = False,
+                            eps: float = 1e-5):
+    """Plain PyTorch version of the kernel's math (test oracle, CPU path).
+    x (B, H, Cin); emb (B, Cout) or (B, 2 Cout) with `film_scale`."""
+    if w1.shape[0] != K or K % 2 == 0:
+        raise ValueError(f"w1 {tuple(w1.shape)} must have an odd number K={K} of taps")
+    pad = (K // 2, K // 2)
+    cout = w1.shape[-1]
+    h = mish(group_norm(conv1d(x, w1, b1, padding=pad), groups, g1s, g1b, eps))
+    if film_scale:
+        h = emb[:, None, :cout] * h + emb[:, None, cout:]
+    else:
+        h = h + emb[:, None, :]
+    h = mish(group_norm(conv1d(h, w2, b2, padding=pad), groups, g2s, g2b, eps))
+    return h + (x if wskip is None else x @ wskip + bskip)
+
+
+# ---------------------------------------------------------------------------
+# The kernel
+@functools.lru_cache(maxsize=None)
+def load_film_resblock_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library; set its C types.
+    Cached: a launch must not re-read and re-hash the source."""
+    lib = load_library(_LIB_NAME)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.film_resblock_forward_f32.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
+    lib.film_resblock_forward_f32.restype = ci
+    lib.film_resblock_smem_bytes.argtypes = [ci] * 6
+    lib.film_resblock_smem_bytes.restype = ctypes.c_longlong
+    lib.film_resblock_max_smem_optin.argtypes = [ci]
+    lib.film_resblock_max_smem_optin.restype = ci
+    lib.film_resblock_error_string.argtypes = [ci]
+    lib.film_resblock_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _max_smem_optin(lib, device_index: int) -> int:
+    return lib.film_resblock_max_smem_optin(device_index)
+
+
+def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, H, Cin), got {tuple(x.shape)}")
+    B, H, Cin = x.shape
+    if B == 0 or H == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    Cout = ws[0].shape[-1]
+    if K % 2 == 0:
+        raise ValueError(f"K={K}: the kernel takes an odd number of taps (SAME padding)")
+    if Cout % 4 or Cout > 1024 or Cout % groups:
+        # one thread per 4 output channels
+        raise ValueError(f"Cout {Cout} must be a multiple of 4 and of groups {groups}, "
+                         f"at most 1024")
+    shapes = {"emb": (B, 2 * Cout if film_scale else Cout), "w1": (K, Cin, Cout),
+              "b1": (Cout,), "g1s": (Cout,), "g1b": (Cout,), "w2": (K, Cout, Cout),
+              "b2": (Cout,), "g2s": (Cout,), "g2b": (Cout,)}
+    named = dict(zip(shapes, (emb, *ws)))
+    if skip[0] is None:
+        if Cin != Cout or skip[1] is not None:
+            raise ValueError(f"without a skip conv Cin ({Cin}) must equal Cout ({Cout})")
+    else:
+        shapes.update(wskip=(Cin, Cout), bskip=(Cout,))
+        named.update(wskip=skip[0], bskip=skip[1])
+    for name, shape in shapes.items():
+        if tuple(named[name].shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(named[name].shape)}")
+    for name, t in (("x", x), *named.items()):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_film_resblock takes float32 only; {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *named.values())):
+        raise RuntimeError("fused_film_resblock has no backward: call it under "
+                           "torch.no_grad(), or use film_resblock_reference to differentiate")
+    smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, groups)
+    if smem < 0:
+        raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) is too tall for one thread block: "
+                         f"at most 8 rows per thread")
+    limit = _max_smem_optin(lib, x.device.index)
+    if smem > limit:
+        raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) needs {smem} bytes of shared "
+                         f"memory per block; the device allows {limit}")
+
+
+def fused_film_resblock(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
+                        *, K: int, groups: int, film_scale: bool = False, eps: float = 1e-5):
+    """Launch the CUDA kernel on the current stream. Returns a new
+    (B, H, Cout) tensor. Raises on any input the kernel does not take, if
+    an input needs a gradient, and if the launch fails."""
+    ws = (w1, b1, g1s, g1b, w2, b2, g2s, g2b)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_film_resblock runs on CUDA tensors, got {x.device}")
+    lib = load_film_resblock_library()
+    _check_kernel_args(lib, x, emb, ws, (wskip, bskip), K, groups, film_scale)
+    B, H, Cin = x.shape
+    Cout = w1.shape[-1]
+    out = torch.empty((B, H, Cout), device=x.device, dtype=x.dtype)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.film_resblock_forward_f32(
+            x.data_ptr(), emb.data_ptr(), *(w.data_ptr() for w in ws), ptr(wskip), ptr(bskip),
+            out.data_ptr(), B, H, Cin, Cout, K, groups, int(film_scale), eps, stream)
+    if err != 0:
+        raise RuntimeError(f"film_resblock kernel launch failed: "
+                           f"{lib.film_resblock_error_string(err).decode()} ({err})")
+    fused_film_resblock.launches += 1
+    return out
+
+
+fused_film_resblock.launches = 0
+
+
+def film_resblock_op(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
+                     *, K: int, groups: int, film_scale: bool = False, eps: float = 1e-5):
+    """The block as the model calls it: a CPU tensor takes the plain version;
+    any other device goes to the kernel, which launches or raises."""
+    fn = film_resblock_reference if x.device.type == "cpu" else fused_film_resblock
+    return fn(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip,
+              K=K, groups=groups, film_scale=film_scale, eps=eps)

@@ -1,1 +1,2 @@
 from .dd import DDPipeline
+from .diffuser import DiffuserPipeline

@@ -1,0 +1,140 @@
+"""Diffuser pipeline, planning path (counterpart of
+cleandiffuser_tpu/pipelines/diffuser.py).
+
+Joint (state, action) trajectory diffusion with a Janner U-Net,
+first-state inpainting (fix_mask[0, :obs_dim] = 1), classifier guidance
+from a `CumRewClassifier` on a half U-Net, and candidate-argmax plan
+selection.
+
+One `act` = one plan for E environments and K candidates each: the prior is
+tiled candidate-major (row k*E + e), the K*E trajectories are sampled with
+the classifier's gradient added at every step, scored by the classifier's
+log p at t = 0, and the best candidate of each environment gives its first
+action, clipped to [-1, 1]. With `use_pallas_block=True` every residual
+block of the diffusion U-Net runs the fused Hopper kernel on a CUDA device
+(ops/film_resblock.py); the classifier keeps the plain block, since it is
+differentiated. With `fused_update=True` every ddpm step runs the fused
+solver-update kernel (ops/solver_update.py). Training (`train_step`,
+`make_train_scan`) comes later.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..classifier import CumRewClassifier
+from ..diffusion import DiscreteDiffusionSDE
+from ..nn_classifier import HalfJannerUNet1d
+from ..nn_diffusion import JannerUNet1d
+from ..utils.jax_params import load_agent_params, load_jax_params
+
+__all__ = ["DiffuserPipeline"]
+
+
+class DiffuserPipeline:
+    def __init__(
+        self,
+        obs_dim: int,
+        act_dim: int,
+        horizon: int = 32,
+        model_dim: int = 32,
+        dim_mult: Sequence[int] = (1, 2, 2, 2),
+        diffusion_steps: int = 20,
+        sampling_steps: int = 20,
+        solver: str = "ddpm",
+        predict_noise: bool = True,
+        action_loss_weight: float = 10.0,
+        w_cg: float = 0.1,
+        temperature: float = 0.5,
+        use_pallas_block: bool = False,
+        fused_update: bool = False,
+        rng: int = 0,
+        device="cpu",
+    ):
+        self.obs_dim, self.act_dim, self.horizon = obs_dim, act_dim, horizon
+        self.sampling_steps, self.solver = sampling_steps, solver
+        self.w_cg, self.temperature = w_cg, temperature
+        # read when a plan function is built; plans are cached per value
+        self.fused_update = fused_update
+        self.device = torch.device(device)
+
+        in_dim = obs_dim + act_dim
+        nn_diffusion = JannerUNet1d(
+            in_dim, model_dim=model_dim, emb_dim=model_dim, dim_mult=dim_mult,
+            attention=False, kernel_size=5, use_pallas_block=use_pallas_block,
+            generator=torch.Generator().manual_seed(rng),
+        )
+        nn_classifier = HalfJannerUNet1d(
+            horizon, in_dim, out_dim=1, model_dim=model_dim, emb_dim=model_dim,
+            dim_mult=dim_mult, kernel_size=3, generator=torch.Generator().manual_seed(rng + 1),
+        )
+        self.classifier = CumRewClassifier(nn_classifier, device=self.device)
+
+        fix_mask = np.zeros((horizon, in_dim), np.float32)
+        fix_mask[0, :obs_dim] = 1.0
+        loss_weight = np.ones((horizon, in_dim), np.float32)
+        loss_weight[0, obs_dim:] = action_loss_weight
+
+        self.agent = DiscreteDiffusionSDE(
+            nn_diffusion, None, fix_mask=fix_mask, loss_weight=loss_weight,
+            classifier=self.classifier, diffusion_steps=diffusion_steps,
+            predict_noise=predict_noise, device=self.device,
+        )
+        self._plan_fns = {}
+        self._generator = torch.Generator(device=self.device).manual_seed(rng + 2)
+
+    def load_jax_params(self, params: dict, ema_params: dict, cls_params: dict,
+                        cls_ema_params: dict):
+        """Load the JAX pipeline's `agent.state.params`, `agent.state.ema_params`,
+        `classifier.state.params` and `classifier.state.ema_params` (nested
+        dicts of numpy arrays)."""
+        load_agent_params(self.agent.params, params)
+        load_agent_params(self.agent.ema_params, ema_params)
+        load_jax_params(self.classifier.params, cls_params["params"])
+        load_jax_params(self.classifier.ema_params, cls_ema_params["params"])
+
+    # ------------------------------------------------------------------
+    def _make_plan_fn(self, num_envs: int, num_candidates: int):
+        E, K = num_envs, num_candidates
+        H, O, A = self.horizon, self.obs_dim, self.act_dim
+        sample_fn = self.agent.build_sample_fn(
+            solver=self.solver, sample_steps=self.sampling_steps, cfg_mode="uncond",
+            use_cg=True, final_logp=True, fused_update=self.fused_update)
+
+        def plan(params, cls_params, generator, obs_normed, noise=None):
+            prior = torch.zeros((E, H, O + A), device=obs_normed.device)
+            prior[:, 0, :O] = obs_normed
+            prior = prior.repeat(K, 1, 1)  # (K*E, H, O+A), candidate-major
+            traj, log = sample_fn(params, generator, prior, w_cg=self.w_cg,
+                                  temperature=self.temperature, noise=noise,
+                                  cls_params=cls_params)
+            logp = log["log_p"].reshape(K, E, -1).sum(-1)  # (K, E)
+            idx = logp.argmax(0)
+            traj = traj.reshape(K, E, H, O + A)
+            envs = torch.arange(E, device=idx.device)
+            best = traj[idx, envs]  # (E, H, O+A)
+            act = torch.clamp(best[:, 0, O:], -1.0, 1.0)
+            return act, {"traj": best, "logp": logp[idx, envs], "idx": idx,
+                         "candidates": traj, "candidate_logp": logp}
+
+        return plan
+
+    @torch.no_grad()
+    def act(self, obs_normed, num_candidates: int = 64,
+            generator: Optional[torch.Generator] = None, use_ema: bool = True, noise=None):
+        """Plan from normalised observations (E, obs_dim). Returns the
+        actions (E, act_dim) and a dict: the chosen plan "traj" (E, horizon,
+        obs_dim + act_dim), its "logp" (E,), the chosen candidate "idx" (E,),
+        and all "candidates" (K, E, horizon, obs_dim + act_dim) with their
+        "candidate_logp" (K, E). `noise` is the sampler's optional explicit
+        noise (diffusion/diffusionsde.py), of the K*E prior's shape."""
+        obs = torch.as_tensor(obs_normed, dtype=torch.float32, device=self.device)
+        key = (obs.shape[0], num_candidates, self.fused_update)
+        if key not in self._plan_fns:
+            self._plan_fns[key] = self._make_plan_fn(obs.shape[0], num_candidates)
+        params = self.agent.ema_params if use_ema else self.agent.params
+        return self._plan_fns[key](params, self.classifier.inference_params,
+                                   generator or self._generator, obs, noise)

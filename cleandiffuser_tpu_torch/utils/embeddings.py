@@ -46,8 +46,8 @@ def sinusoidal_features(x, dim: int):
 
 
 def mish(x):
-    """Mish activation: x * tanh(softplus(x))."""
-    return x * torch.tanh(F.softplus(x))
+    """Mish activation: x * tanh(softplus(x)), one fused op."""
+    return F.mish(x)
 
 
 class PositionalEmbedding(nn.Module):

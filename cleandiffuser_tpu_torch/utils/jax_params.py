@@ -9,10 +9,20 @@ out. Nothing here imports JAX.
 Naming. Each port module that names its children differently from flax
 carries a `JAX_NAMES` table (child attribute -> flax name); an
 `nn.ModuleList` child maps through a format string (`"PallasDiTBlock_{}"`).
-Leaves keep their names, except that an `nn.Linear` weight is flax's Dense
-`kernel`, stored transposed: flax keeps `(in, out)`, torch `(out, in)`.
-The fused DiT block keeps its flat weights in the flax `(in, out)`
-orientation, so they copy unchanged.
+Leaves keep their names, except for two torch layers:
+
+- an `nn.Linear` weight is flax's Dense `kernel`, stored transposed: flax
+  keeps `(in, out)`, torch `(out, in)`;
+- an `nn.ConvTranspose1d` weight is flax's `ConvTranspose` kernel: flax
+  keeps `(K, Cin, Cout)` and, with `transpose_kernel=False`, correlates
+  where torch convolves, so torch's `(Cin, Cout, K)` weight is the kernel
+  flipped along K: `w = kernel[::-1].transpose(1, 2, 0)`.
+
+flax `Conv`, `GroupNorm` and `LayerNorm` map onto the port's channels-last
+`Conv1d`, `GroupNorm` and `LayerNorm` (utils/blocks.py), which keep flax's
+names and layouts (`kernel` (K, Cin, Cout), `bias`, `scale`), so their
+leaves copy unchanged, as do the fused DiT block's flat weights, kept in
+the flax `(in, out)` orientation.
 
 Block layouts. A DiT1d built with `use_pallas_block=True` stores each block
 flat (`PallasDiTBlock_i`: wmod, bmod, wqkv, ...); one built without stores
@@ -88,9 +98,26 @@ def _leaves(tree: dict, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], bool]:
-    """flax path of the port's state_dict entry `key`, and whether the array
-    is transposed between the two (an nn.Linear weight)."""
+def _to_torch(arr: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "dense":
+        return arr.T
+    if layout == "conv_transpose":
+        return arr[::-1].transpose(1, 2, 0)
+    return arr
+
+
+def _to_jax(arr: np.ndarray, layout: str) -> np.ndarray:
+    if layout == "dense":
+        return arr.T
+    if layout == "conv_transpose":
+        return arr.transpose(2, 0, 1)[::-1]
+    return arr
+
+
+def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
+    """flax path of the port's state_dict entry `key`, and how the array's
+    layout differs between the two: "dense" (an nn.Linear weight),
+    "conv_transpose" (an nn.ConvTranspose1d weight) or "" (the same)."""
     *names, leaf = key.split(".")
     path, m, i = [], model, 0
     while i < len(names):
@@ -104,9 +131,10 @@ def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], bool]:
             path.append(table.get(names[i], names[i]))
             m = child
             i += 1
-    if isinstance(m, nn.Linear):
-        return tuple(path) + ("kernel" if leaf == "weight" else leaf,), leaf == "weight"
-    return tuple(path) + (leaf,), False
+    layout = {nn.Linear: "dense", nn.ConvTranspose1d: "conv_transpose"}.get(type(m), "")
+    if layout and leaf == "weight":
+        return tuple(path) + ("kernel",), layout
+    return tuple(path) + (leaf,), ""
 
 
 def load_jax_params(model: nn.Module, tree: dict) -> None:
@@ -116,11 +144,10 @@ def load_jax_params(model: nn.Module, tree: dict) -> None:
     leaves = dict(_leaves(_flatten_blocks(tree)))
     state = {}
     for key, ref in model.state_dict().items():
-        path, transpose = _jax_path(model, key)
+        path, layout = _jax_path(model, key)
         if path not in leaves:
             raise KeyError(f"JAX params have no {'/'.join(path)} for {key}")
-        arr = np.asarray(leaves.pop(path), dtype=np.float32)
-        arr = arr.T if transpose else arr
+        arr = _to_torch(np.asarray(leaves.pop(path), dtype=np.float32), layout)
         if arr.shape != tuple(ref.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} does not fit {key} "
                              f"{tuple(ref.shape)}")
@@ -135,12 +162,11 @@ def jax_params_of(model: nn.Module) -> dict:
     in the flat `PallasDiTBlock_i` layout)."""
     tree: dict = {}
     for key, t in model.state_dict().items():
-        path, transpose = _jax_path(model, key)
-        arr = t.detach().cpu().numpy()
+        path, layout = _jax_path(model, key)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transpose else arr)
+        node[path[-1]] = np.ascontiguousarray(_to_jax(t.detach().cpu().numpy(), layout))
     return tree
 
 

@@ -1,0 +1,245 @@
+"""The port's Janner U-Net pieces (ops/film_resblock.py,
+nn_diffusion/jannerunet.py, nn_classifier/half_nets.py, classifier/base.py)
+against the JAX package's, on the same numpy-seeded weights and inputs.
+
+On the CPU the fused block runs its plain PyTorch version; the CUDA kernel
+itself is held against that plain version in tests/test_torch_kernels.py,
+on a GPU. Tolerances: both sides compute in float32 and differ in the
+order of sums (conv taps, GroupNorm statistics: flax takes E[x^2]-E[x]^2,
+the port two passes); measured gaps are ~1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cleandiffuser_tpu.classifier import CumRewClassifier as JaxCumRewClassifier
+from cleandiffuser_tpu.classifier import MSEClassifier as JaxMSEClassifier
+from cleandiffuser_tpu.nn_classifier import HalfJannerUNet1d as JaxHalfJannerUNet1d
+from cleandiffuser_tpu.nn_diffusion import jannerunet as jax_unet
+from cleandiffuser_tpu.ops.film_resblock import film_resblock_reference as jax_film_reference
+from cleandiffuser_tpu_torch.classifier import CumRewClassifier, MSEClassifier
+from cleandiffuser_tpu_torch.nn_classifier import HalfJannerUNet1d
+from cleandiffuser_tpu_torch.nn_diffusion import jannerunet as unet
+from cleandiffuser_tpu_torch.ops import film_resblock as ops
+from cleandiffuser_tpu_torch.utils.jax_params import jax_params_of, load_jax_params
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+B, H = 3, 8
+
+
+def _np(rng, *shape, std=1.0):
+    return (rng.standard_normal(shape) * std).astype(np.float32)
+
+
+def _seeded(tree, seed, std=0.3):
+    """Every leaf refilled with seeded normals: fresh GroupNorm scales (1)
+    and biases (0) would hide a swapped or misplaced leaf."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(lambda a: _np(rng, *np.shape(a), std=std), tree)
+
+
+def _jax(tree):
+    return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def _film_inputs(Cin, Cout, K, film_scale, skip, seed=0):
+    rng = np.random.default_rng(seed)
+    x = _np(rng, B, H, Cin)
+    emb = _np(rng, B, 2 * Cout if film_scale else Cout, std=0.5)
+    ws = [_np(rng, K, Cin, Cout, std=(K * Cin) ** -0.5), _np(rng, Cout, std=0.1),
+          1 + _np(rng, Cout, std=0.1), _np(rng, Cout, std=0.1),
+          _np(rng, K, Cout, Cout, std=(K * Cout) ** -0.5), _np(rng, Cout, std=0.1),
+          1 + _np(rng, Cout, std=0.1), _np(rng, Cout, std=0.1)]
+    sk = [_np(rng, Cin, Cout, std=Cin ** -0.5), _np(rng, Cout, std=0.1)] if skip else [None, None]
+    return x, emb, ws, sk
+
+
+@pytest.mark.parametrize("film_scale", [False, True], ids=["film-add", "film-scale"])
+@pytest.mark.parametrize("Cin,skip", [(5, True), (16, False)], ids=["skip-conv", "identity"])
+def test_plain_version_matches_jax_reference(film_scale, Cin, skip):
+    """torch film_resblock_reference == JAX film_resblock_reference, whose
+    GroupNorm eps is 1e-5, in both FiLM modes, with and without a skip."""
+    Cout, K = 16, 5
+    x, emb, ws, sk = _film_inputs(Cin, Cout, K, film_scale, skip)
+    want = jax_film_reference(
+        jnp.asarray(x), jnp.asarray(emb), *map(jnp.asarray, ws),
+        *(None if a is None else jnp.asarray(a) for a in sk),
+        K=K, groups=4, film_scale=film_scale)
+    got = ops.film_resblock_reference(
+        torch.from_numpy(x), torch.from_numpy(emb), *map(torch.from_numpy, ws),
+        *(None if a is None else torch.from_numpy(a) for a in sk),
+        K=K, groups=4, film_scale=film_scale, eps=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+class _Holder(torch.nn.Module):
+    """One port module under a given flax name."""
+
+    def __init__(self, name, module):
+        super().__init__()
+        self.m = module
+        self.JAX_NAMES = {"m": name}
+
+
+def _flax_vs_port(jmod, port, inputs, seed, name=None, *, kw=None):
+    """Init the flax module, reseed its params, load them into the port
+    module, and return (flax output, port output, seeded params)."""
+    args = [jnp.asarray(a) for a in inputs]
+    params = _seeded(jmod.init(jax.random.PRNGKey(0), *args), seed)
+    want = np.asarray(jmod.apply(_jax(params), *args, **(kw or {})))
+    holder = _Holder(name or f"{type(jmod).__name__}_0", port)
+    load_jax_params(holder, {holder.JAX_NAMES["m"]: params["params"]})
+    got = port(*(torch.from_numpy(a) for a in inputs))
+    return want, got.detach().numpy(), params
+
+
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["flax-style", "fused-plain"])
+@pytest.mark.parametrize("Cin,Cout,K", [(5, 16, 5), (16, 16, 3), (32, 8, 5)],
+                         ids=["skip-K5", "identity-K3", "skip-2groups"])
+def test_residual_block_matches_flax(use_kernel, Cin, Cout, K):
+    """ResidualBlock1d (eps 1e-6, groups min(8, C/4)) on converted weights,
+    through the flax-style layers and through the fused block's plain
+    version."""
+    rng = np.random.default_rng(1)
+    x, emb = _np(rng, B, H, Cin), _np(rng, B, 12)
+    jm = jax_unet.ResidualBlock1d(Cout, 12, K)
+    port = unet.ResidualBlock1d(Cin, Cout, 12, K, use_kernel=use_kernel)
+    want, got, params = _flax_vs_port(jm, port, (x, emb), 2)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    names = set(params["params"])
+    assert names == {"Conv_0", "GroupNorm_0", "Dense_0", "Conv_1", "GroupNorm_1"} | (
+        {"Conv_2"} if Cin != Cout else set())
+
+
+def test_downsample_matches_flax():
+    rng = np.random.default_rng(3)
+    want, got, _ = _flax_vs_port(jax_unet.Downsample1d(12), unet.Downsample1d(12),
+                                 (_np(rng, B, H, 12),), 4)
+    assert got.shape == (B, H // 2, 12)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_upsample_matches_flax_through_the_flip():
+    """flax ConvTranspose(4, stride 2, SAME) == torch ConvTranspose1d(4, 2, 1)
+    on the K-flipped kernel; without the flip the outputs differ by O(1)."""
+    rng = np.random.default_rng(5)
+    x = _np(rng, B, H, 12)
+    port = unet.Upsample1d(12)
+    want, got, params = _flax_vs_port(jax_unet.Upsample1d(12), port, (x,), 6)
+    assert got.shape == (B, 2 * H, 12)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    kernel = params["params"]["ConvTranspose_0"]["kernel"]
+    np.testing.assert_array_equal(port.conv.weight.detach().numpy(),
+                                  kernel[::-1].transpose(1, 2, 0))
+    # the export undoes the flip
+    np.testing.assert_array_equal(
+        jax_params_of(_Holder("U", port))["U"]["ConvTranspose_0"]["kernel"], kernel)
+    with torch.no_grad():  # the kernel copied without the flip
+        port.conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(kernel.transpose(1, 2, 0))))
+        unflipped = port(torch.from_numpy(x)).numpy()
+    assert np.abs(unflipped - want).max() > 0.1
+
+
+def test_converter_round_trips_conv_transpose():
+    holder = _Holder("Upsample1d_0", unet.Upsample1d(6, torch.Generator().manual_seed(0)))
+    tree = jax_params_of(holder)
+    fresh = _Holder("Upsample1d_0", unet.Upsample1d(6, torch.Generator().manual_seed(1)))
+    load_jax_params(fresh, tree)
+    for a, b in zip(holder.state_dict().values(), fresh.state_dict().values()):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_linear_attention_matches_flax():
+    rng = np.random.default_rng(7)
+    want, got, _ = _flax_vs_port(jax_unet.LinearAttention(16), unet.LinearAttention(16),
+                                 (_np(rng, B, H, 16),), 8)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+UNET = dict(model_dim=16, emb_dim=16, dim_mult=(1, 2), kernel_size=5)
+
+
+@pytest.mark.parametrize("variant", ["plain", "fused", "attention", "layernorm"])
+def test_jannerunet_matches_flax(variant):
+    """The whole U-Net at model_dim 16, dim_mult (1, 2), horizon 8, on
+    converted weights, with integer timesteps and a condition embedding."""
+    rng = np.random.default_rng(9)
+    D = 7
+    x, emb = _np(rng, B, H, D), _np(rng, B, 16, std=0.3)
+    t = np.array([0, 7, 19], np.int32)
+    opts = dict(attention=variant == "attention",
+                norm_type="layernorm" if variant == "layernorm" else "groupnorm")
+    jm = jax_unet.JannerUNet1d(in_dim=D, **UNET, **opts)
+    port = unet.JannerUNet1d(D, **UNET, **opts, use_pallas_block=variant == "fused")
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(emb))
+    params = _seeded(jm.init(jax.random.PRNGKey(0), *args), 10, std=0.2)
+    want = np.asarray(jm.apply(_jax(params), *args))
+    load_jax_params(port, params["params"])
+    got = port(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(emb)).detach().numpy()
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    # and the export is the flax tree's structure, leaf for leaf
+    exported = jax_params_of(port)
+    assert jax.tree_util.tree_structure(exported) == \
+        jax.tree_util.tree_structure(params["params"])
+    for a, b in zip(jax.tree_util.tree_leaves(exported),
+                    jax.tree_util.tree_leaves(params["params"])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_jannerunet_fused_block_counts_no_launch_on_cpu():
+    """With use_pallas_block on a CPU tensor every block takes the plain
+    version: the kernel's launch count does not move."""
+    net = unet.JannerUNet1d(7, **UNET, use_pallas_block=True)
+    before = ops.fused_film_resblock.launches
+    net(torch.zeros(2, H, 7), torch.zeros(2, dtype=torch.int32))
+    assert ops.fused_film_resblock.launches == before
+
+
+def _half_unet(seed=11):
+    rng = np.random.default_rng(seed)
+    D = 7
+    x = _np(rng, B, H, D)
+    t = np.array([0, 5, 19], np.int32)
+    jm = JaxHalfJannerUNet1d(horizon=H, in_dim=D, out_dim=1, model_dim=16, emb_dim=16,
+                             dim_mult=(1, 2), kernel_size=3)
+    params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t)), seed + 1,
+                     std=0.2)
+    port = HalfJannerUNet1d(H, D, 1, kernel_size=3, model_dim=16, emb_dim=16, dim_mult=(1, 2))
+    load_jax_params(port, params["params"])
+    return jm, params, port, x, t
+
+
+def test_half_jannerunet_matches_flax():
+    jm, params, port, x, t = _half_unet()
+    want = np.asarray(jm.apply(_jax(params), jnp.asarray(x), jnp.asarray(t)))
+    got = port(torch.from_numpy(x), torch.from_numpy(t)).detach().numpy()
+    assert got.shape == (B, 1) and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("kind", ["cumrew", "mse"])
+def test_classifier_gradients_match_jax_grad(kind):
+    """logp and d logp / dx of the classifier against the JAX classifier's
+    `gradients` (jax.grad), on the same weights; from inside no_grad, as the
+    sampler calls it. 1e-5 on the gradient: a backward pass through the
+    same float32 math."""
+    jm, params, port, x, t = _half_unet(13)
+    c = np.random.default_rng(14).standard_normal((B, 1)).astype(np.float32)
+    if kind == "cumrew":
+        jc, tc = JaxCumRewClassifier(jm), CumRewClassifier(port)
+    else:
+        jc, tc = JaxMSEClassifier(jm, temperature=2.0), MSEClassifier(port, temperature=2.0)
+    lp_j, g_j = jc.gradients(_jax(params), jnp.asarray(x), jnp.asarray(t), jnp.asarray(c))
+    with torch.no_grad():
+        lp_t, g_t = tc.gradients(tc.inference_params, torch.from_numpy(x),
+                                 torch.from_numpy(t), torch.from_numpy(c))
+    assert not (lp_t.requires_grad or g_t.requires_grad)
+    assert np.abs(np.asarray(g_j)).max() > 1e-3
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=TOL, rtol=TOL)

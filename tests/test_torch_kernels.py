@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from cleandiffuser_tpu_torch.nn_diffusion import DiT1d
+from cleandiffuser_tpu_torch.nn_diffusion import DiT1d, JannerUNet1d
 from cleandiffuser_tpu_torch.ops import dit_block as ops
+from cleandiffuser_tpu_torch.ops import film_resblock as film
+from cleandiffuser_tpu_torch.ops import solver_update as su
 
 # the same f32 math on both sides, summed in another order: a few 1e-6
 # relative at these widths
@@ -94,3 +96,107 @@ def test_dit1d_through_kernel_matches_plain_with_gradient(cuda):
     torch.testing.assert_close(outs[0], outs[1], atol=TOL, rtol=TOL)
     for g_k, g_p in zip(*grads):
         torch.testing.assert_close(g_k, g_p, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K3: the fused FiLM residual block
+def _film_inputs(dev, B, H, Cin, Cout, K, film_scale, seed=3):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    x = f(B, H, Cin)
+    emb = f(B, 2 * Cout if film_scale else Cout, std=0.5)
+    ws = [f(K, Cin, Cout, std=(K * Cin) ** -0.5), f(Cout, std=0.1), 1 + f(Cout, std=0.1),
+          f(Cout, std=0.1), f(K, Cout, Cout, std=(K * Cout) ** -0.5), f(Cout, std=0.1),
+          1 + f(Cout, std=0.1), f(Cout, std=0.1)]
+    skip = [f(Cin, Cout, std=Cin ** -0.5), f(Cout, std=0.1)] if Cin != Cout else [None, None]
+    return x, emb, ws, skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (7, 32, 23, 32, 5, 8, False), (6, 32, 32, 32, 5, 8, False), (5, 4, 512, 128, 5, 8, False),
+    (9, 4, 256, 256, 5, 8, False), (3, 8, 256, 64, 5, 8, False), (11, 16, 128, 32, 5, 8, False),
+    (4, 8, 16, 16, 3, 4, True), (5, 16, 23, 48, 3, 8, True)],
+    ids=["cin23", "h32", "cin512", "c256", "h8-skip", "ragged-B", "film-scale",
+         "cout48-film-scale"])
+def test_film_resblock_kernel_matches_plain(cuda, shape):
+    """Shapes of the shipped U-Net (Cin = 23 is not a multiple of 4) and
+    others, at a batch that does not fill the last thread block, both FiLM
+    modes, with and without the skip conv; eps 1e-6 as the U-Net uses."""
+    B, H, Cin, Cout, K, G, film_scale = shape
+    x, emb, ws, skip = _film_inputs(cuda, B, H, Cin, Cout, K, film_scale)
+    kw = dict(K=K, groups=G, film_scale=film_scale, eps=1e-6)
+    before = film.fused_film_resblock.launches
+    out = film.fused_film_resblock(x, emb, *ws, *skip, **kw)
+    torch.cuda.synchronize()
+    assert film.fused_film_resblock.launches == before + 1
+    torch.testing.assert_close(out, film.film_resblock_reference(x, emb, *ws, *skip, **kw),
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+def test_film_resblock_kernel_rejects_what_it_does_not_take(cuda):
+    x, emb, ws, skip = _film_inputs(cuda, 2, 8, 16, 32, 5, False)
+    kw = dict(K=5, groups=8)
+    with pytest.raises(TypeError):
+        film.fused_film_resblock(x.double(), emb, *ws, *skip, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        film.fused_film_resblock(x.transpose(0, 1).contiguous().transpose(0, 1), emb, *ws,
+                                 *skip, **kw)
+    with pytest.raises(ValueError, match="odd"):
+        film.fused_film_resblock(x, emb, *ws, *skip, K=4, groups=8)
+    with pytest.raises(RuntimeError, match="backward"):
+        film.fused_film_resblock(x.requires_grad_(True), emb, *ws, *skip, **kw)
+
+
+@pytest.mark.gpu
+def test_jannerunet_through_kernel_matches_plain(cuda):
+    """A JannerUNet1d whose blocks launch the kernel against the same net on
+    the flax-style path: 8 launches per call, one per residual block."""
+    nets = [JannerUNet1d(7, model_dim=16, emb_dim=16, dim_mult=(1, 2), kernel_size=5,
+                         use_pallas_block=k, generator=torch.Generator().manual_seed(0))
+            for k in (True, False)]
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for p_k, p_p in zip(nets[0].parameters(), nets[1].parameters()):
+            v = torch.from_numpy((rng.standard_normal(p_k.shape) * 0.2).astype(np.float32))
+            p_k.copy_(v)
+            p_p.copy_(v)
+    nets = [n.to(cuda) for n in nets]
+    x = torch.from_numpy(rng.standard_normal((6, 8, 7)).astype(np.float32)).to(cuda)
+    t = torch.tensor([0, 3, 7, 11, 15, 19], dtype=torch.int32, device=cuda)
+    before = film.fused_film_resblock.launches
+    with torch.no_grad():
+        out_k, out_p = nets[0](x, t), nets[1](x, t)
+    assert film.fused_film_resblock.launches - before == len(nets[0].blocks) == 8
+    torch.testing.assert_close(out_k, out_p, atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# K2: the fused solver update
+@pytest.mark.gpu
+def test_solver_update_kernel_without_noise_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    xt, eps = (torch.from_numpy(rng.standard_normal((100, 32, 23)).astype(np.float32)).to(cuda)
+               for _ in range(2))
+    coefs = (1.07, -0.31, 0.0)
+    out = su.fused_solver_update(xt, eps, coefs, 1)
+    torch.testing.assert_close(out, su.solver_update_reference(xt, eps, coefs),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_solver_update_kernel_noise_is_seeded_standard_normal(cuda):
+    """z = (out - c_xt*xt - c_eps*eps) / c_noise over 2.4 M draws: mean and
+    std within 5e-3 of N(0, 1) (about 7 standard errors); the seed fixes
+    the draws."""
+    rng = np.random.default_rng(5)
+    xt, eps = (torch.from_numpy(rng.standard_normal((3200, 32, 23)).astype(np.float32)).to(cuda)
+               for _ in range(2))
+    coefs = (0.98, -0.05, 0.2)
+    a = su.fused_solver_update(xt, eps, coefs, 11)
+    torch.testing.assert_close(a, su.fused_solver_update(xt, eps, coefs, 11), atol=0, rtol=0)
+    assert not torch.equal(a, su.fused_solver_update(xt, eps, coefs, 12))
+    z = ((a.double() - coefs[0] * xt.double() - coefs[1] * eps.double()) / coefs[2])
+    assert abs(z.mean().item()) < 5e-3 and abs(z.std().item() - 1) < 5e-3

@@ -32,6 +32,37 @@ def test_port_imports_no_jax(path):
     assert not FORBIDDEN & set(_imported_roots(path))
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_triton_only_inside_functions(path):
+    """Triton is imported where a kernel is launched, never at a module's
+    top level: the CPU has no triton, and the tests import every module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [
+                node.module or ""]
+            assert not any(n.split(".")[0] == "triton" for n in names)
+
+
+def test_cpu_plans_import_no_triton():
+    """A Diffuser plan on the CPU with every kernel switch on (fused
+    blocks, fused solver update) takes the plain versions and never imports
+    triton; a fresh interpreter, so that nothing else imported it first."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline\n"
+        "p = DiffuserPipeline(5, 3, horizon=8, model_dim=16, dim_mult=(1, 2), sampling_steps=2,"
+        " use_pallas_block=True, fused_update=True)\n"
+        "a, _ = p.act(np.zeros((2, 5), np.float32), num_candidates=2)\n"
+        "assert a.shape == (2, 3)\n"
+        "assert 'triton' not in sys.modules, 'triton imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _run_chip_smoke(cwd: Path):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
                           text=True, timeout=300)
