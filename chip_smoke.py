@@ -11,14 +11,16 @@ Phases, each of which raises on failure (exit code != 0):
 2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/film_resblock.cu)
                with nvcc from the sources in this checkout, one nvcc each, in
                parallel; prints the seconds and the compiler's register /
-               shared-memory report; compiles the Triton solver-update kernel.
+               shared-memory report; counts the tensor-core instructions
+               (HMMA / HGMMA) in film_resblock's SASS and fails if there are
+               none; compiles the Triton solver-update kernel.
 3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
                (B=100, H=32, D=320, 10 heads, f32); error and both times.
 4. film_resblock - K3 against its plain version at every distinct block
                shape of the shipped Diffuser U-Net (B=3200 candidate
-               trajectories, K=5, 8 groups, eps 1e-6): error and both times
-               per shape, and their sums over the 16 blocks of one U-Net
-               call.
+               trajectories, K=5, 8 groups, eps 1e-6): error, both times
+               and both TFLOP/s per shape (flops from the shape), and their
+               sums over the 16 blocks of one U-Net call.
 5. solver_update - K2 against its plain version at the plan's state shape
                (3200, 32, 23) with a real ddpm step's coefficients: exact
                without noise, N(0, 1) moments of the in-kernel noise over
@@ -194,6 +196,11 @@ def build_kernels(dev):
         for line in build.build_log(name).splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "smem")):
                 print("  ptxas:", line.strip())
+    mma = [ln for ln in build.sass("film_resblock").splitlines() if "HMMA" in ln or "HGMMA" in ln]
+    print(f"film_resblock SASS: {len(mma)} tensor-core instructions (HMMA/HGMMA), e.g. "
+          f"{mma[0].split(';')[0].split('*/')[-1].strip() if mma else '-'}")
+    if not mma:
+        raise AssertionError("film_resblock's SASS has no tensor-core instruction")
     x = torch.zeros(1024, device=dev)
     for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
         t0 = time.perf_counter()
@@ -233,6 +240,12 @@ def check_kernel(dev) -> dict:
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
+def film_gflop(B, H, Cin, Cout, K) -> float:
+    """Multiply-adds x 2 of one block: conv1, conv2 and the 1x1 skip conv."""
+    skip = Cin if Cin != Cout else 0
+    return 2 * B * H * Cout * (K * Cin + K * Cout + skip) / 1e9
+
+
 def check_film_kernel(dev) -> dict:
     phase("film_resblock vs plain version")
     B, K, G = 3200, 5, 8
@@ -266,11 +279,16 @@ def check_film_kernel(dev) -> dict:
         ms, plain_ms, times = timed[(H, Cin, Cout)] = time_in_turns(
             lambda: fused_film_resblock(*args, **kw),
             lambda: film_resblock_reference(*args, **kw), 20)
+        gf = film_gflop(B, H, Cin, Cout, K)
         print(f"  device time per block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({gf:.3f} GFLOP: kernel {gf / ms:.2f}, plain {gf / plain_ms:.2f} TFLOP/s) "
               f"(runs {times['kernel']} / {times['plain']})", flush=True)
-    print(f"sum over the {len(UNET_BLOCKS)} blocks of one U-Net call: kernel "
-          f"{sum(timed[s][0] for s in UNET_BLOCKS):.4f} ms, plain "
-          f"{sum(timed[s][1] for s in UNET_BLOCKS):.4f} ms; most frequent shape {most_frequent}")
+    total = {k: sum(timed[s][i] for s in UNET_BLOCKS) for i, k in enumerate(("kernel", "plain"))}
+    gf = sum(film_gflop(B, *s, K) for s in UNET_BLOCKS)
+    print(f"sum over the {len(UNET_BLOCKS)} blocks of one U-Net call ({gf:.2f} GFLOP): kernel "
+          f"{total['kernel']:.4f} ms ({gf / total['kernel']:.2f} TFLOP/s), plain "
+          f"{total['plain']:.4f} ms ({gf / total['plain']:.2f} TFLOP/s); most frequent shape "
+          f"{most_frequent}")
     ms, plain_ms, _ = timed[most_frequent]
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 

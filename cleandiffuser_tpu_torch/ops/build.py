@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_libraries", "load_library",
-           "build_log"]
+           "build_log", "sass"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -53,6 +53,14 @@ def build_log(name: str) -> str:
     the build of `csrc/<name>.cu`, or "" if it has not been built here."""
     log = _library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass(name: str) -> str:
+    """The SASS of the built `csrc/<name>.cu` library, from the toolkit's
+    `cuobjdump -sass` (the card's machine code: which instructions run)."""
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_library_path(name))], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def build_libraries(names) -> dict:

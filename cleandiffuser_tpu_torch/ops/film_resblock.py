@@ -3,9 +3,8 @@ plain PyTorch version.
 
 Counterpart of cleandiffuser_tpu/ops/film_resblock.py, whose Pallas TPU
 kernel `film_resblock` is replaced by the CUDA C++ kernel in
-`csrc/film_resblock.cu` (built for sm_90a, bound with ctypes; the source
-note there says what bounds it on the card and how the design answers that).
-The math of `ResidualBlock1d` (nn_diffusion/jannerunet.py), channels-last:
+`csrc/film_resblock.cu` (built for sm_90a, bound with ctypes). The math of
+`ResidualBlock1d` (nn_diffusion/jannerunet.py), channels-last:
 
     h   = mish(GN(conv1(x)))                    conv: K taps, SAME padding
     h   = h + emb   (or emb[:C] * h + emb[C:] with `film_scale`)
@@ -16,8 +15,17 @@ GroupNorm takes its statistics per sample over (H, C/groups), two-pass.
 Its eps is an argument: the TPU kernel hard-codes 1e-5, while the flax
 `nn.GroupNorm` of the U-Net uses 1e-6. The FiLM projection
 `Dense(mish(t_emb))` is computed outside, as in the reference. Weights keep
-the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout), so the kernel
-reads them as they are stored.
+the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout): the kernel
+stages them into shared memory as they are stored.
+
+The kernel runs both convs and the skip as implicit GEMMs on the tensor
+cores (`mma.sync` TF32) in 3xTF32: every operand is split inside the
+kernel into a TF32 high part and a TF32 remainder, and the three leading
+cross products are summed in f32, which keeps f32-class accuracy. A thread
+block owns the output rows of whole samples (64 rows, 32 when Cout > 256)
+and every output channel; the source note says what bounds it on the card
+and how the design answers that. So the kernel takes Cout a multiple of 8
+and of groups, at most 512, and H dividing the block's rows.
 
 Dispatch (`film_resblock_op`): a CPU tensor takes `film_resblock_reference`;
 a CUDA tensor launches the kernel or raises. The kernel has no backward, as
@@ -70,6 +78,8 @@ def load_film_resblock_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.film_resblock_forward_f32.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
     lib.film_resblock_forward_f32.restype = ci
+    lib.film_resblock_block_rows.argtypes = [ci]
+    lib.film_resblock_block_rows.restype = ci
     lib.film_resblock_smem_bytes.argtypes = [ci] * 6
     lib.film_resblock_smem_bytes.restype = ctypes.c_longlong
     lib.film_resblock_max_smem_optin.argtypes = [ci]
@@ -93,10 +103,9 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
     Cout = ws[0].shape[-1]
     if K % 2 == 0:
         raise ValueError(f"K={K}: the kernel takes an odd number of taps (SAME padding)")
-    if Cout % 4 or Cout > 1024 or Cout % groups:
-        # one thread per 4 output channels
-        raise ValueError(f"Cout {Cout} must be a multiple of 4 and of groups {groups}, "
-                         f"at most 1024")
+    if Cout % 8 or Cout > 512 or Cout % groups:
+        raise ValueError(f"Cout {Cout} must be a multiple of 8 (the MMA's n) and of groups "
+                         f"{groups}, at most 512 (a thread block holds every channel)")
     shapes = {"emb": (B, 2 * Cout if film_scale else Cout), "w1": (K, Cin, Cout),
               "b1": (Cout,), "g1s": (Cout,), "g1b": (Cout,), "w2": (K, Cout, Cout),
               "b2": (Cout,), "g2s": (Cout,), "g2b": (Cout,)}
@@ -120,10 +129,14 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *named.values())):
         raise RuntimeError("fused_film_resblock has no backward: call it under "
                            "torch.no_grad(), or use film_resblock_reference to differentiate")
+    rows = lib.film_resblock_block_rows(Cout)
+    if rows % H:
+        raise ValueError(f"H={H} must divide the {rows} output rows of a thread block at "
+                         f"Cout={Cout}: a block owns whole samples")
     smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, groups)
     if smem < 0:
-        raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) is too tall for one thread block: "
-                         f"at most 8 rows per thread")
+        raise ValueError(f"the kernel does not take (H={H}, Cin={Cin}, Cout={Cout}, K={K}, "
+                         f"groups={groups})")
     limit = _max_smem_optin(lib, x.device.index)
     if smem > limit:
         raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) needs {smem} bytes of shared "

@@ -100,14 +100,15 @@ def test_dit1d_through_kernel_matches_plain_with_gradient(cuda):
 
 # ---------------------------------------------------------------------------
 # K3: the fused FiLM residual block
-def _film_inputs(dev, B, H, Cin, Cout, K, film_scale, seed=3):
+def _film_inputs(dev, B, H, Cin, Cout, K, film_scale, seed=3, x_offset=0.0, w_mean=0.0):
     rng = np.random.default_rng(seed)
-    f = lambda *s, std=1.0: torch.from_numpy(
-        (rng.standard_normal(s) * std).astype(np.float32)).to(dev)
-    x = f(B, H, Cin)
+    f = lambda *s, std=1.0, mean=0.0: torch.from_numpy(
+        (mean + rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    x = f(B, H, Cin) + x_offset
     emb = f(B, 2 * Cout if film_scale else Cout, std=0.5)
-    ws = [f(K, Cin, Cout, std=(K * Cin) ** -0.5), f(Cout, std=0.1), 1 + f(Cout, std=0.1),
-          f(Cout, std=0.1), f(K, Cout, Cout, std=(K * Cout) ** -0.5), f(Cout, std=0.1),
+    ws = [f(K, Cin, Cout, std=(K * Cin) ** -0.5, mean=w_mean), f(Cout, std=0.1),
+          1 + f(Cout, std=0.1), f(Cout, std=0.1),
+          f(K, Cout, Cout, std=(K * Cout) ** -0.5, mean=w_mean), f(Cout, std=0.1),
           1 + f(Cout, std=0.1), f(Cout, std=0.1)]
     skip = [f(Cin, Cout, std=Cin ** -0.5), f(Cout, std=0.1)] if Cin != Cout else [None, None]
     return x, emb, ws, skip
@@ -133,6 +134,66 @@ def test_film_resblock_kernel_matches_plain(cuda, shape):
     assert film.fused_film_resblock.launches == before + 1
     torch.testing.assert_close(out, film.film_resblock_reference(x, emb, *ws, *skip, **kw),
                                atol=TOL, rtol=TOL)
+
+
+def _check_film(dev, B, H, Cin, Cout, K=5, G=8, **inputs):
+    x, emb, ws, skip = _film_inputs(dev, B, H, Cin, Cout, K, False, **inputs)
+    kw = dict(K=K, groups=G, eps=1e-6)
+    before = film.fused_film_resblock.launches
+    out = film.fused_film_resblock(x, emb, *ws, *skip, **kw)
+    torch.cuda.synchronize()
+    assert film.fused_film_resblock.launches == before + 1
+    torch.testing.assert_close(out, film.film_resblock_reference(x, emb, *ws, *skip, **kw),
+                               atol=TOL, rtol=TOL)
+
+
+# (H, Cin, Cout) of the 14 distinct residual blocks of the shipped Diffuser
+# U-Net (obs 17 + act 6 = 23 channels in, model_dim 32, dim_mult (1, 2, 2, 2))
+UNET_SHAPES = [(32, 23, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64), (8, 64, 128),
+               (8, 128, 128), (4, 128, 256), (4, 256, 256), (4, 512, 128), (4, 128, 128),
+               (8, 256, 64), (8, 64, 64), (16, 128, 32), (16, 32, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", UNET_SHAPES, ids=[f"h{h}-{i}-{o}" for h, i, o in UNET_SHAPES])
+def test_film_resblock_kernel_at_unet_shapes(cuda, shape):
+    """Every block shape of the shipped U-Net, at a batch of one full thread
+    block (64 rows: 64 / H samples) and 3 samples of a second."""
+    H, Cin, Cout = shape
+    _check_film(cuda, 64 // H + 3, H, Cin, Cout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(17, 4, 256, 256), (5, 8, 256, 512)],
+                         ids=["64-rows", "32-rows-cout512"])
+def test_film_resblock_kernel_one_sample_into_a_new_tile(cuda, shape):
+    """A batch that ends one sample into a new thread block: 16 samples of
+    H = 4 fill a 64-row block, 4 samples of H = 8 a 32-row one (Cout > 256)."""
+    _check_film(cuda, *shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 4, 512, 128), (7, 32, 23, 32)], ids=["cin512", "cin23"])
+def test_film_resblock_kernel_precision_case(cuda, shape):
+    """x + 10 and conv weights of mean 0.05: the conv outputs share a large
+    mean, which GroupNorm subtracts, so any rounding of the products is
+    amplified. Emulated on the CPU (tests/test_torch_film_tf32.py), the
+    block in 3xTF32 misses float64 by ~1e-5 at cin512 and ~2e-6 at cin23,
+    10x and more inside the 1e-4 tolerance; one TF32 product misses by
+    ~6e-3 and ~8e-3, so a 1xTF32 kernel fails here."""
+    _check_film(cuda, *shape, x_offset=10.0, w_mean=0.05)
+
+
+@pytest.mark.gpu
+def test_film_resblock_kernel_rejects_shapes_it_does_not_tile(cuda):
+    """Cout must be a multiple of 8 (the MMA's n) and H must divide the
+    rows of a thread block, which owns whole samples."""
+    x, emb, ws, skip = _film_inputs(cuda, 2, 8, 16, 20, 5, False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        film.fused_film_resblock(x, emb, *ws, *skip, K=5, groups=4)
+    x, emb, ws, skip = _film_inputs(cuda, 2, 12, 16, 32, 5, False)
+    with pytest.raises(ValueError, match="must divide"):
+        film.fused_film_resblock(x, emb, *ws, *skip, K=5, groups=8)
 
 
 @pytest.mark.gpu
