@@ -15,12 +15,14 @@ import copy
 import torch
 import torch.nn as nn
 
+from ..utils.tensors import default_device
+
 __all__ = ["BaseClassifier", "MSEClassifier", "CumRewClassifier"]
 
 
 class BaseClassifier:
-    def __init__(self, nn_classifier: nn.Module, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, nn_classifier: nn.Module, device=None):
+        self.device = default_device(device)
         self.params = nn_classifier.to(self.device)
         self.ema_params = copy.deepcopy(self.params).requires_grad_(False)
 
@@ -47,7 +49,7 @@ class BaseClassifier:
 class MSEClassifier(BaseClassifier):
     """logp = -temperature * MSE(pred_y, y)."""
 
-    def __init__(self, nn_classifier: nn.Module, temperature: float = 1.0, device="cpu"):
+    def __init__(self, nn_classifier: nn.Module, temperature: float = 1.0, device=None):
         super().__init__(nn_classifier, device)
         self.temperature = temperature
 

@@ -2,8 +2,9 @@
 
 The reference keeps one immutable pytree of parameters plus an EMA copy;
 here both are `nn.ModuleDict({"diffusion": backbone, "condition":
-encoder})` on one explicit device, and the pure `apply_*` helpers take
-either of them as their `params`. A classifier for guidance
+encoder})` on one device (the CUDA device unless the caller names
+another), and the pure `apply_*` helpers take either of them as their
+`params`. A classifier for guidance
 (classifier/base.py) holds its own parameters and EMA; the engine keeps it
 in its `classifier` slot. The optimizer, `update`, the EMA step and
 checkpoints come with the training path.
@@ -18,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..nn_condition.base import IdentityCondition
+from ..utils.tensors import default_device
 
 __all__ = ["DiffusionModel"]
 
@@ -30,9 +32,9 @@ class DiffusionModel:
         fix_mask=None,
         loss_weight=None,
         classifier=None,
-        device="cpu",
+        device=None,
     ):
-        self.device = torch.device(device)
+        self.device = default_device(device)
         self.classifier = classifier
         cond = nn_condition if nn_condition is not None else IdentityCondition()
         self.params = nn.ModuleDict({"diffusion": nn_diffusion, "condition": cond})

@@ -68,7 +68,7 @@ class BaseDiffusionSDE(DiffusionModel):
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
-        device="cpu",
+        device=None,
     ):
         super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier, device)
         self.predict_noise = predict_noise
@@ -235,7 +235,7 @@ class DiscreteDiffusionSDE(BaseDiffusionSDE):
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
-        device="cpu",
+        device=None,
     ):
         super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
                          epsilon, x_max, x_min, predict_noise, device)
@@ -269,7 +269,7 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
-        device="cpu",
+        device=None,
     ):
         super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
                          epsilon, x_max, x_min, predict_noise, device)

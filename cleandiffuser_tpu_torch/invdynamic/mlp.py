@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.blocks import dense, orthogonal_init
+from ..utils.tensors import default_device
 
 __all__ = ["MlpInvDynamic"]
 
@@ -38,9 +39,9 @@ class _InvMlpNet(nn.Module):
 class MlpInvDynamic:
     def __init__(self, o_dim: int, a_dim: int, hidden_dim: int = 512,
                  out_activation: Callable = torch.tanh,
-                 generator: Optional[torch.Generator] = None, device="cpu"):
+                 generator: Optional[torch.Generator] = None, device=None):
         self.net = _InvMlpNet(2 * o_dim, a_dim, hidden_dim, out_activation,
-                              generator).to(device)
+                              generator).to(default_device(device))
 
     @torch.no_grad()
     def predict(self, o, o_next):

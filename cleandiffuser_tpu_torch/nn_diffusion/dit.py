@@ -31,8 +31,9 @@ def modulate(x, shift, scale):
 
 class DiTBlock(nn.Module):
     """adaLN-Zero block. With `use_kernel` it runs through `dit_block_op`
-    (the Hopper kernel for a CUDA tensor at every shape, the plain version
-    for a CPU tensor); without, through the plain version. The modulation
+    (the Hopper kernel for a CUDA tensor, which raises on a shape it does
+    not take; the plain version for a CPU tensor); without, through the
+    plain version. The modulation
     `mod = silu(t) @ wmod + bmod` is computed here, outside the kernel."""
 
     def __init__(self, hidden_size: int, n_heads: int, use_kernel: bool = False,

@@ -4,7 +4,11 @@ PyTorch version.
 Counterpart of cleandiffuser_tpu/ops/dit_block.py, whose Pallas TPU kernel
 `fused_dit_block` is replaced by the CUDA C++ kernel in
 `csrc/dit_block.cu` (built for sm_90a, bound with ctypes; the source note
-there says what bounds it on the card and how the design answers that).
+there says what bounds it on the card and how the design answers that). The
+kernel runs the four weight products and attention on the tensor cores, in
+3xTF32 on `mma.sync` (f32-class results), one thread block per 32 rows of a
+trajectory: a trajectory of H > 32 rows runs on a cluster of two blocks,
+which read each other's keys and values.
 
     h  = modulate(LN(x), shift1, scale1)
     x  = x + gate1 * MHA(h)
@@ -13,11 +17,13 @@ there says what bounds it on the card and how the design answers that).
 
 The per-trajectory modulation `mod` (B, 6D) = Dense(silu(t_emb)) is
 computed outside the kernel, as in the reference. Weights keep the JAX
-`(in, out)` orientation, so the kernel reads them as they are stored.
+`(in, out)` orientation, so the kernel reads them as they are stored: no
+copy of them is prepared on the host. The kernel takes H <= 64, d_model a
+multiple of 32 up to 320 and a head dim a multiple of 8 up to 64.
 
 Dispatch (`dit_block_op`): a CPU tensor takes `dit_block_reference`; a CUDA
-tensor launches the kernel, at every shape, or raises. There is no
-fallback from the kernel to the plain version.
+tensor launches the kernel or raises. There is no fallback from the kernel
+to the plain version.
 """
 
 from __future__ import annotations
@@ -86,7 +92,7 @@ def load_dit_block_library() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.dit_block_forward_f32.argtypes = [vp] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, vp]
     lib.dit_block_forward_f32.restype = ctypes.c_int
-    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int]
     lib.dit_block_smem_bytes.restype = ctypes.c_longlong
     lib.device_max_smem_optin.argtypes = [ctypes.c_int]
     lib.device_max_smem_optin.restype = ctypes.c_int
@@ -106,11 +112,16 @@ def _check_kernel_args(lib, x, mod, ws, n_heads):
     B, H, D = x.shape
     if B == 0 or H == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
-    if D % 32 or D > 384 or D % n_heads:
-        # one thread per 4 columns in each of 4 row groups: D threads, whole
-        # warps, at most 384 of them (the kernel's register budget)
-        raise ValueError(f"d_model {D} must be a multiple of 32, at most 384, and a "
+    if D % 32 or D > 320 or D % n_heads:
+        # 8 warps cover the columns of every product in n8 tiles of up to 5
+        # per warp; the k steps of the staged weight tiles are 16 rows deep
+        raise ValueError(f"d_model {D} must be a multiple of 32, at most 320, and a "
                          f"multiple of n_heads {n_heads}")
+    hd = D // n_heads
+    if hd % 8 or hd > 64:
+        # attention runs on m16n8k8 MMAs: the head dim is whole k8 steps
+        raise ValueError(f"head dim {hd} (d_model {D} / n_heads {n_heads}) must be a "
+                         f"multiple of 8, at most 64")
     shapes = {"mod": (B, 6 * D), "wqkv": (D, 3 * D), "bqkv": (3 * D,), "wo": (D, D),
               "bo": (D,), "w1": (D, 4 * D), "b1": (4 * D,), "w2": (4 * D, D), "b2": (D,)}
     for (name, shape), t in zip(shapes.items(), (mod, *ws)):
@@ -123,11 +134,14 @@ def _check_kernel_args(lib, x, mod, ws, n_heads):
             raise TypeError(f"fused_dit_block takes float32 only; {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    smem = lib.dit_block_smem_bytes(H, D)
+    if H > 64:
+        # at most two thread blocks of 32 rows; attention holds 8 key tiles
+        raise ValueError(f"horizon H={H} must be at most 64")
+    smem = lib.dit_block_smem_bytes(D)
     limit = _max_smem_optin(lib, x.device.index)
     if smem > limit:
-        raise ValueError(f"(H={H}, D={D}) needs {smem} bytes of shared memory per "
-                         f"block; the device allows {limit}")
+        raise ValueError(f"d_model {D} needs {smem} bytes of shared memory per "
+                         f"thread block; the device allows {limit}")
 
 
 def fused_dit_block(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):

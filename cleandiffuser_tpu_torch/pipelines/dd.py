@@ -25,6 +25,7 @@ from ..invdynamic import MlpInvDynamic
 from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.tensors import default_device
 
 __all__ = ["DDPipeline"]
 
@@ -49,12 +50,12 @@ class DDPipeline:
         temperature: float = 0.5,
         use_pallas_block: bool = False,
         rng: int = 0,
-        device="cpu",
+        device=None,
     ):
         self.obs_dim, self.act_dim, self.horizon = obs_dim, act_dim, horizon
         self.solver, self.sampling_steps = solver, sampling_steps
         self.w_cfg, self.target_return, self.temperature = w_cfg, target_return, temperature
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
         init = torch.Generator().manual_seed(rng)
         nn_diffusion = DiT1d(

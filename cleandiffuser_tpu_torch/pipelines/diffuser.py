@@ -30,6 +30,7 @@ from ..diffusion import DiscreteDiffusionSDE
 from ..nn_classifier import HalfJannerUNet1d
 from ..nn_diffusion import JannerUNet1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.tensors import default_device
 
 __all__ = ["DiffuserPipeline"]
 
@@ -52,14 +53,14 @@ class DiffuserPipeline:
         use_pallas_block: bool = False,
         fused_update: bool = False,
         rng: int = 0,
-        device="cpu",
+        device=None,
     ):
         self.obs_dim, self.act_dim, self.horizon = obs_dim, act_dim, horizon
         self.sampling_steps, self.solver = sampling_steps, solver
         self.w_cg, self.temperature = w_cg, temperature
         # read when a plan function is built; plans are cached per value
         self.fused_update = fused_update
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
         in_dim = obs_dim + act_dim
         nn_diffusion = JannerUNet1d(

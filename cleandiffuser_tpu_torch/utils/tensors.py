@@ -2,7 +2,9 @@
 
 from __future__ import annotations
 
-__all__ = ["at_least_ndim"]
+import torch
+
+__all__ = ["at_least_ndim", "default_device"]
 
 
 def at_least_ndim(x, ndim: int, pad: int = 0):
@@ -19,3 +21,15 @@ def at_least_ndim(x, ndim: int, pad: int = 0):
     if pad == 0:
         return x.reshape(tuple(x.shape) + (1,) * n)
     return x.reshape((1,) * n + tuple(x.shape))
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` as given, or the CUDA
+    device when None. Without a CUDA device, None raises: the port never
+    falls back to the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU by default; "
+                           "pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")

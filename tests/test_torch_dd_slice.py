@@ -68,7 +68,7 @@ def plans(request):
     act_j, traj_j = jpipe._make_plan_fn(E)(jax_tree(ema), jax_tree(inv), rng,
                                            jnp.asarray(obs), cond)
 
-    tpipe = DDPipeline(**CFG, use_pallas_block=flat)
+    tpipe = DDPipeline(**CFG, use_pallas_block=flat, device="cpu")
     tpipe.load_jax_params(params, ema, inv)
     shape = (E, CFG["horizon"], CFG["obs_dim"])
     init, per_step = _jax_noise(rng, shape, CFG["sampling_steps"])
@@ -124,7 +124,7 @@ def test_converter_round_trip(plans):
 def test_generator_sampling_is_seeded():
     """Without explicit noise the plan draws from the given generator:
     the same seed gives the same plan, another seed another plan."""
-    tpipe = DDPipeline(**CFG)
+    tpipe = DDPipeline(**CFG, device="cpu")
     obs = np.random.default_rng(0).standard_normal((E, CFG["obs_dim"])).astype(np.float32)
     a1, i1 = tpipe.act(obs, generator=torch.Generator().manual_seed(3))
     a2, i2 = tpipe.act(obs, generator=torch.Generator().manual_seed(3))

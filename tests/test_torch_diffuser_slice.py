@@ -78,7 +78,7 @@ def plans(request):
     traj_all, log = jax.jit(sample_fn, static_argnames=())(
         ema, cls_ema, rng, prior, w_cg=CFG["w_cg"], temperature=CFG["temperature"])
 
-    tpipe = DiffuserPipeline(**CFG, predict_noise=predict_noise)
+    tpipe = DiffuserPipeline(**CFG, predict_noise=predict_noise, device="cpu")
     tpipe.load_jax_params(**weights)
     init, per_step = _jax_noise(rng, prior.shape, CFG["sampling_steps"])
     act_t, info = tpipe.act(obs, num_candidates=K,
@@ -156,7 +156,7 @@ def test_discrete_tables_match_jax():
     tables to a few ulps: the two libraries' float32 cos may differ by one,
     which sigma = sqrt(1 - alpha^2) amplifies where alpha is near 1."""
     jpipe = JaxDiffuserPipeline(**CFG)
-    tpipe = DiffuserPipeline(**CFG)
+    tpipe = DiffuserPipeline(**CFG, device="cpu")
     for steps in (3, 20):
         want = jpipe.agent._sample_tables("uniform", steps, None)
         got = tpipe.agent._sample_tables("uniform", steps)
@@ -169,7 +169,7 @@ def test_discrete_tables_match_jax():
 def test_generator_sampling_is_seeded():
     """Without explicit noise the plan draws from the given generator: the
     same seed gives the same plan, another seed another plan."""
-    tpipe = DiffuserPipeline(**CFG)
+    tpipe = DiffuserPipeline(**CFG, device="cpu")
     obs = np.random.default_rng(0).standard_normal((E, CFG["obs_dim"])).astype(np.float32)
     plan = lambda s: tpipe.act(obs, num_candidates=K, generator=torch.Generator().manual_seed(s))
     (a1, i1), (a2, i2), (_, i3) = plan(3), plan(3), plan(4)
@@ -182,7 +182,7 @@ def test_fused_update_plan_on_the_cpu():
     """fused_update=True takes every ddpm step through solver_update_op (its
     plain version on the CPU, noise seeded per step from the generator):
     a valid, seeded plan; it takes no explicit noise."""
-    tpipe = DiffuserPipeline(**CFG, fused_update=True)
+    tpipe = DiffuserPipeline(**CFG, fused_update=True, device="cpu")
     obs = np.random.default_rng(1).standard_normal((E, CFG["obs_dim"])).astype(np.float32)
     a1, i1 = tpipe.act(obs, num_candidates=K, generator=torch.Generator().manual_seed(0))
     a2, i2 = tpipe.act(obs, num_candidates=K, generator=torch.Generator().manual_seed(0))

@@ -232,9 +232,9 @@ def test_classifier_gradients_match_jax_grad(kind):
     jm, params, port, x, t = _half_unet(13)
     c = np.random.default_rng(14).standard_normal((B, 1)).astype(np.float32)
     if kind == "cumrew":
-        jc, tc = JaxCumRewClassifier(jm), CumRewClassifier(port)
+        jc, tc = JaxCumRewClassifier(jm), CumRewClassifier(port, device="cpu")
     else:
-        jc, tc = JaxMSEClassifier(jm, temperature=2.0), MSEClassifier(port, temperature=2.0)
+        jc, tc = JaxMSEClassifier(jm, temperature=2.0), MSEClassifier(port, temperature=2.0, device="cpu")
     lp_j, g_j = jc.gradients(_jax(params), jnp.asarray(x), jnp.asarray(t), jnp.asarray(c))
     with torch.no_grad():
         lp_t, g_t = tc.gradients(tc.inference_params, torch.from_numpy(x),

@@ -41,9 +41,15 @@ def _inputs(dev, B, H, D, seed=7):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(4, 8, 64, 4), (6, 20, 96, 3), (3, 40, 64, 2),
-                                   (100, 32, 320, 10)],
-                         ids=["test-size", "ragged-H", "H-over-32", "plan-size"])
+                                   (100, 32, 320, 10), (3200, 32, 320, 10), (2, 33, 64, 2),
+                                   (133, 32, 320, 10), (3, 20, 320, 5), (100, 64, 320, 10),
+                                   (133, 64, 320, 10)],
+                         ids=["test-size", "ragged-H", "H-over-32", "plan-size", "candidate-batch",
+                              "one-row-into-a-new-pass", "one-block-past-a-wave", "head-dim-64",
+                              "antmaze-horizon", "one-cluster-past-a-wave"])
 def test_dit_block_kernel_matches_plain(cuda, shape):
+    """H > 32 runs on a cluster of two thread blocks of 32 rows, which read
+    each other's keys and values: H = 33 puts one row into the second."""
     B, H, D, NH = shape
     x, mod, ws = _inputs(cuda, B, H, D)
     before = ops.fused_dit_block.launches
@@ -63,9 +69,46 @@ def test_dit_block_kernel_rejects_what_it_does_not_take(cuda):
         ops.fused_dit_block(x.transpose(0, 1).contiguous().transpose(0, 1), mod, *ws, n_heads=4)
     with pytest.raises(ValueError, match="multiple"):
         ops.fused_dit_block(x, mod, *ws, n_heads=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        xl, modl, wsl = _inputs(cuda, 1, 256, 64)
+    with pytest.raises(ValueError, match="at most 320"):
+        # 352 columns would need 242 KB of shared memory per thread block
+        xl, modl, wsl = _inputs(cuda, 1, 8, 352)
+        ops.fused_dit_block(xl, modl, *wsl, n_heads=11)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.fused_dit_block(x, mod, *ws, n_heads=16)
+    with pytest.raises(ValueError, match="at most 64"):
+        xl, modl, wsl = _inputs(cuda, 1, 72, 64)
         ops.fused_dit_block(xl, modl, *wsl, n_heads=4)
+
+
+def _precision_inputs(dev, B, H, D, seed=0):
+    """x + 10 and weights of mean 0.05 (std fan_in^-0.5): LN subtracts a
+    large common offset and every product is a long same-sign sum."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std, mean=0.0: torch.from_numpy(
+        (mean + rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    x = f(B, H, D, std=1.0) + 10.0
+    ws = [f(D, 3 * D, std=D ** -0.5, mean=0.05), f(3 * D, std=0.1),
+          f(D, D, std=D ** -0.5, mean=0.05), f(D, std=0.1),
+          f(D, 4 * D, std=D ** -0.5, mean=0.05), f(4 * D, std=0.1),
+          f(4 * D, D, std=(4 * D) ** -0.5, mean=0.05), f(D, std=0.1)]
+    return x, f(B, 6 * D, std=0.5), ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(100, 32, 320, 10), (6, 20, 96, 3), (10, 64, 320, 10)],
+                         ids=["plan-size", "ragged-H", "antmaze-horizon"])
+def test_dit_block_kernel_precision_case(cuda, shape):
+    """Held to the plain version in float64, within 1e-4 of max |ref|:
+    here plain f32 itself misses float64 by ~4e-5 of it element by element
+    (1e-4 per element cannot hold on either side). Emulated on the CPU
+    (tests/test_torch_dit_tf32.py), the block in 3xTF32 lands at ~4e-5 and
+    one TF32 product at ~9e-4, so a 1xTF32 kernel fails here."""
+    B, H, D, NH = shape
+    x, mod, ws = _precision_inputs(cuda, B, H, D)
+    out = ops.fused_dit_block(x, mod, *ws, n_heads=NH)
+    ref = ops.dit_block_reference(x.double(), mod.double(), *(w.double() for w in ws), n_heads=NH)
+    err = (out.double() - ref).abs().max().item() / ref.abs().max().item()
+    assert err < TOL, err
 
 
 @pytest.mark.gpu

@@ -2,6 +2,7 @@
 for the GPU smoke run, and that it reads the shared config tree."""
 
 import ast
+import importlib.util
 import shutil
 import subprocess
 import sys
@@ -12,6 +13,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "cleandiffuser_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "cleandiffuser_tpu"}
+# the port's sources and the scripts that drive it on the card
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools/dit_block_variants.py", ROOT / "tools/profile_dd_plan.py"]
 
 
 def _imported_roots(path: Path):
@@ -24,7 +28,7 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     """Read from the sources: the interpreter may have imported jax before
@@ -32,7 +36,7 @@ def test_port_imports_no_jax(path):
     assert not FORBIDDEN & set(_imported_roots(path))
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_triton_only_inside_functions(path):
     """Triton is imported where a kernel is launched, never at a module's
@@ -53,7 +57,8 @@ def test_cpu_plans_import_no_triton():
         "import sys, numpy as np, torch\n"
         "from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline\n"
         "p = DiffuserPipeline(5, 3, horizon=8, model_dim=16, dim_mult=(1, 2), sampling_steps=2,"
-        " use_pallas_block=True, fused_update=True)\n"
+        " use_pallas_block=True, fused_update=True,"
+        " device='cpu')\n"
         "a, _ = p.act(np.zeros((2, 5), np.float32), num_candidates=2)\n"
         "assert a.shape == (2, 3)\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
@@ -61,6 +66,24 @@ def test_cpu_plans_import_no_triton():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", ["DDPipeline", "DiffuserPipeline"])
+def test_entry_points_default_to_the_gpu(name):
+    """Without a CUDA device, an entry point built without `device` raises
+    and says how to ask for the CPU; with device="cpu" it builds there. It
+    never falls back to the CPU by itself."""
+    import torch
+
+    from cleandiffuser_tpu_torch import pipelines
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cls = getattr(pipelines, name)
+    kw = dict(obs_dim=5, act_dim=3, horizon=8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        cls(**kw)
+    assert cls(**kw, device="cpu").device == torch.device("cpu")
 
 
 def _run_chip_smoke(cwd: Path):
@@ -85,6 +108,25 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     proc = _run_chip_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _load_tool(name: str):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+DIT_BLOCK_VARIANTS = _load_tool("dit_block_variants")
+
+
+@pytest.mark.parametrize("variant", sorted(DIT_BLOCK_VARIANTS.VARIANTS))
+def test_dit_block_variant_applies_to_the_kernel_source(variant):
+    """The variants tool edits csrc/dit_block.cu by exact text: each edit of
+    a variant must find its text once in the kernel as it stands."""
+    src = (PORT / "csrc" / "dit_block.cu").read_text()
+    for old, _ in DIT_BLOCK_VARIANTS.VARIANTS[variant]:
+        assert src.count(old) == 1, old
 
 
 @pytest.mark.parametrize("task", ["halfcheetah-medium-v2", "hopper-medium-v2"])

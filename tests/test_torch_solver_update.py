@@ -39,7 +39,7 @@ def test_plain_version_without_noise_equals_jax_reference():
 
 
 def _tables(steps=20):
-    engine = DiscreteDiffusionSDE(torch.nn.Identity(), diffusion_steps=20)
+    engine = DiscreteDiffusionSDE(torch.nn.Identity(), diffusion_steps=20, device="cpu")
     ts, alphas, sigmas = engine._sample_tables("uniform", steps)
     stds = torch.cat([torch.zeros(1), sigmas[:-1] / sigmas[1:]
                       * torch.sqrt(1 - (alphas[1:] / alphas[:-1]) ** 2)])
