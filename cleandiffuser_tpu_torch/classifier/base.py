@@ -1,30 +1,53 @@
-"""Classifier guidance, inference half (counterpart of
-cleandiffuser_tpu/classifier/base.py).
+"""Classifier guidance (counterpart of cleandiffuser_tpu/classifier/base.py).
 
 A classifier holds its network's parameters and their EMA copy, as the
 diffusion engine does (diffusion/basic.py), and the pure helpers take
 either as `params`. `gradients` is d logp / dx at x_t: the sampler runs
 under `torch.no_grad()`, so it turns grad mode back on for this one
-product. The optimizer, `update` and checkpoints come with training.
+product.
+
+Training (`update(x, t, y)`): the subclass's `loss`, backward, then the
+reference's optimizer, which is coupled L2 (optax
+`chain(clip_by_global_norm?, add_decayed_weights(wd)?, adam(lr))`, i.e.
+`torch.optim.Adam(weight_decay=wd)`, not AdamW; wd 0 unless
+`optim_params` names it), then the EMA step (rate 0.995 by default).
 """
 
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
+from ..utils.jax_params import load_adam_moments, load_jax_params
 from ..utils.tensors import default_device
+from ..utils.train_state import (
+    ema_update,
+    load_jax_checkpoint,
+    load_state,
+    make_optimizer,
+    save_state,
+)
 
 __all__ = ["BaseClassifier", "MSEClassifier", "CumRewClassifier"]
 
 
 class BaseClassifier:
-    def __init__(self, nn_classifier: nn.Module, device=None):
+    def __init__(self, nn_classifier: nn.Module, ema_rate: float = 0.995,
+                 grad_clip_norm: Optional[float] = None, optim_params: Optional[dict] = None,
+                 device=None):
         self.device = default_device(device)
+        self.ema_rate = ema_rate
         self.params = nn_classifier.to(self.device)
         self.ema_params = copy.deepcopy(self.params).requires_grad_(False)
+        optim_params = dict(optim_params or {"lr": 2e-4, "weight_decay": 1e-4})
+        self.optimizer = make_optimizer(
+            self.params.parameters(), lr=optim_params.pop("lr", 2e-4),
+            weight_decay=optim_params.pop("weight_decay", 0.0), grad_clip_norm=grad_clip_norm,
+            decoupled=False, **optim_params)
+        self.step = 0
 
     @property
     def inference_params(self) -> nn.Module:
@@ -45,13 +68,49 @@ class BaseClassifier:
             (grad,) = torch.autograd.grad(logp.sum(), xi)
         return logp.detach(), grad.detach()
 
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def loss(self, params: nn.Module, x, t, y):
+        raise NotImplementedError
+
+    def update(self, x, t, y) -> dict:
+        """One optimizer step and one EMA step on `loss`. Returns {"loss"}
+        as a device scalar."""
+        loss = self.loss(self.params, x, t, y)
+        loss.backward()
+        self.optimizer.step()
+        ema_update(self.ema_params, self.params, self.ema_rate)
+        self.step += 1
+        return {"loss": loss.detach()}
+
+    def save(self, path):
+        save_state(path, self.params, self.ema_params, self.optimizer, self.step)
+
+    def load(self, path):
+        self.step = load_state(path, self.params, self.ema_params, self.optimizer)
+
+    def load_jax_checkpoint(self, path):
+        """Resume from a checkpoint the JAX classifier's `save` wrote."""
+        ckpt = load_jax_checkpoint(path)
+        load_jax_params(self.params, ckpt["params"]["params"])
+        load_jax_params(self.ema_params, ckpt["ema_params"]["params"])
+        load_adam_moments(self.optimizer.optimizer, self.params, ckpt["mu"]["params"],
+                          ckpt["nu"]["params"], ckpt["count"])
+        if ckpt["schedule_count"] is not None:
+            self.optimizer.set_count(ckpt["schedule_count"])
+        self.step = ckpt["step"]
+
 
 class MSEClassifier(BaseClassifier):
     """logp = -temperature * MSE(pred_y, y)."""
 
-    def __init__(self, nn_classifier: nn.Module, temperature: float = 1.0, device=None):
-        super().__init__(nn_classifier, device)
+    def __init__(self, nn_classifier: nn.Module, temperature: float = 1.0, **kwargs):
+        super().__init__(nn_classifier, **kwargs)
         self.temperature = temperature
+
+    def loss(self, params, x, t, y):
+        return ((self.apply_nn(params, x, t) - y) ** 2).mean()
 
     def logp(self, params, x, t, c=None):
         pred_y = self.apply_nn(params, x, t)
@@ -60,6 +119,9 @@ class MSEClassifier(BaseClassifier):
 
 class CumRewClassifier(BaseClassifier):
     """Predicts the trajectory's return; logp is the prediction itself."""
+
+    def loss(self, params, x, t, R):
+        return ((self.apply_nn(params, x, t) - R) ** 2).mean()
 
     def logp(self, params, x, t, c=None):
         return self.apply_nn(params, x, t)

@@ -21,9 +21,14 @@ each step through the fused solver-update kernel (ops/solver_update.py),
 which draws its own noise from a per-step seed; the seeds come from the
 generator, all at the start of a sample.
 
+Training: `add_noise` and `loss_fn` (diffusion/basic.py runs the update);
+the draws come from a generator on the engine's device, or explicitly as
+`noise=(t, eps, keep_mask)`.
+
 Ported so far: the solvers, CFG in mix / cond / uncond modes, classifier
-guidance, final log p, clipping and inpainting. Warm start, diffusion-x
-steps, history and the parallel-in-time sampler come later.
+guidance, final log p, clipping, inpainting and the training loss. Warm
+start, diffusion-x steps, history and the parallel-in-time sampler come
+later.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..utils.schedules import (
     SUPPORTED_SAMPLING_STEP_SCHEDULE,
     uniform_discretization,
 )
+from ..utils.tensors import at_least_ndim
 from .basic import DiffusionModel
 from .vp_solvers import (
     SUPPORTED_SOLVERS,
@@ -64,13 +70,18 @@ class BaseDiffusionSDE(DiffusionModel):
         fix_mask=None,
         loss_weight=None,
         classifier=None,
+        grad_clip_norm=None,
+        ema_rate: float = 0.995,
+        optim_params=None,
         epsilon: float = 1e-3,
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
+        rng: int = 0,
         device=None,
     ):
-        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier, device)
+        super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
+                         grad_clip_norm, ema_rate, optim_params, rng, device)
         self.predict_noise = predict_noise
         self.epsilon = epsilon
         as_t = lambda v: None if v is None else torch.as_tensor(
@@ -90,6 +101,42 @@ class BaseDiffusionSDE(DiffusionModel):
             lower = (xt - alpha * self.x_max) / sigma if self.x_max is not None else None
             return torch.clamp(pred, lower, upper)
         return torch.clamp(pred, self.x_min, self.x_max)
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def add_noise(self, x0, t=None, eps=None, generator=None):
+        """(xt, t, eps): x0 taken to noise level t (drawn from `generator`
+        when None) with noise eps (likewise); pinned entries keep x0."""
+        raise NotImplementedError
+
+    def _noised(self, x0, alpha, sigma, eps):
+        xt = at_least_ndim(alpha, x0.ndim) * x0 + at_least_ndim(sigma, x0.ndim) * eps
+        if self.fix_mask is not None:
+            xt = (1.0 - self.fix_mask) * xt + self.fix_mask * x0
+        return xt
+
+    def loss_fn(self, params, x0, condition=None, noise=None, generator=None,
+                weighted_regression=None):
+        """mean((pred - target)^2 * loss_weight * (1 - fix_mask)), target eps
+        or x0. `noise=(t, eps, keep_mask)` gives the draws explicitly: the
+        levels (B,), the noise (x0's shape) and the condition's dropout
+        keep-mask (B,) (None without a condition); a None entry is drawn
+        from `generator`. The reference draws the same roles from
+        `k_noise, k_cond, k_drop = split(rng, 3)`."""
+        t, eps, keep = noise if noise is not None else (None, None, None)
+        xt, t, eps = self.add_noise(x0, t, eps, generator)
+        emb = self.apply_condition(params, condition, mask=keep, train=True,
+                                   generator=generator)
+        pred = self.apply_diffusion(params, xt, t, emb)
+        loss = (pred - (eps if self.predict_noise else x0)) ** 2
+        if self.loss_weight is not None:
+            loss = loss * self.loss_weight
+        if self.fix_mask is not None:
+            loss = loss * (1.0 - self.fix_mask)
+        if weighted_regression is not None:
+            loss = loss * weighted_regression[..., None]
+        return loss.mean()
 
     def _guided_pred(self, params, xt, t, emb, w_cfg: float, cfg_mode: str,
                      cls_params=None, condition_cg=None, cg_coef: float = 0.0):
@@ -229,16 +276,21 @@ class DiscreteDiffusionSDE(BaseDiffusionSDE):
         fix_mask=None,
         loss_weight=None,
         classifier=None,
+        grad_clip_norm=None,
+        ema_rate: float = 0.995,
+        optim_params=None,
         epsilon: float = 1e-3,
         diffusion_steps: int = 1000,
         noise_schedule: str = "cosine",
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
+        rng: int = 0,
         device=None,
     ):
         super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
-                         epsilon, x_max, x_min, predict_noise, device)
+                         grad_clip_norm, ema_rate, optim_params, epsilon, x_max, x_min,
+                         predict_noise, rng, device)
         if 1.0 / diffusion_steps < epsilon:
             raise ValueError("epsilon is too large for the number of diffusion steps")
         if noise_schedule not in SUPPORTED_NOISE_SCHEDULES:
@@ -247,6 +299,17 @@ class DiscreteDiffusionSDE(BaseDiffusionSDE):
         self.t_diffusion = uniform_discretization(diffusion_steps, epsilon)
         self.alpha, self.sigma = SUPPORTED_NOISE_SCHEDULES[noise_schedule]["forward"](
             self.t_diffusion)
+        # the sampler reads the host tables; training indexes these per batch
+        self._alpha_dev, self._sigma_dev = self.alpha.to(self.device), self.sigma.to(self.device)
+
+    def add_noise(self, x0, t=None, eps=None, generator=None):
+        """t: integer levels uniform on [0, diffusion_steps)."""
+        if t is None:
+            t = torch.randint(self.diffusion_steps, (x0.shape[0],), generator=generator,
+                              device=x0.device)
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+        return self._noised(x0, self._alpha_dev[t], self._sigma_dev[t], eps), t, eps
 
     def _sample_tables(self, sample_step_schedule, sample_steps):
         sched = SUPPORTED_SAMPLING_STEP_SCHEDULE[sample_step_schedule](
@@ -264,20 +327,35 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         fix_mask=None,
         loss_weight=None,
         classifier=None,
+        grad_clip_norm=None,
+        ema_rate: float = 0.995,
+        optim_params=None,
         epsilon: float = 1e-3,
         noise_schedule: str = "cosine",
         x_max=None,
         x_min=None,
         predict_noise: bool = True,
+        rng: int = 0,
         device=None,
     ):
         super().__init__(nn_diffusion, nn_condition, fix_mask, loss_weight, classifier,
-                         epsilon, x_max, x_min, predict_noise, device)
+                         grad_clip_norm, ema_rate, optim_params, epsilon, x_max, x_min,
+                         predict_noise, rng, device)
         # cosine alpha hits 0 at t=0.9946
         self.t_diffusion = [epsilon, 0.9946] if noise_schedule == "cosine" else [epsilon, 1.0]
         if noise_schedule not in SUPPORTED_NOISE_SCHEDULES:
             raise ValueError(f"Noise schedule {noise_schedule} is not supported.")
         self.noise_schedule_funcs = SUPPORTED_NOISE_SCHEDULES[noise_schedule]
+
+    def add_noise(self, x0, t=None, eps=None, generator=None):
+        """t: uniform on `t_diffusion`."""
+        if t is None:
+            lo, hi = self.t_diffusion
+            t = torch.rand(x0.shape[0], generator=generator, device=x0.device) * (hi - lo) + lo
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+        alpha, sigma = self.noise_schedule_funcs["forward"](t)
+        return self._noised(x0, alpha, sigma, eps), t, eps
 
     def _sample_tables(self, sample_step_schedule, sample_steps):
         if not sample_step_schedule.endswith("_continuous"):

@@ -3,8 +3,10 @@
     emb = module(condition, mask=None, train=False, generator=None)
 
 - In training, each batch element's embedding is zeroed with probability
-  `dropout` (Bernoulli keep-mask drawn from `generator`): the
-  classifier-free-guidance mechanism.
+  `dropout` (Bernoulli keep-mask drawn from `generator`, which must lie on
+  the condition's device): the classifier-free-guidance mechanism. A
+  caller-passed `mask` is taken as the keep-mask instead, which is how the
+  tests replay the reference's draws.
 - At sampling time (train=False) the mask defaults to all-ones, or the
   caller-passed `mask`.
 """
@@ -31,7 +33,7 @@ class BaseNNCondition(nn.Module):
 
     def get_mask(self, condition, mask, train: bool,
                  generator: Optional[torch.Generator] = None):
-        if train:
+        if train and mask is None:
             u = torch.rand(condition.shape[0], generator=generator, device=condition.device)
             return (u > self.dropout).to(torch.float32)
         return 1.0 if mask is None else mask

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ..utils.jax_params import flat_from_nested
 from .build import load_library
+from .vjp import plain_vjp
 
 __all__ = ["fused_dit_block", "dit_block_op", "dit_block_reference",
            "pack_dit_block_params", "load_dit_block_library"]
@@ -172,9 +173,14 @@ fused_dit_block.launches = 0
 
 
 class _FusedDiTBlock(torch.autograd.Function):
-    """Kernel forward, autograd-through-the-plain-version backward (the same
-    split as the reference's custom VJP; a backward kernel comes with the
-    training path)."""
+    """Kernel forward; backward by autograd through the plain version,
+    recomputed from the saved inputs (ops/vjp.py): the same split as the
+    reference's custom VJP (`cleandiffuser_tpu/ops/dit_block.py`
+    `_dit_fwd`/`_dit_bwd`), whose backward is XLA code. The saved tensors
+    are the inputs themselves (x, mod and the parameters): an optimizer
+    that updates the parameters in place after `backward` leaves this
+    step's graph behind it; before `backward`, autograd's version check
+    raises."""
 
     @staticmethod
     def forward(ctx, x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads):
@@ -184,11 +190,8 @@ class _FusedDiTBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = dit_block_reference(*inputs, n_heads=ctx.n_heads)
-        grads = torch.autograd.grad(out, inputs, g)
-        return (*grads, None)
+        return (*plain_vjp(dit_block_reference, ctx.saved_tensors, ctx.needs_input_grad[:10], g,
+                           n_heads=ctx.n_heads), None)
 
 
 def dit_block_op(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):

@@ -29,8 +29,10 @@ and of groups, at most 512, and H dividing the block's rows.
 
 Dispatch (`film_resblock_op`): a CPU tensor takes `film_resblock_reference`;
 a CUDA tensor launches the kernel or raises. The kernel has no backward, as
-the TPU kernel has none: with grad mode on and an input that requires
-grad, the launcher raises rather than fall back to the plain version.
+the TPU kernel has none: `film_resblock_op` differentiates through
+`_FusedFiLMResBlock` (kernel forward, plain-version backward), while a
+direct `fused_film_resblock` call with grad mode on and an input that
+requires grad raises rather than fall back to the plain version.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 from ..utils.blocks import conv1d, group_norm
 from ..utils.embeddings import mish
 from .build import load_library
+from .vjp import plain_vjp
 
 __all__ = ["fused_film_resblock", "film_resblock_op", "film_resblock_reference",
            "load_film_resblock_library"]
@@ -172,10 +175,35 @@ def fused_film_resblock(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, 
 fused_film_resblock.launches = 0
 
 
+class _FusedFiLMResBlock(torch.autograd.Function):
+    """Kernel forward; backward by autograd through the plain version,
+    recomputed from the saved inputs (ops/vjp.py: the split K1 takes, as
+    the JAX custom VJP of the DiT block does). The kernel itself runs on detached inputs,
+    so a U-Net built with the fused block trains; a direct
+    `fused_film_resblock` call on an input that needs a gradient still
+    raises."""
+
+    @staticmethod
+    def forward(ctx, x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip, config):
+        ctx.save_for_backward(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip)
+        ctx.config = config
+        args = [None if t is None else t.detach()
+                for t in (x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip)]
+        return fused_film_resblock(*args, **config)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(film_resblock_reference, ctx.saved_tensors,
+                           ctx.needs_input_grad[:12], g, **ctx.config), None)
+
+
 def film_resblock_op(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
                      *, K: int, groups: int, film_scale: bool = False, eps: float = 1e-5):
     """The block as the model calls it: a CPU tensor takes the plain version;
-    any other device goes to the kernel, which launches or raises."""
-    fn = film_resblock_reference if x.device.type == "cpu" else fused_film_resblock
-    return fn(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip,
-              K=K, groups=groups, film_scale=film_scale, eps=eps)
+    any other device goes to the kernel (through `_FusedFiLMResBlock`, so it
+    differentiates), which launches or raises."""
+    config = dict(K=K, groups=groups, film_scale=film_scale, eps=eps)
+    args = (x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip)
+    if x.device.type == "cpu":
+        return film_resblock_reference(*args, **config)
+    return _FusedFiLMResBlock.apply(*args, config)

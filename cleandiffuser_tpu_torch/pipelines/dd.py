@@ -8,8 +8,19 @@ MlpInvDynamic that turns the plan's next state into the action.
 One `act` = one plan: CFG trajectory sampling (doubled-batch forward at
 every step) -> invdyn(s0, s1) -> action. With `use_pallas_block=True`, every
 DiT block of every step runs the fused Hopper kernel on a CUDA device
-(ops/dit_block.py). Training (`train_step`, `make_train_scan`, and with it
-the return normalisation `return_scale` / `val_shift`) comes later.
+(ops/dit_block.py).
+
+One `train_step` = the diffusion update (AdamW, cosine schedule over
+`diffusion_gradient_steps`, no decay, EMA) on the return normalised as
+`val / return_scale + val_shift`, then, for the first
+`invdyn_gradient_steps` steps, the inverse-dynamics update on the batch's
+consecutive states. With `use_pallas_block=True` the forward of every DiT
+block runs the kernel, its backward autograd through the plain version.
+The budget counts the engine's host step counter (the reference's
+`train_step` keeps its own, which a loaded checkpoint does not restore; its
+fused trainer counts the restored device step, as this one does). The
+fused trainer over a device dataset (`make_train_scan`) comes with the
+data slice.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
 from ..utils.jax_params import load_agent_params, load_jax_params
 from ..utils.tensors import default_device
+from ..utils.train_state import cosine_decay_schedule
 
 __all__ = ["DDPipeline"]
 
@@ -43,16 +55,25 @@ class DDPipeline:
         label_dropout: float = 0.25,
         predict_noise: bool = False,
         next_obs_loss_weight: float = 10.0,
+        return_scale: float = 1000.0,
+        ema_rate: float = 0.9999,
+        diffusion_gradient_steps: int = 1_000_000,
+        invdyn_gradient_steps: int = 1_000_000,
+        lr: float = 2e-4,
         solver: str = "ddpm",
         sampling_steps: int = 20,
         w_cfg: float = 1.2,
         target_return: float = 0.9,
         temperature: float = 0.5,
+        val_shift: float = 0.0,
         use_pallas_block: bool = False,
         rng: int = 0,
         device=None,
     ):
         self.obs_dim, self.act_dim, self.horizon = obs_dim, act_dim, horizon
+        # antmaze conditions on val / scale + 1 (returns in [0, 1])
+        self.return_scale, self.val_shift = return_scale, val_shift
+        self.invdyn_gradient_steps = invdyn_gradient_steps
         self.solver, self.sampling_steps = solver, sampling_steps
         self.w_cfg, self.target_return, self.temperature = w_cfg, target_return, temperature
         self.device = default_device(device)
@@ -75,9 +96,12 @@ class DDPipeline:
 
         self.agent = ContinuousDiffusionSDE(
             nn_diffusion, nn_condition, fix_mask=fix_mask, loss_weight=loss_weight,
-            predict_noise=predict_noise, noise_schedule="linear", device=self.device,
+            ema_rate=ema_rate, predict_noise=predict_noise, noise_schedule="linear",
+            optim_params={"lr": cosine_decay_schedule(lr, diffusion_gradient_steps),
+                          "weight_decay": 0.0},
+            rng=rng, device=self.device,
         )
-        self.invdyn = MlpInvDynamic(obs_dim, act_dim, 512, torch.tanh,
+        self.invdyn = MlpInvDynamic(obs_dim, act_dim, 512, torch.tanh, {"lr": 2e-4},
                                     generator=torch.Generator().manual_seed(rng + 1),
                                     device=self.device)
         self._plan_fn = None
@@ -89,6 +113,38 @@ class DDPipeline:
         load_agent_params(self.agent.params, params)
         load_agent_params(self.agent.ema_params, ema_params)
         load_jax_params(self.invdyn.net, invdyn_params["params"])
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch, noise=None) -> dict:
+        """One diffusion update (+ one inverse-dynamics update within its
+        budget) on batch {"obs": {"state": (B, H, obs)}, "act": (B, H, act),
+        "val": (B, 1)}. Returns device scalars "loss", "grad_norm" and
+        "invdyn_loss" (within the budget). `noise` is the diffusion loss's
+        optional explicit draws (diffusion/diffusionsde.py `loss_fn`)."""
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        obs, act = f32(batch["obs"]["state"]), f32(batch["act"])
+        val = f32(batch["val"]) / self.return_scale + self.val_shift
+        log = self.agent.update(obs, val, noise=noise)
+        if self.agent.step <= self.invdyn_gradient_steps:
+            o = obs[:, :-1].reshape(-1, self.obs_dim)
+            a = act[:, :-1].reshape(-1, self.act_dim)
+            o2 = obs[:, 1:].reshape(-1, self.obs_dim)
+            log["invdyn_loss"] = self.invdyn.update(o, a, o2)["loss"]
+        return log
+
+    def save(self, path: str):
+        self.agent.save(path + ".diffusion")
+        self.invdyn.save(path + ".invdyn")
+
+    def load(self, path: str):
+        self.agent.load(path + ".diffusion")
+        self.invdyn.load(path + ".invdyn")
+
+    def load_jax_checkpoint(self, diffusion_path: str, invdyn_path: str):
+        """Resume from the files the JAX pipeline's `save(path)` wrote
+        (`path.diffusion`, `path.invdyn`), without JAX installed."""
+        self.agent.load_jax_checkpoint(diffusion_path)
+        self.invdyn.load_jax_checkpoint(invdyn_path)
 
     # ------------------------------------------------------------------
     def _make_plan_fn(self):

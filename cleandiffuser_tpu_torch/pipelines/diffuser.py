@@ -14,8 +14,18 @@ action, clipped to [-1, 1]. With `use_pallas_block=True` every residual
 block of the diffusion U-Net runs the fused Hopper kernel on a CUDA device
 (ops/film_resblock.py); the classifier keeps the plain block, since it is
 differentiated. With `fused_update=True` every ddpm step runs the fused
-solver-update kernel (ops/solver_update.py). Training (`train_step`,
-`make_train_scan`) comes later.
+solver-update kernel (ops/solver_update.py).
+
+One `train_step` = the diffusion update (AdamW, cosine schedule over
+`diffusion_gradient_steps`, no decay, EMA) on the joint (state, action)
+trajectory, then, for the first `classifier_gradient_steps` steps, the
+classifier's update (Adam, cosine schedule) on that trajectory noised to a
+random level, against the batch's value. With `use_pallas_block=True` the
+U-Net's forward runs K3 in every residual block, its backward autograd
+through the plain version. `terminal_penalty` and `discount` are the value
+targets' settings: stored as the JAX pipeline stores them, read by nothing
+until the data slice, which builds those targets, is ported. The fused
+trainer over a device dataset (`make_train_scan`) comes with that slice.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from ..nn_classifier import HalfJannerUNet1d
 from ..nn_diffusion import JannerUNet1d
 from ..utils.jax_params import load_agent_params, load_jax_params
 from ..utils.tensors import default_device
+from ..utils.train_state import cosine_decay_schedule
 
 __all__ = ["DiffuserPipeline"]
 
@@ -48,6 +59,12 @@ class DiffuserPipeline:
         solver: str = "ddpm",
         predict_noise: bool = True,
         action_loss_weight: float = 10.0,
+        terminal_penalty: float = -100.0,
+        discount: float = 0.997,
+        ema_rate: float = 0.9999,
+        diffusion_gradient_steps: int = 1_000_000,
+        classifier_gradient_steps: int = 1_000_000,
+        lr: float = 2e-4,
         w_cg: float = 0.1,
         temperature: float = 0.5,
         use_pallas_block: bool = False,
@@ -58,6 +75,8 @@ class DiffuserPipeline:
         self.obs_dim, self.act_dim, self.horizon = obs_dim, act_dim, horizon
         self.sampling_steps, self.solver = sampling_steps, solver
         self.w_cg, self.temperature = w_cg, temperature
+        self.classifier_gradient_steps = classifier_gradient_steps
+        self.terminal_penalty, self.discount = terminal_penalty, discount
         # read when a plan function is built; plans are cached per value
         self.fused_update = fused_update
         self.device = default_device(device)
@@ -72,7 +91,10 @@ class DiffuserPipeline:
             horizon, in_dim, out_dim=1, model_dim=model_dim, emb_dim=model_dim,
             dim_mult=dim_mult, kernel_size=3, generator=torch.Generator().manual_seed(rng + 1),
         )
-        self.classifier = CumRewClassifier(nn_classifier, device=self.device)
+        self.classifier = CumRewClassifier(
+            nn_classifier,
+            optim_params={"lr": cosine_decay_schedule(lr, classifier_gradient_steps)},
+            device=self.device)
 
         fix_mask = np.zeros((horizon, in_dim), np.float32)
         fix_mask[0, :obs_dim] = 1.0
@@ -81,8 +103,11 @@ class DiffuserPipeline:
 
         self.agent = DiscreteDiffusionSDE(
             nn_diffusion, None, fix_mask=fix_mask, loss_weight=loss_weight,
-            classifier=self.classifier, diffusion_steps=diffusion_steps,
-            predict_noise=predict_noise, device=self.device,
+            classifier=self.classifier, ema_rate=ema_rate,
+            optim_params={"lr": cosine_decay_schedule(lr, diffusion_gradient_steps),
+                          "weight_decay": 0.0},
+            diffusion_steps=diffusion_steps, predict_noise=predict_noise, rng=rng,
+            device=self.device,
         )
         self._plan_fns = {}
         self._generator = torch.Generator(device=self.device).manual_seed(rng + 2)
@@ -96,6 +121,38 @@ class DiffuserPipeline:
         load_agent_params(self.agent.ema_params, ema_params)
         load_jax_params(self.classifier.params, cls_params["params"])
         load_jax_params(self.classifier.ema_params, cls_ema_params["params"])
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch, noise=None, classifier_noise=None) -> dict:
+        """One diffusion update (+ one classifier update within its budget)
+        on batch {"obs": {"state": (B, H, obs)}, "act": (B, H, act), "val":
+        (B, 1)}. Returns device scalars "loss", "grad_norm" and
+        "classifier_loss" (within the budget). `noise` is the diffusion
+        loss's optional explicit draws, `classifier_noise` = (t, eps) those
+        of the classifier's noised input (else drawn from the engine's
+        generator)."""
+        f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        x = torch.cat([f32(batch["obs"]["state"]), f32(batch["act"])], dim=-1)
+        log = self.agent.update(x, noise=noise)
+        if self.agent.step <= self.classifier_gradient_steps:
+            t, eps = classifier_noise if classifier_noise is not None else (None, None)
+            xt, t, _ = self.agent.add_noise(x, t, eps, self.agent.generator)
+            log["classifier_loss"] = self.classifier.update(xt, t, f32(batch["val"]))["loss"]
+        return log
+
+    def save(self, path: str):
+        self.agent.save(path + ".diffusion")
+        self.classifier.save(path + ".classifier")
+
+    def load(self, path: str):
+        self.agent.load(path + ".diffusion")
+        self.classifier.load(path + ".classifier")
+
+    def load_jax_checkpoint(self, diffusion_path: str, classifier_path: str):
+        """Resume from the files the JAX pipeline's `save(path)` wrote
+        (`path.diffusion`, `path.classifier`), without JAX installed."""
+        self.agent.load_jax_checkpoint(diffusion_path)
+        self.classifier.load_jax_checkpoint(classifier_path)
 
     # ------------------------------------------------------------------
     def _make_plan_fn(self, num_envs: int, num_candidates: int):

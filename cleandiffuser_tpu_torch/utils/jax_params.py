@@ -30,6 +30,10 @@ it nested (`DiTBlock_i`: Dense_0, MultiHeadDotProductAttention_0, Dense_1,
 Dense_2). Both load: a nested block is flattened first (`flat_from_nested`).
 flax keeps the q/k/v kernels as (D, heads, head_dim), head-major, which is
 exactly the column order of the flat `wqkv`.
+
+Optimizer state. optax's Adam moments are trees shaped as the params; they
+carry across by the same mapping into `torch.optim` state (`exp_avg`,
+`exp_avg_sq`, `step`), so a JAX checkpoint resumes in the port.
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ import torch.nn as nn
 __all__ = [
     "flat_from_nested",
     "load_jax_params",
+    "load_adam_moments",
     "jax_params_of",
     "load_agent_params",
+    "load_agent_moments",
     "agent_params_of",
 ]
 
@@ -137,10 +143,10 @@ def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
     return tuple(path) + (leaf,), ""
 
 
-def load_jax_params(model: nn.Module, tree: dict) -> None:
-    """Load a flax param tree (the dict under "params") into `model`, in
-    place, on the model's device. Every entry of the model's state must be
-    found and every leaf of the tree used, with matching shapes."""
+def _state_from_jax(model: nn.Module, tree: dict) -> Dict[str, torch.Tensor]:
+    """A flax param tree (or a tree shaped like one, e.g. Adam's moments)
+    as the model's state_dict, on the CPU. Every entry of the model's state
+    must be found and every leaf of the tree used, with matching shapes."""
     leaves = dict(_leaves(_flatten_blocks(tree)))
     state = {}
     for key, ref in model.state_dict().items():
@@ -154,7 +160,27 @@ def load_jax_params(model: nn.Module, tree: dict) -> None:
         state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     if leaves:
         raise KeyError(f"JAX params left unused: {sorted('/'.join(p) for p in leaves)}")
-    model.load_state_dict(state)
+    return state
+
+
+def load_jax_params(model: nn.Module, tree: dict) -> None:
+    """Load a flax param tree (the dict under "params") into `model`, in
+    place, on the model's device."""
+    model.load_state_dict(_state_from_jax(model, tree))
+
+
+def load_adam_moments(optimizer: torch.optim.Optimizer, model: nn.Module, mu: dict,
+                      nu: dict, count: int) -> None:
+    """Carry optax Adam moments (`mu`, `nu`: trees shaped as the flax params
+    of `model`) and its count into `optimizer`'s state for the parameters of
+    `model`, laid out as the parameters are (Dense kernels transposed, DiT
+    blocks flat or nested). Entries that are buffers in the port (frozen,
+    e.g. Fourier frequencies) are dropped."""
+    m, v = _state_from_jax(model, mu), _state_from_jax(model, nu)
+    for key, p in model.named_parameters():
+        optimizer.state[p] = {"step": torch.tensor(float(count)),
+                              "exp_avg": m[key].to(p.device),
+                              "exp_avg_sq": v[key].to(p.device)}
 
 
 def jax_params_of(model: nn.Module) -> dict:
@@ -175,6 +201,15 @@ def load_agent_params(params: nn.ModuleDict, tree: dict) -> None:
     ({"diffusion": {"params": ...}, "condition": {"params": ...}})."""
     for name, module in params.items():
         load_jax_params(module, tree.get(name, {}).get("params", {}))
+
+
+def load_agent_moments(optimizer: torch.optim.Optimizer, params: nn.ModuleDict, mu: dict,
+                       nu: dict, count: int) -> None:
+    """`load_adam_moments` for an engine's moments, shaped as its
+    `state.params` tree."""
+    for name, module in params.items():
+        load_adam_moments(optimizer, module, mu.get(name, {}).get("params", {}),
+                          nu.get(name, {}).get("params", {}), count)
 
 
 def agent_params_of(params: nn.ModuleDict) -> dict:

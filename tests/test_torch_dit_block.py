@@ -151,6 +151,7 @@ def test_kernel_backward_is_the_plain_gradient():
 
     class Ctx:
         saved_tensors = [a.detach() for a in args]
+        needs_input_grad = (True,) * 10 + (False,)
         n_heads = NH
 
     g = torch.from_numpy(np.random.default_rng(9).standard_normal(x.shape).astype(np.float32))
@@ -159,3 +160,26 @@ def test_kernel_backward_is_the_plain_gradient():
     assert got[-1] is None
     for a, gr in zip(args, got[:-1]):
         torch.testing.assert_close(gr, a.grad, atol=0, rtol=0)
+
+
+def test_kernel_backward_skips_inputs_without_gradient():
+    """Inputs that need no gradient (here x and the biases) get None, the
+    others the plain version's gradient."""
+    x, mod, ws = _inputs()
+    need = (False, True) + (True, False) * 4
+    args = [torch.from_numpy(a).requires_grad_(n) for a, n in zip((x, mod, *ws), need)]
+
+    class Ctx:
+        saved_tensors = [a.detach() for a in args]
+        needs_input_grad = need + (False,)
+        n_heads = NH
+
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(x.shape).astype(np.float32))
+    got = ops._FusedDiTBlock.backward(Ctx, g)
+    ops.dit_block_reference(*args, n_heads=NH).backward(g)
+    assert len(got) == 11 and got[-1] is None
+    for a, n, gr in zip(args, need, got[:-1]):
+        if n:
+            torch.testing.assert_close(gr, a.grad, atol=0, rtol=0)
+        else:
+            assert gr is None

@@ -77,6 +77,35 @@ def test_plain_version_matches_jax_reference(film_scale, Cin, skip):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("skip", [True, False], ids=["skip-conv", "identity"])
+def test_fused_block_backward_is_the_plain_gradient(skip):
+    """`_FusedFiLMResBlock`'s backward (autograd through the plain version,
+    recomputed from the saved inputs) gives the plain version's gradients,
+    and None for inputs that need none; exercised through its backward
+    alone (the forward needs a GPU)."""
+    Cin, Cout, K = (5 if skip else 16), 16, 5
+    x, emb, ws, sk = _film_inputs(Cin, Cout, K, False, skip)
+    config = dict(K=K, groups=4, film_scale=False, eps=1e-6)
+    args = [None if a is None else torch.from_numpy(a).requires_grad_(i != 0)
+            for i, a in enumerate((x, emb, *ws, *sk))]  # x needs no gradient here
+
+    class Ctx:
+        saved_tensors = [None if a is None else a.detach() for a in args]
+        needs_input_grad = tuple(a is not None and a.requires_grad for a in args) + (False,)
+
+    Ctx.config = config
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal((B, H, Cout))
+                         .astype(np.float32))
+    got = ops._FusedFiLMResBlock.backward(Ctx, g)
+    ops.film_resblock_reference(*args, **config).backward(g)
+    assert len(got) == 13 and got[0] is None and got[-1] is None
+    for a, gr in zip(args[1:], got[1:-1]):
+        if a is None:
+            assert gr is None
+        else:
+            torch.testing.assert_close(gr, a.grad, atol=0, rtol=0)
+
+
 class _Holder(torch.nn.Module):
     """One port module under a given flax name."""
 

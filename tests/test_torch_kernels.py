@@ -141,6 +141,51 @@ def test_dit1d_through_kernel_matches_plain_with_gradient(cuda):
         torch.testing.assert_close(g_k, g_p, atol=1e-3, rtol=1e-3)
 
 
+def _max_rel_diff(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+
+
+@pytest.mark.gpu
+def test_dit1d_gradients_through_kernel_at_training_shape(cuda):
+    """DD's training shape: a DiT1d at full width (d_model 320, 10 heads,
+    depth 2) on a batch of 64 x 32, through the kernel's autograd Function
+    against the plain block: the loss, and the gradient of every parameter.
+    The backward recomputes the plain block, so the two differ only through
+    the forward's ~1e-5 (upstream gradients and each block's input); 1e-3
+    of each gradient's largest entry leaves margin, and a wiring error (a
+    gradient for the wrong input) is O(1). The key bias's gradient is
+    rounding noise in both (softmax ignores it), so it is held in absolute
+    terms, to 1e-3 of the largest gradient of its block."""
+    nets = [DiT1d(17, 128, 320, 10, 2, timestep_emb_type="fourier", use_pallas_block=k,
+                  generator=torch.Generator().manual_seed(0)) for k in (True, False)]
+    rng = np.random.default_rng(2)
+    with torch.no_grad():  # non-zero adaLN weights, identical in both nets
+        for p_k, p_p in zip(nets[0].parameters(), nets[1].parameters()):
+            fan = p_k.shape[0] if p_k.dim() == 2 else 10.0
+            v = rng.standard_normal(p_k.shape) / np.sqrt(fan)
+            p_k.copy_(torch.from_numpy(v.astype(np.float32)))
+            p_p.copy_(p_k)
+    nets = [n.to(cuda) for n in nets]
+    x = torch.from_numpy(rng.standard_normal((64, 32, 17)).astype(np.float32)).to(cuda)
+    target = torch.from_numpy(rng.standard_normal((64, 32, 17)).astype(np.float32)).to(cuda)
+    t = torch.from_numpy(rng.uniform(0, 1, 64).astype(np.float32)).to(cuda)
+    losses = []
+    for net in nets:
+        before = ops.fused_dit_block.launches
+        loss = ((net(x, t, None) - target) ** 2).mean()
+        loss.backward()
+        losses.append(loss.detach())
+        assert ops.fused_dit_block.launches - before == (2 if net is nets[0] else 0)
+    torch.testing.assert_close(losses[0], losses[1], atol=0, rtol=1e-5)
+    D = 320
+    for (name, p_k), p_p in zip(nets[0].named_parameters(), nets[1].parameters()):
+        if name.endswith("bqkv"):
+            block_max = p_p.grad.abs().max()
+            assert (p_k.grad[D:2 * D] - p_p.grad[D:2 * D]).abs().max() <= 1e-3 * block_max, name
+            p_k.grad[D:2 * D] = p_p.grad[D:2 * D]
+        assert _max_rel_diff(p_k.grad, p_p.grad) < 1e-3, name
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused FiLM residual block
 def _film_inputs(dev, B, H, Cin, Cout, K, film_scale, seed=3, x_offset=0.0, w_mean=0.0):
@@ -252,6 +297,35 @@ def test_film_resblock_kernel_rejects_what_it_does_not_take(cuda):
         film.fused_film_resblock(x, emb, *ws, *skip, K=4, groups=8)
     with pytest.raises(RuntimeError, match="backward"):
         film.fused_film_resblock(x.requires_grad_(True), emb, *ws, *skip, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 23, 32), (4, 256, 256)], ids=["h32-23-32", "h4-256-256"])
+def test_film_resblock_gradients_through_kernel(cuda, shape):
+    """Two shipped U-Net block shapes at the training batch of 64: through
+    `film_resblock_op` (the kernel's autograd Function: kernel forward,
+    plain-version backward) against the plain version, the output and the
+    gradient of every input, one launch; the kernel's own wrapper still
+    raises on an input that needs a gradient."""
+    H, Cin, Cout = shape
+    x, emb, ws, skip = _film_inputs(cuda, 64, H, Cin, Cout, 5, False)
+    inputs = [a.requires_grad_(True) for a in (x, emb, *ws, *skip) if a is not None]
+    args = [x, emb, *ws, *skip]
+    kw = dict(K=5, groups=8, eps=1e-6)
+    g = torch.randn(64, H, Cout, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = film.fused_film_resblock.launches
+    out = film.film_resblock_op(*args, **kw)
+    assert film.fused_film_resblock.launches == before + 1
+    ref = film.film_resblock_reference(*args, **kw)
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+    got = torch.autograd.grad(out, inputs, g)
+    want = torch.autograd.grad(ref, inputs, g)
+    # the same plain backward on the same inputs, but cuDNN may sum in
+    # another order from one call to the next (measured: 4.8e-7 at most)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+    with pytest.raises(RuntimeError, match="backward"):
+        film.fused_film_resblock(*args, **kw)
 
 
 @pytest.mark.gpu

@@ -15,7 +15,8 @@ PORT = ROOT / "cleandiffuser_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "cleandiffuser_tpu"}
 # the port's sources and the scripts that drive it on the card
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools/dit_block_variants.py", ROOT / "tools/profile_dd_plan.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools/dit_block_variants.py", ROOT / "tools/profile_dd_plan.py",
+    ROOT / "tools/profile_train_step.py"]
 
 
 def _imported_roots(path: Path):

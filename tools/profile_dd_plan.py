@@ -44,10 +44,12 @@ from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params
 
 
 def device_events(prof):
-    """(name, device ms, count) of every device event, summed by name."""
+    """(name, device ms, count) of every device event, summed by name. A
+    user annotation's device span (e.g. `Optimizer.step#AdamW.step`) covers
+    kernels counted on their own, and is left out."""
     out = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
