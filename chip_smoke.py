@@ -13,12 +13,21 @@ Phases, each of which raises on failure (exit code != 0):
                parallel; prints the seconds and the compiler's register /
                shared-memory report; counts the tensor-core instructions
                (HMMA / HGMMA) in the SASS of both and fails if either has
-               none; compiles the Triton solver-update kernel.
+               none, and the BF16 ones (HMMA.16816.F32.BF16) of K1's BF16
+               route, failing if there are none; compiles the Triton
+               solver-update kernel.
 3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
                (B=100, H=32, D=320, 10 heads, f32), at the 3200-trajectory
                candidate batch and at the antmaze horizon H=64 (a cluster of
                two thread blocks per trajectory): error, both times, TFLOP/s
                (flops from the shape) and the kernel's share of its bound.
+   dit_block BF16 - K1's BF16 route (BF16 weights and biases) against its
+               plain version (which promotes as jnp does) at (100, 32, 320)
+               mixed (f32 x and mod) and all-BF16, (3200, 32, 320) mixed and
+               (100, 64, 320) mixed on the cluster: error within 5e-2 (and
+               the share of that limit read), the route's time beside the
+               f32 route's and the plain version's in one call, TFLOP/s and
+               the share of the BF16 bound.
 4. film_resblock - K3 against its plain version at every distinct block
                shape of the shipped Diffuser U-Net (B=3200 candidate
                trajectories, K=5, 8 groups, eps 1e-6): error, both times
@@ -32,10 +41,20 @@ Phases, each of which raises on failure (exit code != 0):
                halfcheetah-medium-v2), loads seeded non-zero weights through
                the JAX-layout converter, serves 5 `act` requests for 50 envs,
                checks the actions, the inpainted first state and K1's launch
-               count (40 per request: 20 steps x 2 blocks), and holds one plan
+               count (40 per request: 20 steps x 2 blocks; the BF16 route's
+               0), and holds one plan
                through K1 against the same plan through the plain version,
                with the same explicit noise. Then the same for one request
                at the antmaze configs' horizon of 64 (antmaze-medium-play-v2).
+   DD slice, bf16_sampling - the same config with `bf16_sampling=true`
+               through `setup_mesh`: 5 requests (the BF16 route 40 launches
+               per request, the f32 route none), their latency beside the
+               f32 latency of the same requests, and one plan in bf16
+               against the f32 plan with the same explicit noise (max and
+               mean |diff| within 0.02 and 0.005 of the plan's scale, the
+               JAX package's bounds; the gap with the Fourier frequencies at
+               their N(0, 16^2) init scale is printed beside it); then one
+               antmaze request (H = 64), its gap printed.
 7. Diffuser slice - builds DiffuserPipeline on the GPU from
                configs/diffuser/mujoco (halfcheetah-medium-v2) with the fused
                block on, loads seeded non-zero weights (U-Net, classifier and
@@ -62,6 +81,12 @@ Phases, each of which raises on failure (exit code != 0):
                (per-step losses within LOSS_RTOL, grad norms within
                GRAD_NORM_RTOL; the params' final drift printed), ms per step on both paths (median of 12, CUDA
                events, in turns), then one `act` from the trained EMA.
+   DD training, bf16_training - the same config with `bf16_training=true`
+               through `setup_mesh`: 10 `train_step`s (the BF16 route 2
+               launches per step, the f32 route none) against the same steps
+               in f32 with the same batches and noise (per-step losses within
+               5 %, the JAX package's bound); params, Adam state and EMA
+               stay f32; ms per step on both.
 10. Diffuser training - first K3 through its autograd Function at every
                distinct U-Net block shape at the training batch 64: forward
                and the gradients of every input against the plain version.
@@ -71,6 +96,15 @@ Phases, each of which raises on failure (exit code != 0):
                per step), against the plain block as for DD, ms per step.
 11. checkpoint - DD saved after 10 steps and loaded into a fresh pipeline:
                step 11 on both agrees within CKPT_ATOL.
+12. Goal2D score - the hermetic DD of tests/test_hermetic_parity.py:139-148
+               (d_model 128, 4 heads, depth 2, horizon 8) with the fused
+               block, on the port's D4RLMuJoCoDataset over the Goal2D
+               behavior data (1000 episodes, seed 0) on the card: 3000
+               `train_step`s through K1 on batches of 64 from the device
+               sampler, then 64 episodes of the torch env planned from the
+               EMA in f32 and with `bf16_sampling`: both normalized scores
+               must reach 0.85 (the JAX package's bar); K1's launches on
+               each route printed.
 
 Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
@@ -79,10 +113,11 @@ object with one record per kernel: its launches in the planning requests
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
-operations are 3x the flops at the 495 TFLOP/s TF32 peak; K2's are f32 at
-67 TFLOP/s. The last line is {"ok": true, "device": {...}}. TF32 is
-off for every comparison (matmul and cuDNN), so both sides compute in full
-float32.
+operations are 3x the flops at the 495 TFLOP/s TF32 peak; K1's BF16 route
+does its four weight products at the 989 TFLOP/s BF16 peak and attention
+in 3xTF32; K2's are f32 at 67 TFLOP/s. The last line is {"ok": true,
+"device": {...}}. TF32 is off for every comparison (matmul and cuDNN), so
+both sides compute in full float32.
 """
 
 from __future__ import annotations
@@ -101,12 +136,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset  # noqa: E402
+from cleandiffuser_tpu_torch.dataset.hermetic import goal2d_sequence_dataset  # noqa: E402
+from cleandiffuser_tpu_torch.diffusion.basic import DiffusionModel  # noqa: E402
 from cleandiffuser_tpu_torch.diffusion.vp_solvers import ddpm_coefficients  # noqa: E402
+from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn  # noqa: E402
 from cleandiffuser_tpu_torch.ops import build  # noqa: E402
 from cleandiffuser_tpu_torch.ops.dit_block import (  # noqa: E402
     dit_block_op,
     dit_block_reference,
     fused_dit_block,
+    fused_dit_block_bf16,
     load_dit_block_library,
 )
 from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
@@ -119,6 +159,7 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
     fused_solver_update,
     solver_update_reference,
 )
+from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline  # noqa: E402
 from cleandiffuser_tpu_torch.utils.config import load_config  # noqa: E402
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of  # noqa: E402
@@ -154,6 +195,17 @@ GRAD_NORM_RTOL = 1e-4
 # same inputs as the uninterrupted one
 CKPT_ATOL = 1e-6
 DD_TRAIN_STEPS, DIFFUSER_TRAIN_STEPS, TIMED_STEPS = 20, 10, 12
+# K1's BF16 route against its plain version: the JAX package's bound for its
+# bf16 kernel (tests/test_pallas_ops.py:136). The route rounds each product's
+# activations to bf16, which the mixed plain version does not.
+BF16_ATOL = BF16_RTOL = 5e-2
+# bf16 against f32 with the same weights and noise: plans (max and mean |diff|
+# over the plan's scale) and losses, the JAX package's bounds
+# (tests/test_bf16_sampling.py:67-70, :105)
+BF16_PLAN_MAX, BF16_PLAN_MEAN, BF16_LOSS_RTOL = 0.02, 0.005, 0.05
+BF16_TRAIN_STEPS = 10
+# the hermetic DD gate (tests/test_hermetic_parity.py:132-157)
+GOAL2D_STEPS, GOAL2D_BAR = 3000, 0.85
 # (H, Cin, Cout) of the 16 residual blocks of the shipped Diffuser U-Net
 # (obs 17 + act 6 = 23 channels in, model_dim 32, dim_mult (1, 2, 2, 2),
 # horizon 32), in the order the net runs them
@@ -161,10 +213,10 @@ UNET_BLOCKS = [(32, 23, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64), (8, 64, 1
                (8, 128, 128), (4, 128, 256), (4, 256, 256), (4, 256, 256), (4, 256, 256),
                (4, 512, 128), (4, 128, 128), (8, 256, 64), (8, 64, 64), (16, 128, 32),
                (16, 32, 32)]
-KERNELS = (fused_dit_block, fused_film_resblock, fused_solver_update)
+KERNELS = (fused_dit_block, fused_dit_block_bf16, fused_film_resblock, fused_solver_update)
 # NVIDIA H100 SXM peaks (data sheet, dense): f32 outside the tensor cores,
-# TF32 on them, and HBM3 bandwidth
-F32_TFLOPS, TF32_TFLOPS, HBM_TBPS = 67.0, 495.0, 3.35
+# TF32 and BF16 on them, and HBM3 bandwidth
+F32_TFLOPS, TF32_TFLOPS, BF16_TFLOPS, HBM_TBPS = 67.0, 495.0, 989.0, 3.35
 # K1 and K3 compute each f32 product as three TF32 MMAs: their peak for it
 TF32X3_TFLOPS = TF32_TFLOPS / 3
 
@@ -213,16 +265,24 @@ def reset_counts():
         k.launches = 0
 
 
-def time_in_turns(kern, plain, iters: int, rounds: int = 1):
-    """Device ms of kern() and plain(), each the median of 2 x `rounds`
-    runs of `iters` calls, in turns plain, kernel, kernel, plain, after a
-    warm-up."""
-    for f in (kern, plain):
+def time_in_turns(fns: dict, iters: int, rounds: int = 1):
+    """Device ms of each fn of `fns` (name -> callable), the median of 2 x
+    `rounds` runs of `iters` calls, in turns: the dict's order, then the
+    reverse (plain, kernel, kernel, plain), after a warm-up. Returns the
+    medians and the runs, by name."""
+    for f in fns.values():
         cuda_ms(f, 3)
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain") * rounds:
-        times[name].append(cuda_ms(kern if name == "kernel" else plain, iters))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"]), times
+    times = {name: [] for name in fns}
+    for name in (list(fns) + list(fns)[::-1]) * rounds:
+        times[name].append(cuda_ms(fns[name], iters))
+    return {name: statistics.median(v) for name, v in times.items()}, times
+
+
+def time_pair(kern, plain, iters: int, rounds: int = 1):
+    """`time_in_turns` of a kernel and its plain version: (kernel ms, plain
+    ms, runs)."""
+    med, times = time_in_turns({"plain": plain, "kernel": kern}, iters, rounds)
+    return med["kernel"], med["plain"], times
 
 
 def errors(out, ref):
@@ -261,6 +321,10 @@ def build_kernels(dev):
               f"{mma[0].split(';')[0].split('*/')[-1].strip() if mma else '-'}")
         if not mma:
             raise AssertionError(f"{name}'s SASS has no tensor-core instruction")
+    bf16 = [ln for ln in build.sass("dit_block").splitlines() if "HMMA.16816.F32.BF16" in ln]
+    print(f"dit_block SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
+    if not bf16:
+        raise AssertionError("dit_block's SASS has no BF16 MMA: the BF16 route is not built")
     x = torch.zeros(1024, device=dev)
     for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
         t0 = time.perf_counter()
@@ -270,11 +334,11 @@ def build_kernels(dev):
               f"{time.perf_counter() - t0:.2f} s")
 
 
-def bound(gflop: float, gbytes: float, tflops: float) -> dict:
+def bound(ops_ms: float, gbytes: float) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    HBM rate and the flops over `tflops`, the peak of the route that does
-    them (ms)."""
-    ops_ms, bytes_ms = gflop / tflops, gbytes / HBM_TBPS
+    HBM rate and `ops_ms`, the operations' time at the peak of the route
+    that does them (ms)."""
+    bytes_ms = gbytes / HBM_TBPS
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -285,9 +349,29 @@ def dit_gflop(B, H, D) -> float:
     return B * H * (24 * D * D + 4 * H * D) / 1e9
 
 
-def dit_gbytes(B, H, D) -> float:
-    """x and mod read, out written, the weights and biases read, once each."""
-    return 4 * (2 * B * H * D + 6 * B * D + 12 * D * D + 9 * D) / 1e9
+def dit_gbytes(B, H, D, x_bytes: int = 4, w_bytes: int = 4) -> float:
+    """x and mod read, out written, the weights and biases read, once each;
+    x, mod and out of `x_bytes`, weights and biases of `w_bytes` each."""
+    return (x_bytes * (2 * B * H * D + 6 * B * D) + w_bytes * (12 * D * D + 9 * D)) / 1e9
+
+
+def dit_bf16_ops_ms(B, H, D) -> float:
+    """The BF16 route's operations at their peaks: the four weight products
+    in BF16, attention's two in 3xTF32."""
+    return B * H * 24 * D * D / 1e9 / BF16_TFLOPS + B * H * 4 * H * D / 1e9 / TF32X3_TFLOPS
+
+
+def block_inputs(rng, dev, B, H, D, requires_grad=False):
+    """Seeded f32 inputs of one DiT block: x, mod and the 8 weights and biases."""
+    def t(*shape, std):
+        z = torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev)
+        return z.requires_grad_(requires_grad)
+
+    x, mod = t(B, H, D, std=1.0), t(B, 6 * D, std=0.5)
+    ws = [t(D, 3 * D, std=D ** -0.5), t(3 * D, std=0.1), t(D, D, std=D ** -0.5),
+          t(D, std=0.1), t(D, 4 * D, std=D ** -0.5), t(4 * D, std=0.1),
+          t(4 * D, D, std=(4 * D) ** -0.5), t(D, std=0.1)]
+    return x, mod, ws
 
 
 def check_kernel(dev) -> dict:
@@ -297,13 +381,7 @@ def check_kernel(dev) -> dict:
     record = None
     # the DD plan's CFG batch; candidate evaluation; the antmaze configs' horizon
     for B, H, iters in ((100, 32, 50), (3200, 32, 5), (100, 64, 25)):
-        def t(*shape, std):
-            return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev)
-
-        x, mod = t(B, H, D, std=1.0), t(B, 6 * D, std=0.5)
-        ws = [t(D, 3 * D, std=D ** -0.5), t(3 * D, std=0.1), t(D, D, std=D ** -0.5),
-              t(D, std=0.1), t(D, 4 * D, std=D ** -0.5), t(4 * D, std=0.1),
-              t(4 * D, D, std=(4 * D) ** -0.5), t(D, std=0.1)]
+        x, mod, ws = block_inputs(rng, dev, B, H, D)
         out = fused_dit_block(x, mod, *ws, n_heads=NH)
         ref = dit_block_reference(x, mod, *ws, n_heads=NH)
         torch.cuda.synchronize()
@@ -312,11 +390,11 @@ def check_kernel(dev) -> dict:
               f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f})", flush=True)
         torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
 
-        ms, plain_ms, times = time_in_turns(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
-                                            lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
-                                            iters)
+        ms, plain_ms, times = time_pair(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
+                                        lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
+                                        iters)
         gf, gb = dit_gflop(B, H, D), dit_gbytes(B, H, D)
-        b = bound(gf, gb, TF32X3_TFLOPS)
+        b = bound(gf / TF32X3_TFLOPS, gb)
         print(f"  device time per block (weights hot in L2): kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms ({gf:.3f} GFLOP, {gb * 1e3:.2f} MB: kernel {gf / ms:.2f}, plain "
               f"{gf / plain_ms:.2f} TFLOP/s); bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
@@ -327,6 +405,53 @@ def check_kernel(dev) -> dict:
               flush=True)
         if record is None:
             record = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b}
+    return record
+
+
+def check_kernel_bf16(dev) -> dict:
+    """K1's BF16 route against its plain version; its time beside the f32
+    route's (on the f32 weights) and the plain version's, in turns."""
+    phase("dit_block BF16 route vs plain version")
+    D, NH = 320, 10
+    rng = np.random.default_rng(SEED + 10)
+    record = None
+    # the bf16 DD plan's call (f32 x and mod), all-BF16, candidate
+    # evaluation, the antmaze horizon on the cluster
+    for B, H, route, iters in ((100, 32, "mixed", 50), (100, 32, "bf16", 50),
+                               (3200, 32, "mixed", 5), (100, 64, "mixed", 25)):
+        x, mod, ws = block_inputs(rng, dev, B, H, D)
+        wb = [w.to(torch.bfloat16) for w in ws]
+        xb, modb = (x.to(torch.bfloat16), mod.to(torch.bfloat16)) if route == "bf16" else (x, mod)
+        out = fused_dit_block_bf16(xb, modb, *wb, n_heads=NH)
+        ref = dit_block_reference(xb, modb, *wb, n_heads=NH)
+        torch.cuda.synchronize()
+        if out.dtype != xb.dtype:
+            raise AssertionError(f"the BF16 route returned {out.dtype} for {xb.dtype} x")
+        out, ref = out.float(), ref.float()
+        max_abs, max_rel = errors(out, ref)
+        # the share of the limit used: |d| / (atol + rtol |ref|), as assert_close reads it
+        used = ((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max().item()
+        print(f"shape (B={B}, H={H}, D={D}, heads={NH}) {route}: max_abs_err {max_abs:.3e} "
+              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); "
+              f"{used:.1%} of the limit ({BF16_ATOL} abs + {BF16_RTOL} rel)", flush=True)
+        torch.testing.assert_close(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL)
+
+        med, times = time_in_turns(
+            {"plain": lambda: dit_block_reference(xb, modb, *wb, n_heads=NH),
+             "bf16": lambda: fused_dit_block_bf16(xb, modb, *wb, n_heads=NH),
+             "f32": lambda: fused_dit_block(x, mod, *ws, n_heads=NH)}, iters)
+        gf = dit_gflop(B, H, D)
+        gb = dit_gbytes(B, H, D, x_bytes=2 if route == "bf16" else 4, w_bytes=2)
+        b = bound(dit_bf16_ops_ms(B, H, D), gb)
+        print(f"  device time per block: BF16 route {med['bf16']:.4f} ms, f32 route "
+              f"{med['f32']:.4f} ms, plain {med['plain']:.4f} ms ({gf:.3f} GFLOP, "
+              f"{gb * 1e3:.2f} MB: {gf / med['bf16']:.2f} / {gf / med['f32']:.2f} / "
+              f"{gf / med['plain']:.2f} TFLOP/s); BF16 bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} (products at {BF16_TFLOPS:.0f}, attention at "
+              f"{TF32X3_TFLOPS:.0f} TFLOP/s): BF16 route at {b['bound_ms'] / med['bf16']:.1%} "
+              f"of it (runs {times})", flush=True)
+        if record is None:
+            record = {"max_abs_err": max_abs, "ms": med["bf16"], "plain_ms": med["plain"], **b}
     return record
 
 
@@ -372,7 +497,7 @@ def check_film_kernel(dev) -> dict:
               f"x{UNET_BLOCKS.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
               f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f})", flush=True)
         torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
-        ms, plain_ms, times = timed[(H, Cin, Cout)] = time_in_turns(
+        ms, plain_ms, times = timed[(H, Cin, Cout)] = time_pair(
             lambda: fused_film_resblock(*args, **kw),
             lambda: film_resblock_reference(*args, **kw), 20)
         gf = film_gflop(B, H, Cin, Cout, K)
@@ -391,7 +516,7 @@ def check_film_kernel(dev) -> dict:
     gbytes = 4 * (B * H * Cin + B * Cout + K * Cin * Cout + K * Cout * Cout
                   + (Cin + 1) * Cout * (Cin != Cout) + 6 * Cout + B * H * Cout) / 1e9
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(film_gflop(B, H, Cin, Cout, K), gbytes, TF32X3_TFLOPS)}
+            **bound(film_gflop(B, H, Cin, Cout, K) / TF32X3_TFLOPS, gbytes)}
 
 
 def check_solver_kernel(dev) -> dict:
@@ -428,13 +553,13 @@ def check_solver_kernel(dev) -> dict:
         raise AssertionError("solver_update noise is not a function of the seed")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    ms, plain_ms, times = time_in_turns(lambda: fused_solver_update(xt, eps, coefs, 7),
-                                        lambda: solver_update_reference(xt, eps, coefs, gen), 200)
+    ms, plain_ms, times = time_pair(lambda: fused_solver_update(xt, eps, coefs, 7),
+                                    lambda: solver_update_reference(xt, eps, coefs, gen), 200)
     print(f"device time per step at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(runs {times['kernel']} / {times['plain']})")
     # xt and eps read, out written; ~6 flops per element besides the noise
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            **bound(6 * xt.numel() / 1e9, 3 * 4 * xt.numel() / 1e9, F32_TFLOPS)}
+            **bound(6 * xt.numel() / 1e9 / F32_TFLOPS, 3 * 4 * xt.numel() / 1e9)}
 
 
 def build_pipeline(args, dev, use_kernel: bool, weights: dict) -> DDPipeline:
@@ -475,17 +600,33 @@ def serve(pipe: DDPipeline, obs_batches, generator) -> list:
     return lat
 
 
-def dd_weights(args, rng) -> dict:
+def dd_weights(args, rng, fourier_scale=None) -> dict:
     """Seeded weights in the JAX package's layout (shapes taken from a CPU
-    build of the same config), for the converter to carry in."""
+    build of the same config), for the converter to carry in. With
+    `fourier_scale`, the Fourier frequencies of params and EMA are drawn at
+    N(0, fourier_scale^2), as the init draws them."""
     probe = DDPipeline(obs_dim=args.task.obs_dim, act_dim=args.task.act_dim,
                        horizon=args.task.horizon, emb_dim=args.emb_dim, d_model=args.d_model,
                        n_heads=args.n_heads, depth=args.depth, device="cpu")
-    return {
+    weights = {
         "params": seeded_tree(agent_params_of(probe.agent.params), rng),
         "ema_params": seeded_tree(agent_params_of(probe.agent.ema_params), rng),
         "invdyn": {"params": seeded_tree(jax_params_of(probe.invdyn.net), rng)},
     }
+    if fourier_scale is not None:
+        for k in ("params", "ema_params"):
+            fourier = weights[k]["diffusion"]["params"]["FourierEmbedding_0"]
+            fourier["freqs"] = (rng.standard_normal(fourier["freqs"].shape)
+                                * fourier_scale).astype(np.float32)
+    return weights
+
+
+def plan_gap(traj, ref) -> tuple:
+    """max and mean |traj - ref| over the plan's scale (max |ref|, at
+    least 1), as tests/test_bf16_sampling.py reads it."""
+    scale = max(ref.abs().max().item(), 1.0)
+    d = (traj - ref).abs()
+    return d.max().item() / scale, d.mean().item() / scale, scale
 
 
 def check_slice(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int:
@@ -510,13 +651,14 @@ def check_slice(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int
 
     reset_counts()
     lat = serve(pipe, obs[1:], gen)
-    launches = fused_dit_block.launches
+    launches, bf16_launches = fused_dit_block.launches, fused_dit_block_bf16.launches
     expected = n_requests * args.sampling_steps * args.depth
     print(f"{n_requests} requests x {E} envs: latency ms {[round(v, 3) for v in lat]} "
           f"(median {statistics.median(lat):.3f}; cold first request {cold[0]:.3f}); "
-          f"dit_block launches {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"dit_block launched {launches} times, expected {expected}")
+          f"dit_block launches {launches} (expected {expected}), BF16 route {bf16_launches}")
+    if launches != expected or bf16_launches:
+        raise AssertionError(f"dit_block launched {launches} times, expected {expected} "
+                             f"(BF16 route {bf16_launches}, expected 0)")
 
     plain_lat = serve(plain, obs[1:], gen)
     print(f"same requests through the plain block: latency ms "
@@ -540,6 +682,74 @@ def check_slice(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int
     if not (d_traj <= tol and d_act <= PLAN_ATOL):
         raise AssertionError("plan through the kernel disagrees with the plain version")
     return launches
+
+
+def check_slice_bf16(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int:
+    """DD planning with `bf16_sampling=true` from the config, through
+    `setup_mesh`: the BF16 route's launches, latency beside f32, and the
+    bf16 plan against the f32 plan (held to the JAX package's bounds on the
+    mujoco config; read on antmaze, whose seeded ddim plans reach |x| of
+    hundreds). Returns the BF16 route's launches."""
+    phase(f"slice: DD planning with bf16_sampling ({bench})")
+    args = load_config(ROOT / "configs/dd" / bench, bench, overrides=["bf16_sampling=true"])
+    try:
+        setup_mesh(args)
+        if not DiffusionModel.bf16_sampling:
+            raise AssertionError("bf16_sampling=true did not reach the engines")
+        E, H, O = args.num_envs, args.task.horizon, args.task.obs_dim
+        rng = np.random.default_rng(SEED + 11)
+        pipe = build_pipeline(args, dev, args.use_pallas_block, dd_weights(args, rng))
+        obs = [torch.from_numpy(rng.standard_normal((E, O)).astype(np.float32)).to(dev)
+               for _ in range(n_requests + 1)]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cold = serve(pipe, obs[:1], gen)
+
+        reset_counts()
+        lat = serve(pipe, obs[1:], gen)
+        launches, f32_launches = fused_dit_block_bf16.launches, fused_dit_block.launches
+        expected = n_requests * args.sampling_steps * args.depth
+        # the same requests in f32: the instance flag hides the class's
+        pipe.agent.bf16_sampling = False
+        f32_lat = serve(pipe, obs[1:], gen)
+        print(f"{n_requests} requests x {E} envs (horizon {H}) in bf16: latency ms "
+              f"{[round(v, 3) for v in lat]} (median {statistics.median(lat):.3f}; cold first "
+              f"request {cold[0]:.3f}); the same requests in f32: "
+              f"{[round(v, 3) for v in f32_lat]} (median {statistics.median(f32_lat):.3f}); "
+              f"BF16 route launches {launches} (expected {expected}), f32 route {f32_launches}",
+              flush=True)
+        if launches != expected or f32_launches:
+            raise AssertionError(f"bf16 planning launched the BF16 route {launches} times "
+                                 f"(expected {expected}) and the f32 route {f32_launches} times")
+
+        # one plan, bf16 against f32, same weights and explicit noise
+        shape = (E, H, O)
+        noise = (torch.randn(shape, generator=gen, device=dev),
+                 torch.randn((args.sampling_steps,) + shape, generator=gen, device=dev))
+        act32, info32 = pipe.act(obs[1], noise=noise)
+        del pipe.agent.bf16_sampling
+        act16, info16 = pipe.act(obs[1], noise=noise)
+        d_max, d_mean, scale = plan_gap(info16["traj"], info32["traj"])
+        print(f"plan bf16 against f32: max |diff| / scale {d_max:.3e}, mean {d_mean:.3e} (scale "
+              f"{scale:.3f}; limits {BF16_PLAN_MAX}, {BF16_PLAN_MEAN}{', read only' if bench != 'mujoco' else ''}); "
+              f"max |act diff| {(act16 - act32).abs().max().item():.3e}", flush=True)
+        if bench == "mujoco" and not (d_max < BF16_PLAN_MAX and d_mean < BF16_PLAN_MEAN):
+            raise AssertionError("the bf16 plan is not within bf16 bounds of the f32 plan")
+        if bench != "mujoco":
+            return launches
+        # read only: the same plan with the Fourier frequencies at their init
+        # scale, where bf16 rounds 2 pi freqs (up to ~300) by up to 1
+        wide = build_pipeline(args, dev, True, dd_weights(args, np.random.default_rng(SEED + 11),
+                                                          16.0))
+        wide.agent.bf16_sampling = False
+        _, w32 = wide.act(obs[1], noise=noise)
+        del wide.agent.bf16_sampling
+        _, w16 = wide.act(obs[1], noise=noise)
+        g_max, g_mean, g_scale = plan_gap(w16["traj"], w32["traj"])
+        print(f"read only, Fourier frequencies at N(0, 16^2): plan bf16 against f32 max |diff| / "
+              f"scale {g_max:.3e}, mean {g_mean:.3e} (scale {g_scale:.3f})", flush=True)
+        return launches
+    finally:
+        DiffusionModel.bf16_sampling = False
 
 
 def serve_diffuser(pipe: DiffuserPipeline, obs_batches, K: int, generator) -> list:
@@ -672,15 +882,7 @@ def check_kernel_autograd(dev) -> dict:
     phase("dit_block under autograd at DD's training shape")
     B, H, D, NH = 64, 32, 320, 10
     rng = np.random.default_rng(SEED + 5)
-
-    def t(*shape, std):
-        z = torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(dev)
-        return z.requires_grad_(True)
-
-    x, mod = t(B, H, D, std=1.0), t(B, 6 * D, std=0.5)
-    ws = [t(D, 3 * D, std=D ** -0.5), t(3 * D, std=0.1), t(D, D, std=D ** -0.5),
-          t(D, std=0.1), t(D, 4 * D, std=D ** -0.5), t(4 * D, std=0.1),
-          t(4 * D, D, std=(4 * D) ** -0.5), t(D, std=0.1)]
+    x, mod, ws = block_inputs(rng, dev, B, H, D, requires_grad=True)
     inputs = [x, mod, *ws]
     g = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32)).to(dev)
     out = dit_block_op(*inputs, n_heads=NH)
@@ -699,15 +901,15 @@ def check_kernel_autograd(dev) -> dict:
         raise AssertionError("the Function's gradients disagree with the plain version's")
 
     with torch.no_grad():
-        ms, plain_ms, times = time_in_turns(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
-                                            lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
-                                            50, rounds=3)
-    fb_ms, fb_plain_ms, fb_times = time_in_turns(
+        ms, plain_ms, times = time_pair(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
+                                        lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
+                                        50, rounds=3)
+    fb_ms, fb_plain_ms, fb_times = time_pair(
         lambda: torch.autograd.grad(dit_block_op(*inputs, n_heads=NH), inputs, g),
         lambda: torch.autograd.grad(dit_block_reference(*inputs, n_heads=NH), inputs, g), 20,
         rounds=3)
     gf, gb = dit_gflop(B, H, D), dit_gbytes(B, H, D)
-    b = bound(gf, gb, TF32X3_TFLOPS)
+    b = bound(gf / TF32X3_TFLOPS, gb)
     print(f"  forward ({gf:.3f} GFLOP, {gb * 1e3:.2f} MB): kernel {ms:.4f} ms ({gf / ms:.2f} "
           f"TFLOP/s), plain {plain_ms:.4f} ms ({gf / plain_ms:.2f}); bound {b['bound_ms']:.4f} ms "
           f"by {b['bound_by']} (3xTF32): kernel at {b['bound_ms'] / ms:.1%} of it (runs "
@@ -759,14 +961,14 @@ def train_batches(rng, n: int, B: int, H: int, O: int, A: int, dev, val_scale: f
 
 def step_ms(pipes: dict, batches: list) -> dict:
     """Per-step time of `train_step` (CUDA events around each step, host
-    enqueue included), TIMED_STEPS per path in turns kernel, plain, plain,
-    kernel, after one warm-up step each; draws from the engines'
-    generators."""
+    enqueue included), TIMED_STEPS per path in turns: the dict's order, then
+    the reverse (kernel, plain, plain, kernel), after one warm-up step each;
+    draws from the engines' generators."""
     for p in pipes.values():
         p.train_step(batches[0])
     times = {k: [] for k in pipes}
     n = TIMED_STEPS // 2
-    for k in ("kernel", "plain", "plain", "kernel"):
+    for k in list(pipes) + list(pipes)[::-1]:
         for i in range(n):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -828,7 +1030,7 @@ def check_dd_training(dev):
         val = batches[0]["val"] / p.return_scale + p.val_shift
         p.agent.loss_fn(p.agent.params, batches[0]["obs"]["state"], val,
                         noise=noise[0]).backward()
-        grads.append([q.grad.clone() for q in p.agent.params.parameters()])
+        grads.append([q.grad.clone() for q in p.agent.params.parameters() if q.grad is not None])
         p.agent.params.zero_grad(set_to_none=True)
     scale = max(g.abs().max().item() for g in grads[1])
     g_err = max((a - b).abs().max().item() for a, b in zip(*grads))
@@ -866,6 +1068,124 @@ def check_dd_training(dev):
     lat = serve(pipe, [obs], gen)
     print(f"one act from the trained EMA ({args.num_envs} envs): {lat[0]:.3f} ms", flush=True)
     return k1, k2, med
+
+
+def check_dd_training_bf16(dev):
+    """DD training with `bf16_training=true` from the config, through
+    `setup_mesh`, against the same steps in f32. Returns (BF16 route
+    launches in the steps, ms per step by path)."""
+    phase("DD training with bf16_training")
+    args = load_config(ROOT / "configs/dd/mujoco", "mujoco", overrides=["bf16_training=true"])
+    try:
+        setup_mesh(args)
+        if not DiffusionModel.bf16_training:
+            raise AssertionError("bf16_training=true did not reach the engines")
+        H, O, A, B = args.task.horizon, args.task.obs_dim, args.task.act_dim, args.batch_size
+        rng = np.random.default_rng(SEED + 12)
+        weights = dd_weights(args, rng, 16.0)
+        pipes = {"bf16": build_pipeline(args, dev, True, weights),
+                 "f32": build_pipeline(args, dev, True, weights)}
+        pipes["f32"].agent.bf16_training = False  # the instance flag hides the class's
+        n = BF16_TRAIN_STEPS
+        batches = train_batches(rng, n, B, H, O, A, dev, pipes["bf16"].return_scale)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        lo, hi = pipes["bf16"].agent.t_diffusion
+        noise = [(torch.rand(B, generator=gen, device=dev) * (hi - lo) + lo,
+                  torch.randn((B, H, O), generator=gen, device=dev),
+                  (torch.rand(B, generator=gen, device=dev) > args.label_dropout).float())
+                 for _ in range(n)]
+
+        reset_counts()
+        logs16 = [pipes["bf16"].train_step(b, noise=z) for b, z in zip(batches, noise)]
+        torch.cuda.synchronize()
+        launches, f32_launches = fused_dit_block_bf16.launches, fused_dit_block.launches
+        print(f"{n} train_steps with bf16_training: BF16 route launches {launches} (expected "
+              f"{n * args.depth}), f32 route {f32_launches}", flush=True)
+        if launches != n * args.depth or f32_launches:
+            raise AssertionError(f"bf16 training launched the BF16 route {launches} times and "
+                                 f"the f32 route {f32_launches} times")
+        logs32 = [pipes["f32"].train_step(b, noise=z) for b, z in zip(batches, noise)]
+        for k in ("loss", "grad_norm", "invdyn_loss"):
+            a = torch.stack([lg[k] for lg in logs16])
+            b = torch.stack([lg[k] for lg in logs32])
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"non-finite {k} in bf16 training")
+            rel = ((a - b).abs() / b.abs()).max().item()
+            print(f"  {k}: bf16 {[round(v, 5) for v in a.tolist()]}; max relative difference "
+                  f"to f32 {rel:.3e}{f' (limit {BF16_LOSS_RTOL})' if k == 'loss' else ''}",
+                  flush=True)
+            if k == "loss" and rel > BF16_LOSS_RTOL:
+                raise AssertionError("bf16 training losses are not within 5 % of f32's")
+        agent = pipes["bf16"].agent
+        state = [v for st in agent.optimizer.optimizer.state.values() for v in st.values()
+                 if torch.is_tensor(v) and v.is_floating_point()]
+        kinds = {str(t.dtype) for t in (*agent.params.parameters(),
+                                         *agent.ema_params.parameters(), *state)}
+        print(f"  params, EMA and Adam state after bf16 training: {sorted(kinds)}; drift "
+              f"from the f32 run {max_drift(agent.params, pipes['f32'].agent.params):.3e}",
+              flush=True)
+        if kinds != {"torch.float32"}:
+            raise AssertionError("bf16 training left params, EMA or optimizer state not f32")
+
+        times = step_ms(pipes, batches)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"ms per train_step (median of {TIMED_STEPS}): bf16 {med['bf16']:.3f}, f32 "
+              f"{med['f32']:.3f} (runs {[round(v, 3) for v in times['bf16']]} / "
+              f"{[round(v, 3) for v in times['f32']]})", flush=True)
+        return launches, med
+    finally:
+        DiffusionModel.bf16_training = False
+
+
+def check_goal2d(dev) -> dict:
+    """The hermetic DD gate on the card: train on the Goal2D behavior data
+    through K1, then score f32 and bf16 planning from the same EMA."""
+    phase("Goal2D score: hermetic DD trained on the card")
+    ds = D4RLMuJoCoDataset(goal2d_sequence_dataset(n_episodes=1000, seed=0),
+                           terminal_penalty=0.0, horizon=8, max_path_length=40, discount=0.99,
+                           device=dev)
+    pipe = DDPipeline(obs_dim=2, act_dim=2, horizon=8, emb_dim=64, d_model=128, n_heads=4,
+                      depth=2, return_scale=40.0, val_shift=1.0, sampling_steps=10, w_cfg=1.2,
+                      target_return=1.0, temperature=0.5, diffusion_gradient_steps=GOAL2D_STEPS,
+                      invdyn_gradient_steps=GOAL2D_STEPS, use_pallas_block=True, rng=0,
+                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(GOAL2D_STEPS):
+        log = pipe.train_step(ds.sample_batch(gen, 64))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    k_train = fused_dit_block.launches
+    print(f"{GOAL2D_STEPS} train_steps (batch 64 from the device sampler, {len(ds)} windows): "
+          f"{train_s:.1f} s, last loss {log['loss'].item():.4f}; dit_block launches {k_train} "
+          f"(expected {2 * GOAL2D_STEPS}), BF16 route {fused_dit_block_bf16.launches}",
+          flush=True)
+    if k_train != 2 * GOAL2D_STEPS or fused_dit_block_bf16.launches:
+        raise AssertionError("the Goal2D training did not run through K1's f32 route")
+
+    norm = ds.get_normalizer()
+    score = normalized_score_fn(device=dev)
+    result = {}
+    for name in ("f32", "bf16"):
+        pipe.agent.bf16_sampling = name == "bf16"
+        reset_counts()
+        t0 = time.perf_counter()
+        ret = evaluate_policy(lambda g, obs: pipe.act(norm.normalize(obs), generator=g)[0],
+                              num_envs=64, seed=1, device=dev)
+        result[name] = score(ret)
+        print(f"{name} planning: normalized score {result[name]:.4f} (return {ret:.4f}; anchors "
+              f"{score.anchors}); 40 plans in {time.perf_counter() - t0:.2f} s; dit_block "
+              f"launches f32 {fused_dit_block.launches}, BF16 {fused_dit_block_bf16.launches}",
+              flush=True)
+        want = 40 * 10 * 2
+        if (fused_dit_block_bf16.launches, fused_dit_block.launches) != (
+                (want, 0) if name == "bf16" else (0, want)):
+            raise AssertionError(f"{name} planning did not launch K1's {name} route {want} times")
+    del pipe.agent.bf16_sampling
+    if not min(result.values()) >= GOAL2D_BAR:
+        raise AssertionError(f"Goal2D score {result} below {GOAL2D_BAR}")
+    return result
 
 
 def check_diffuser_training(dev):
@@ -950,15 +1270,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build_kernels(dev)
     k1 = check_kernel(dev)
+    k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
     k2 = check_solver_kernel(dev)
     k1_launches = check_slice(dev)
     check_slice(dev, "antmaze", 1)  # horizon 64: K1 on clusters of two thread blocks
+    k1_bf16_launches = check_slice_bf16(dev)
+    check_slice_bf16(dev, "antmaze", 1)
     k3_launches, k2_launches = check_diffuser_slice(dev)
     check_kernel_autograd(dev)
     k1_train, k2_dd_train, _ = check_dd_training(dev)
+    k1_bf16_train, _ = check_dd_training_bf16(dev)
     k3_train, k2_diffuser_train, _ = check_diffuser_training(dev)
     check_checkpoint(dev)
+    check_goal2d(dev)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,
@@ -969,6 +1294,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         record("dit_block", "cuda", "cleandiffuser_tpu_torch/csrc/dit_block.cu",
                "cleandiffuser_tpu/ops/dit_block.py:125", k1_launches, k1_train, k1),
+        # the same TPU kernel with bf16 weights: its plan and training launches
+        # are those of the bf16_sampling and bf16_training phases
+        record("dit_block_bf16", "cuda", "cleandiffuser_tpu_torch/csrc/dit_block.cu",
+               "cleandiffuser_tpu/ops/dit_block.py:125", k1_bf16_launches, k1_bf16_train,
+               k1_bf16),
         record("film_resblock", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",
                "cleandiffuser_tpu/ops/film_resblock.py:159", k3_launches, k3_train, k3),
         # a sampler step: the training steps read 0 (and fail otherwise)

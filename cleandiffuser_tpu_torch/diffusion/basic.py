@@ -14,6 +14,16 @@ the EMA step, all in place on the device. `update` returns the loss and the
 gradient's global norm before clipping as device tensors: no host sync per
 step. Random draws come from `self.generator` (on the engine's device,
 seeded by `rng`) unless the caller passes them explicitly (`noise=`).
+
+bf16 (`bf16_sampling`, `bf16_training`; class attributes, so the config
+keys that `parallel/integrate.py` `setup_mesh` reads reach every engine, as
+in the reference): the backbone's forward runs on bf16 params with its
+input and condition embedding cast to bf16, and its prediction is cast back
+to f32, so solver and loss math stay f32. In training the cast is
+differentiable (`torch.func.functional_call` on `bf16_cast`), so the
+gradients arrive f32 at the f32 master weights; optimizer state and EMA
+stay f32. Ported for `DiT1d` backbones, whose blocks run K1's BF16 route on
+the card; another backbone with a flag set raises.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from ..nn_condition.base import IdentityCondition
+from ..nn_diffusion.dit import DiT1d
 from ..utils.jax_params import load_agent_moments, load_agent_params
 from ..utils.tensors import default_device
 from ..utils.train_state import (
@@ -35,10 +46,27 @@ from ..utils.train_state import (
     save_state,
 )
 
-__all__ = ["DiffusionModel"]
+__all__ = ["DiffusionModel", "bf16_cast"]
+
+
+def bf16_cast(module: nn.Module) -> dict:
+    """The module's floating params and buffers cast to bfloat16, by name
+    (the reference's `bf16_cast` of a param tree): a differentiable cast, for
+    `torch.func.functional_call`."""
+    state = {**dict(module.named_parameters()), **dict(module.named_buffers())}
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in state.items()}
+
+
+def _is_bf16(module: nn.Module) -> bool:
+    return all(p.dtype == torch.bfloat16 for p in module.parameters() if p.is_floating_point())
 
 
 class DiffusionModel:
+    # the network forward in bf16 when sampling / training (module note);
+    # instances may override
+    bf16_sampling = False
+    bf16_training = False
+
     def __init__(
         self,
         nn_diffusion: nn.Module,
@@ -64,6 +92,7 @@ class DiffusionModel:
         self._optimizer = None
         self.generator = torch.Generator(device=self.device).manual_seed(rng)
         self.step = 0  # host counter of updates: reading the device's would sync
+        self._bf16_copies = {}  # params -> its bf16 copy (`bf16_params`)
 
         def per_point(a):
             if a is None:
@@ -86,8 +115,42 @@ class DiffusionModel:
             return None
         return params["condition"](condition, mask=mask, train=train, generator=generator)
 
-    def apply_diffusion(self, params: nn.ModuleDict, x, t, emb):
-        return params["diffusion"](x, t, emb)
+    def apply_diffusion(self, params: nn.ModuleDict, x, t, emb, train: bool = False):
+        """The backbone's prediction. With the bf16 flag of the mode set
+        (`bf16_training` when `train`, else `bf16_sampling`): x and emb cast
+        to bf16, the net on its params cast to bf16 (already bf16 when the
+        sampler passes its bf16 copy), the prediction cast to f32."""
+        net = params["diffusion"]
+        if not (self.bf16_training if train else self.bf16_sampling):
+            return net(x, t, emb)
+        if not isinstance(net, DiT1d):
+            # the reference runs XLA in bf16 here; the port's other
+            # backbones run f32-only kernels (K3), and a quiet switch to
+            # their plain blocks would be a fallback
+            raise NotImplementedError(
+                f"bf16_sampling / bf16_training are ported for DiT1d backbones only, not "
+                f"{type(net).__name__} (ROADMAP queue 1: bf16 for the Janner U-Net)")
+        x = x.to(torch.bfloat16)
+        emb = None if emb is None else emb.to(torch.bfloat16)
+        if _is_bf16(net):
+            out = net(x, t, emb)
+        else:
+            out = torch.func.functional_call(net, bf16_cast(net), (x, t, emb))
+        return out.to(torch.float32)
+
+    def bf16_params(self, params: nn.ModuleDict) -> nn.ModuleDict:
+        """`params` (backbone and condition) cast to bf16: the sampler's
+        once-per-call cast. The bf16 copy is made at the first call for
+        these params and refilled by one foreach copy (rounding to nearest
+        even, as the reference's `astype`) at every later one."""
+        copy_ = self._bf16_copies.get(params)
+        if copy_ is None:
+            copy_ = copy.deepcopy(params).to(torch.bfloat16).requires_grad_(False)
+            self._bf16_copies[params] = copy_
+        floating = lambda m: [t for t in (*m.parameters(), *m.buffers()) if t.is_floating_point()]
+        with torch.no_grad():
+            torch._foreach_copy_(floating(copy_), floating(params))
+        return copy_
 
     # ------------------------------------------------------------------
     # Training

@@ -128,7 +128,7 @@ class BaseDiffusionSDE(DiffusionModel):
         xt, t, eps = self.add_noise(x0, t, eps, generator)
         emb = self.apply_condition(params, condition, mask=keep, train=True,
                                    generator=generator)
-        pred = self.apply_diffusion(params, xt, t, emb)
+        pred = self.apply_diffusion(params, xt, t, emb, train=True)
         loss = (pred - (eps if self.predict_noise else x0)) ** 2
         if self.loss_weight is not None:
             loss = loss * self.loss_weight
@@ -142,7 +142,10 @@ class BaseDiffusionSDE(DiffusionModel):
                      cls_params=None, condition_cg=None, cg_coef: float = 0.0):
         """Classifier-free guidance: [cond; uncond] in one doubled forward,
         combined as w*cond + (1-w)*uncond; then, with `cg_coef` != 0,
-        classifier guidance: pred + cg_coef * d logp / dx."""
+        classifier guidance: pred + cg_coef * d logp / dx. With
+        `bf16_sampling`, `apply_diffusion` casts the network's xt and emb to
+        bf16 and brings its prediction back f32; the guidance reads the f32
+        xt."""
         if cfg_mode == "mix":
             b = xt.shape[0]
             pred_all = self.apply_diffusion(
@@ -191,7 +194,9 @@ class BaseDiffusionSDE(DiffusionModel):
                condition_cg=None, w_cg=0.0) -> (x0, log dict)
 
         `params` is `self.params` or `self.ema_params`, `cls_params` the
-        classifier's. With `final_logp` (default: whether there is a
+        classifier's. With `bf16_sampling` the sampler casts all of `params`
+        (backbone and condition) to bf16 once per call (`bf16_params`), not
+        once per step; its solver math stays f32. With `final_logp` (default: whether there is a
         classifier) the log holds "log_p" of the final sample at t = 0.
         """
         if solver not in SUPPORTED_SOLVERS:
@@ -226,6 +231,8 @@ class BaseDiffusionSDE(DiffusionModel):
                 # one seed per step, drawn at once: a single device-to-host copy
                 seeds = torch.randint(2**31 - 1, (sample_steps,), generator=generator,
                                       device=generator.device).tolist()
+            if self.bf16_sampling:
+                params = self.bf16_params(params)
             xt = draw(-1) * temperature
             if fix_mask is not None:
                 xt = xt * (1.0 - fix_mask) + prior * fix_mask

@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dit_block import dit_block_op, dit_block_reference
-from ..utils.blocks import dense, normal_init, xavier_uniform_init, zeros_init
+from ..utils.blocks import dense, normal_init, promote, xavier_uniform_init, zeros_init
 from ..utils.embeddings import mish, sinusoidal_features
 from .base import timestep_embedding_module
 
@@ -57,7 +57,8 @@ class DiTBlock(nn.Module):
         self.b2 = param(zeros_init, D)
 
     def forward(self, x, t):
-        mod = F.silu(t) @ self.wmod + self.bmod
+        st, wmod, bmod = promote(F.silu(t), self.wmod, self.bmod)
+        mod = st @ wmod + bmod
         args = (x, mod, self.wqkv, self.bqkv, self.wo, self.bo,
                 self.w1, self.b1, self.w2, self.b2)
         if self.use_kernel:

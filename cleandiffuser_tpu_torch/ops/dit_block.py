@@ -1,29 +1,39 @@
-"""Fused adaLN-Zero DiT block: the Hopper kernel, its wrapper and its plain
+"""Fused adaLN-Zero DiT block: the Hopper kernel, its wrappers and its plain
 PyTorch version.
 
 Counterpart of cleandiffuser_tpu/ops/dit_block.py, whose Pallas TPU kernel
 `fused_dit_block` is replaced by the CUDA C++ kernel in
 `csrc/dit_block.cu` (built for sm_90a, bound with ctypes; the source note
 there says what bounds it on the card and how the design answers that). The
-kernel runs the four weight products and attention on the tensor cores, in
-3xTF32 on `mma.sync` (f32-class results), one thread block per 32 rows of a
-trajectory: a trajectory of H > 32 rows runs on a cluster of two blocks,
-which read each other's keys and values.
+kernel runs the four weight products and attention on the tensor cores, one
+thread block per 32 rows of a trajectory: a trajectory of H > 32 rows runs
+on a cluster of two blocks, which read each other's keys and values.
 
     h  = modulate(LN(x), shift1, scale1)
     x  = x + gate1 * MHA(h)
     h2 = modulate(LN(x), shift2, scale2)
     out= x + gate2 * W2 @ gelu(W1 @ h2)
 
-The per-trajectory modulation `mod` (B, 6D) = Dense(silu(t_emb)) is
-computed outside the kernel, as in the reference. Weights keep the JAX
-`(in, out)` orientation, so the kernel reads them as they are stored: no
-copy of them is prepared on the host. The kernel takes H <= 64, d_model a
-multiple of 32 up to 320 and a head dim a multiple of 8 up to 64.
+Two routes, each with its wrapper and launch count, chosen by the types
+(`_check_kernel_args` admits exactly these three):
+
+- `fused_dit_block`: everything float32; the products in 3xTF32 on
+  `mma.sync` (f32-class results).
+- `fused_dit_block_bf16`: BF16 weights and biases with float32 x and mod
+  (the bf16 sampler's and trainer's call: `DiT1d` keeps the residual
+  stream f32) or with BF16 x and mod; the products in BF16 on `mma.sync`,
+  f32 accumulation, LN / softmax / GELU / residual in f32.
+
+The output has x's type. The per-trajectory modulation `mod` (B, 6D) =
+Dense(silu(t_emb)) is computed outside the kernel, as in the reference.
+Weights keep the JAX `(in, out)` orientation, so the kernel reads them as
+they are stored: no copy of them is prepared on the host. The kernel takes
+H <= 64, d_model a multiple of 32 up to 320 and a head dim a multiple of 8
+up to 64.
 
 Dispatch (`dit_block_op`): a CPU tensor takes `dit_block_reference`; a CUDA
-tensor launches the kernel or raises. There is no fallback from the kernel
-to the plain version.
+tensor launches the route its types name or raises. There is no fallback
+from the kernel to the plain version, nor from one route to the other.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from ..utils.jax_params import flat_from_nested
 from .build import load_library
 from .vjp import plain_vjp
 
-__all__ = ["fused_dit_block", "dit_block_op", "dit_block_reference",
+__all__ = ["fused_dit_block", "fused_dit_block_bf16", "dit_block_op", "dit_block_reference",
            "pack_dit_block_params", "load_dit_block_library"]
 
 _LIB_NAME = "dit_block"
@@ -53,7 +63,16 @@ def _layernorm(x, eps: float = 1e-6):
 
 
 def dit_block_reference(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):
-    """Plain PyTorch version of the kernel's math (test oracle, CPU path)."""
+    """Plain PyTorch version of the kernel's math (test oracle, CPU path).
+    Promotes as `jnp` does: every operation here meets x or a product of it,
+    so all of it runs in the common type of the inputs. With f32 x and mod
+    and BF16 weights that is f32 math on the BF16-rounded weights; with all
+    inputs BF16 it is BF16 math. The cast is differentiable: a BF16 input's
+    gradient comes back BF16."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in (x, mod, wqkv, bqkv, wo, bo,
+                                                                 w1, b1, w2, b2)))
+    x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2 = (
+        t.to(dt) for t in (x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2))
     B, H, D = x.shape
     hd = D // n_heads
     shift1, scale1, gate1, shift2, scale2, gate2 = mod.chunk(6, dim=-1)
@@ -93,7 +112,9 @@ def load_dit_block_library() -> ctypes.CDLL:
     vp = ctypes.c_void_p
     lib.dit_block_forward_f32.argtypes = [vp] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, vp]
     lib.dit_block_forward_f32.restype = ctypes.c_int
-    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dit_block_forward_bf16.argtypes = [vp] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, vp]
+    lib.dit_block_forward_bf16.restype = ctypes.c_int
+    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.dit_block_smem_bytes.restype = ctypes.c_longlong
     lib.device_max_smem_optin.argtypes = [ctypes.c_int]
     lib.device_max_smem_optin.restype = ctypes.c_int
@@ -107,7 +128,28 @@ def _max_smem_optin(lib, device_index: int) -> int:
     return lib.device_max_smem_optin(device_index)
 
 
-def _check_kernel_args(lib, x, mod, ws, n_heads):
+# (x and mod, weights and biases) -> the route
+_ROUTES = {(torch.float32, torch.float32): "f32", (torch.float32, torch.bfloat16): "mixed",
+           (torch.bfloat16, torch.bfloat16): "bf16"}
+
+
+def kernel_route(x, mod, ws) -> str:
+    """"f32", "mixed" (f32 x and mod, BF16 weights and biases) or "bf16"
+    (all BF16): the three type combinations the kernel takes. Raises
+    TypeError on any other."""
+    types = {t.dtype for t in (x, mod)}, {t.dtype for t in ws}
+    if len(types[0]) == 1 and len(types[1]) == 1:
+        route = _ROUTES.get((types[0].pop(), types[1].pop()))
+        if route is not None:
+            return route
+    raise TypeError(
+        "fused_dit_block takes all float32, float32 x and mod with bfloat16 weights and "
+        f"biases, or all bfloat16; got x {x.dtype}, mod {mod.dtype}, weights "
+        f"{[str(t.dtype) for t in ws]}")
+
+
+def _check_kernel_args(lib, x, mod, ws, n_heads) -> str:
+    """Raises on what the kernel does not take; returns the route."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, H, D), got {tuple(x.shape)}")
     B, H, D = x.shape
@@ -128,43 +170,53 @@ def _check_kernel_args(lib, x, mod, ws, n_heads):
     for (name, shape), t in zip(shapes.items(), (mod, *ws)):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    route = kernel_route(x, mod, ws)
     for name, t in zip(("x",) + tuple(shapes), (x, mod, *ws)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_dit_block takes float32 only; {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if H > 64:
         # at most two thread blocks of 32 rows; attention holds 8 key tiles
         raise ValueError(f"horizon H={H} must be at most 64")
-    smem = lib.dit_block_smem_bytes(D)
+    smem = lib.dit_block_smem_bytes(D, int(route != "f32"))
     limit = _max_smem_optin(lib, x.device.index)
     if smem > limit:
         raise ValueError(f"d_model {D} needs {smem} bytes of shared memory per "
                          f"thread block; the device allows {limit}")
+    return route
 
 
-def fused_dit_block(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):
-    """Launch the CUDA kernel on the current stream. x: (B, H, D) f32 CUDA;
-    mod: (B, 6D). Returns a new (B, H, D) tensor. Raises on any input the
-    kernel does not take, and if the launch fails."""
-    ws = (wqkv, bqkv, wo, bo, w1, b1, w2, b2)
+def _launch(route_wanted: str, x, mod, ws, n_heads: int):
     if x.device.type != "cuda":
         raise ValueError(f"fused_dit_block runs on CUDA tensors, got {x.device}")
     lib = load_dit_block_library()
-    _check_kernel_args(lib, x, mod, ws, n_heads)
+    route = _check_kernel_args(lib, x, mod, ws, n_heads)
+    if (route == "f32") != (route_wanted == "f32"):
+        other = "fused_dit_block_bf16" if route != "f32" else "fused_dit_block"
+        raise TypeError(f"{route} inputs go to {other}")
     B, H, D = x.shape
     out = torch.empty_like(x)
     q_scale = (D // n_heads) ** -0.5
+    ptrs = (x.data_ptr(), mod.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dit_block_forward_f32(
-            x.data_ptr(), mod.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr(),
-            B, H, D, n_heads, q_scale, stream)
+        if route == "f32":
+            err = lib.dit_block_forward_f32(*ptrs, B, H, D, n_heads, q_scale, stream)
+        else:
+            err = lib.dit_block_forward_bf16(*ptrs, B, H, D, n_heads, int(route == "bf16"),
+                                             q_scale, stream)
     if err != 0:
         raise RuntimeError(f"dit_block kernel launch failed: "
                            f"{lib.dit_block_error_string(err).decode()} ({err})")
+    return out
+
+
+def fused_dit_block(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):
+    """Launch the f32 route on the current stream. x: (B, H, D) f32 CUDA;
+    mod: (B, 6D); every input f32. Returns a new (B, H, D) tensor. Raises on
+    any input the kernel does not take, and if the launch fails."""
+    out = _launch("f32", x, mod, (wqkv, bqkv, wo, bo, w1, b1, w2, b2), n_heads)
     fused_dit_block.launches += 1
     return out
 
@@ -172,11 +224,27 @@ def fused_dit_block(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 1
 fused_dit_block.launches = 0
 
 
+def fused_dit_block_bf16(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads: int = 10):
+    """Launch the BF16 route on the current stream: BF16 weights and biases,
+    x and mod both f32 or both BF16. Returns a new tensor of x's shape and
+    type. Raises on any input the kernel does not take (an f32 call goes to
+    `fused_dit_block`), and if the launch fails."""
+    out = _launch("bf16", x, mod, (wqkv, bqkv, wo, bo, w1, b1, w2, b2), n_heads)
+    fused_dit_block_bf16.launches += 1
+    return out
+
+
+fused_dit_block_bf16.launches = 0
+
+
 class _FusedDiTBlock(torch.autograd.Function):
-    """Kernel forward; backward by autograd through the plain version,
-    recomputed from the saved inputs (ops/vjp.py): the same split as the
-    reference's custom VJP (`cleandiffuser_tpu/ops/dit_block.py`
-    `_dit_fwd`/`_dit_bwd`), whose backward is XLA code. The saved tensors
+    """Kernel forward (the route the weights' type names); backward by
+    autograd through the plain version, recomputed from the saved inputs
+    (ops/vjp.py): the same split as the reference's custom VJP
+    (`cleandiffuser_tpu/ops/dit_block.py` `_dit_fwd`/`_dit_bwd`), whose
+    backward is XLA code. A BF16 input's gradient comes back BF16 (the
+    plain version's cast), for the caller's cast to carry to an f32
+    master. The saved tensors
     are the inputs themselves (x, mod and the parameters): an optimizer
     that updates the parameters in place after `backward` leaves this
     step's graph behind it; before `backward`, autograd's version check
@@ -186,7 +254,8 @@ class _FusedDiTBlock(torch.autograd.Function):
     def forward(ctx, x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads):
         ctx.save_for_backward(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2)
         ctx.n_heads = n_heads
-        return fused_dit_block(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads=n_heads)
+        kernel = fused_dit_block if wqkv.dtype == torch.float32 else fused_dit_block_bf16
+        return kernel(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, n_heads=n_heads)
 
     @staticmethod
     def backward(ctx, g):

@@ -12,6 +12,13 @@ tensors, as flax's do, and keep flax's parameter names and layouts: a conv
 kernel is (K, Cin, Cout), a norm has `scale` and `bias`. So the JAX
 parameters copy into them unchanged (utils/jax_params.py), and a Hopper
 kernel reads the conv weights as they are stored.
+
+Type promotion. PyTorch does not promote inside a product (`f32 @ bf16`
+raises), while `jnp` and flax's `Dense` cast the operands to their common
+type first (`jnp.result_type`: f32 with bf16 is f32, bf16 with bf16 is
+bf16). `promote` does that for the port's layers, so a net whose params
+were cast to bf16 runs as the reference's does under a bf16 cast; on f32
+operands it returns them unchanged.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ __all__ = [
     "normal_init",
     "orthogonal_init",
     "zeros_init",
+    "promote",
+    "Dense",
     "dense",
     "conv1d",
     "group_norm",
@@ -70,13 +79,35 @@ def zeros_init(w: torch.Tensor, generator: Optional[torch.Generator] = None):
     return nn.init.zeros_(w)
 
 
+def promote(*tensors):
+    """The tensors cast to their common type (`jnp.result_type`'s rule for
+    floating types); no-ops where a tensor has it already."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in tensors)
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` that promotes input, weight and bias to their common type
+    before the product, as flax's `Dense` does. Below f32, flax rounds the
+    product to that type and then adds the bias (two roundings), where one
+    fused `linear` would round once; the f32 path keeps the fused call."""
+
+    def forward(self, x):
+        x, w, b = promote(x, self.weight, self.bias)
+        if x.dtype == torch.float32:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+
 @torch.no_grad()
 def dense(in_dim: int, out_dim: int, kernel_init: Init = lecun_normal_init,
           bias_init: Init = zeros_init,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """`nn.Linear` initialised as flax's `nn.Dense(out_dim, kernel_init=...)`."""
+          generator: Optional[torch.Generator] = None) -> Dense:
+    """`Dense` initialised as flax's `nn.Dense(out_dim, kernel_init=...)`."""
     # skip_init: no throw-away draw from the global generator
-    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+    layer = nn.utils.skip_init(Dense, in_dim, out_dim)
     kernel_init(layer.weight, generator)
     bias_init(layer.bias, generator)
     return layer

@@ -9,6 +9,9 @@ cleandiffuser_tpu/utils/config.py), reading the same `configs/` tree.
   `args.task` (any group, not just task).
 - CLI-style overrides: "a.b=3", "task=walker2d-medium-v2" (re-resolves the
   group file), "+new_key=1". Values are parsed with yaml.
+- An override of a key the yaml lacks is applied with a warning, except for
+  the keys `parallel/integrate.py` `setup_mesh` reads, which no config
+  file needs to carry (`RUNTIME_KEYS`).
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import yaml
 
-__all__ = ["Config", "load_config", "parse_cli"]
+__all__ = ["Config", "load_config", "parse_cli", "RUNTIME_KEYS"]
+
+# read by `setup_mesh` with a default: overrides of them add them silently
+RUNTIME_KEYS = frozenset({"bf16_sampling", "bf16_training", "n_devices"})
 
 
 class Config:
@@ -128,7 +134,7 @@ def load_config(
     for ov in plain_overrides:
         key, _, value = ov.partition("=")
         _set_dotted(cfg, key.lstrip("+"), yaml.safe_load(value),
-                    allow_new=key.startswith("+"))
+                    allow_new=key.startswith("+") or key in RUNTIME_KEYS)
     return cfg
 
 

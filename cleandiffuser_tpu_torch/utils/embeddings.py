@@ -63,24 +63,28 @@ class PositionalEmbedding(nn.Module):
 
 
 class FourierEmbedding(nn.Module):
-    """Random-Fourier embedding followed by a 2-layer Mish MLP: frozen freqs
-    ~ N(0, scale^2) of size dim//8, [cos | sin] features of size dim//4,
-    then MLP dim//4 -> dim -> dim."""
+    """Random-Fourier embedding followed by a 2-layer Mish MLP: freqs ~
+    N(0, scale^2) of size dim//8, [cos | sin] features of size dim//4, then
+    MLP dim//4 -> dim -> dim.
+
+    `freqs` is a parameter read through `.detach()`, as the reference reads
+    its flax param through `stop_gradient`: no gradient reaches it, but it
+    is a parameter like the others, so the optimizer sees it (with a zero
+    gradient, AdamW's decoupled decay shrinks it by lr * wd per step), the
+    EMA blends it, a bf16 cast casts it, and checkpoints carry it under its
+    flax name."""
 
     JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
 
     def __init__(self, dim: int, scale: float = 16.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        # frozen: a buffer, so it follows .to() and the EMA copy but is
-        # never trained
-        self.register_buffer(
-            "freqs", torch.randn(dim // 8, generator=generator) * scale)
+        self.freqs = nn.Parameter(torch.randn(dim // 8, generator=generator) * scale)
         self.dense1 = dense(2 * (dim // 8), dim, generator=generator)
         self.dense2 = dense(dim, dim, generator=generator)
 
     def forward(self, x):
-        ang = x[..., None].to(torch.float32) * (2 * math.pi * self.freqs)
+        ang = x[..., None].to(torch.float32) * (2 * math.pi * self.freqs.detach())
         emb = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
         return self.dense2(mish(self.dense1(emb)))
 

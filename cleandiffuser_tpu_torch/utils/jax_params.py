@@ -137,7 +137,8 @@ def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
             path.append(table.get(names[i], names[i]))
             m = child
             i += 1
-    layout = {nn.Linear: "dense", nn.ConvTranspose1d: "conv_transpose"}.get(type(m), "")
+    layout = ("dense" if isinstance(m, nn.Linear) else
+              "conv_transpose" if isinstance(m, nn.ConvTranspose1d) else "")
     if layout and leaf == "weight":
         return tuple(path) + ("kernel",), layout
     return tuple(path) + (leaf,), ""
@@ -174,8 +175,7 @@ def load_adam_moments(optimizer: torch.optim.Optimizer, model: nn.Module, mu: di
     """Carry optax Adam moments (`mu`, `nu`: trees shaped as the flax params
     of `model`) and its count into `optimizer`'s state for the parameters of
     `model`, laid out as the parameters are (Dense kernels transposed, DiT
-    blocks flat or nested). Entries that are buffers in the port (frozen,
-    e.g. Fourier frequencies) are dropped."""
+    blocks flat or nested)."""
     m, v = _state_from_jax(model, mu), _state_from_jax(model, nu)
     for key, p in model.named_parameters():
         optimizer.state[p] = {"step": torch.tensor(float(count)),

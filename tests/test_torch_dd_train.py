@@ -155,11 +155,9 @@ def _assert_state_matches(tpipe, jpipe):
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     jpipe = JaxDDPipeline(**CFG, use_pallas_block=True)
+    # the Fourier frequencies are a stop-gradient param in both packages:
+    # the EMA blends them from its own start
     params, ema = _seeded(jpipe.agent.state.params, 1), _seeded(jpipe.agent.state.ema_params, 2)
-    # the Fourier frequencies are frozen (a buffer in the port, a
-    # stop-gradient param in JAX): an EMA starts as a copy and keeps them
-    ema["diffusion"]["params"]["FourierEmbedding_0"]["freqs"] = (
-        params["diffusion"]["params"]["FourierEmbedding_0"]["freqs"])
     inv = _seeded(jpipe.invdyn.params, 3)
     jpipe.agent.state = jpipe.agent.state.replace(params=_jt(params), ema_params=_jt(ema))
     jpipe.invdyn.params = _jt(inv)
@@ -180,7 +178,9 @@ def run(tmp_path_factory):
             loss = tpipe.agent.loss_fn(tpipe.agent.params, torch.from_numpy(np.asarray(obs)),
                                        torch.from_numpy(np.asarray(cond)), noise=noise)
             loss.backward()
-            g_port = {n: p.grad.clone() for n, p in tpipe.agent.params.named_parameters()}
+            # no gradient reaches the Fourier frequencies (JAX's is 0)
+            g_port = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                      for n, p in tpipe.agent.params.named_parameters()}
             tpipe.agent.params.zero_grad(set_to_none=True)
         draws.append(noise)
         jb = jax.tree_util.tree_map(jnp.asarray, batch)

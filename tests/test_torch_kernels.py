@@ -137,7 +137,7 @@ def test_dit1d_through_kernel_matches_plain_with_gradient(cuda):
         grads.append([p.grad for p in net.parameters()])
         assert ops.fused_dit_block.launches - before == (2 if net is nets[0] else 0)
     torch.testing.assert_close(outs[0], outs[1], atol=TOL, rtol=TOL)
-    for g_k, g_p in zip(*grads):
+    for g_k, g_p in zip(*grads):  # None for the Fourier frequencies in both
         torch.testing.assert_close(g_k, g_p, atol=1e-3, rtol=1e-3)
 
 
@@ -179,11 +179,140 @@ def test_dit1d_gradients_through_kernel_at_training_shape(cuda):
     torch.testing.assert_close(losses[0], losses[1], atol=0, rtol=1e-5)
     D = 320
     for (name, p_k), p_p in zip(nets[0].named_parameters(), nets[1].parameters()):
+        if name.endswith("freqs"):  # no gradient reaches them, in either net
+            assert p_k.grad is None and p_p.grad is None
+            continue
         if name.endswith("bqkv"):
             block_max = p_p.grad.abs().max()
             assert (p_k.grad[D:2 * D] - p_p.grad[D:2 * D]).abs().max() <= 1e-3 * block_max, name
             p_k.grad[D:2 * D] = p_p.grad[D:2 * D]
         assert _max_rel_diff(p_k.grad, p_p.grad) < 1e-3, name
+
+
+# ---------------------------------------------------------------------------
+# K1's BF16 route: BF16 weights and biases, f32 or BF16 x and mod
+# The JAX package's bound for its bf16 kernel against the plain block
+# (tests/test_pallas_ops.py:136): the BF16 MMAs round each product's
+# activations to bf16, which the mixed plain version does not
+BF16_TOL = 5e-2
+
+
+def _unit_inputs(dev, B, H, D, seed=7):
+    """Inputs at a trained DiT block's scales: x of unit std, mod of 0.5,
+    weights of std fan_in^-1/2, biases of 0.1 (BF16_TOL is the bf16 error's
+    bound for such inputs; it is not a bound relative to larger ones)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, std: torch.from_numpy((rng.standard_normal(s) * std).astype(np.float32)).to(dev)
+    return f(B, H, D, std=1.0), f(B, 6 * D, std=0.5), [
+        f(D, 3 * D, std=D ** -0.5), f(3 * D, std=0.1), f(D, D, std=D ** -0.5), f(D, std=0.1),
+        f(D, 4 * D, std=D ** -0.5), f(4 * D, std=0.1), f(4 * D, D, std=(4 * D) ** -0.5),
+        f(D, std=0.1)]
+
+
+def _typed(x, mod, ws, route):
+    """The inputs in the route's types: "f32" as they are, "mixed" with
+    BF16 weights and biases, "bf16" all BF16."""
+    if route == "f32":
+        return x, mod, ws
+    ws = [w.to(torch.bfloat16) for w in ws]
+    if route == "bf16":
+        x, mod = x.to(torch.bfloat16), mod.to(torch.bfloat16)
+    return x, mod, ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["f32", "mixed", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 8, 64, 4), (6, 20, 96, 3), (100, 32, 320, 10),
+                                   (2, 33, 64, 2), (100, 64, 320, 10)],
+                         ids=["test-size", "ragged-H", "plan-size", "one-row-into-a-new-pass",
+                              "antmaze-horizon"])
+def test_dit_block_routes_match_plain(cuda, route, shape):
+    """`dit_block_op` launches the route the types name, once, on its own
+    counter; the output has x's type and holds to the plain version on the
+    same inputs (f32: TOL; BF16 weights: BF16_TOL). D = 320 takes D / 32 =
+    10 stages per product, D = 96 an odd 3."""
+    B, H, D, NH = shape
+    x, mod, ws = _typed(*_unit_inputs(cuda, B, H, D), route)
+    counts = (ops.fused_dit_block.launches, ops.fused_dit_block_bf16.launches)
+    with torch.no_grad():
+        out = ops.dit_block_op(x, mod, *ws, n_heads=NH)
+    torch.cuda.synchronize()
+    bf16_route = route != "f32"
+    assert (ops.fused_dit_block.launches - counts[0],
+            ops.fused_dit_block_bf16.launches - counts[1]) == (int(not bf16_route),
+                                                               int(bf16_route))
+    assert out.dtype == x.dtype and out.shape == x.shape
+    ref = ops.dit_block_reference(x, mod, *ws, n_heads=NH)
+    tol = BF16_TOL if bf16_route else TOL
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_dit_block_bf16_route_rejects_other_types(cuda):
+    """Exactly three type combinations: f32 weights with BF16 x, BF16
+    weights with x and mod of different types, and mixed weight types
+    raise; each wrapper takes only its own route."""
+    x, mod, ws = _inputs(cuda, 2, 8, 64)
+    wb = [w.to(torch.bfloat16) for w in ws]
+    with pytest.raises(TypeError):
+        ops.dit_block_op(x.to(torch.bfloat16), mod.to(torch.bfloat16), *ws, n_heads=4)
+    with pytest.raises(TypeError):
+        ops.dit_block_op(x.to(torch.bfloat16), mod, *wb, n_heads=4)
+    with pytest.raises(TypeError):
+        ops.dit_block_op(x, mod, *wb[:-1], ws[-1], n_heads=4)
+    with pytest.raises(TypeError):
+        ops.fused_dit_block(x, mod, *wb, n_heads=4)
+    with pytest.raises(TypeError):
+        ops.fused_dit_block_bf16(x, mod, *ws, n_heads=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["mixed", "bf16"])
+def test_dit_block_bf16_gradients_through_kernel(cuda, route):
+    """`_FusedDiTBlock` with BF16 weights: the forward launches the BF16
+    route; the backward is autograd through the plain version on the same
+    inputs, so the gradients equal the plain version's (BF16 for BF16
+    inputs) up to the order of sums, and come back in each input's type."""
+    x, mod, ws = _typed(*_unit_inputs(cuda, 64, 32, 320), route)
+    inputs = [a.clone().requires_grad_(True) for a in (x, mod, *ws)]
+    g = torch.randn(inputs[0].shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    g = g.to(inputs[0].dtype)
+    before = ops.fused_dit_block_bf16.launches
+    out = ops.dit_block_op(*inputs, n_heads=10)
+    assert ops.fused_dit_block_bf16.launches == before + 1
+    got = torch.autograd.grad(out, inputs, g)
+    want = torch.autograd.grad(ops.dit_block_reference(*inputs, n_heads=10), inputs, g)
+    # the same plain backward on the same inputs; cuBLAS may sum in another
+    # order from one call to the next, which moves a BF16 gradient by an ulp
+    # (2^-8 of an entry)
+    for a, b, inp in zip(got, want, inputs):
+        assert a.dtype == b.dtype == inp.dtype
+        assert (a.float() - b.float()).abs().max() <= 1e-2 * b.float().abs().max()
+
+
+@pytest.mark.gpu
+def test_dit1d_bf16_sampling_and_training_launch_the_bf16_route(cuda):
+    """An engine with `bf16_sampling` and `bf16_training`: every DiT block
+    of a plan and of a training step launches the BF16 route and none the
+    f32 one; the params, the EMA and the optimizer state stay f32."""
+    from cleandiffuser_tpu_torch.diffusion import ContinuousDiffusionSDE
+
+    net = DiT1d(5, 32, 64, 4, 2, timestep_emb_type="fourier", use_pallas_block=True,
+                generator=torch.Generator().manual_seed(0))
+    eng = ContinuousDiffusionSDE(net, device=cuda)
+    eng.bf16_sampling = eng.bf16_training = True
+    counts = (ops.fused_dit_block.launches, ops.fused_dit_block_bf16.launches)
+    x, _ = eng.build_sample_fn(sample_steps=3)(eng.ema_params, torch.Generator(cuda).manual_seed(0),
+                                               torch.zeros(4, 8, 5, device=cuda))
+    eng.update(torch.randn(4, 8, 5, device=cuda))
+    torch.cuda.synchronize()
+    assert x.dtype == torch.float32 and torch.isfinite(x).all()
+    assert (ops.fused_dit_block.launches - counts[0],
+            ops.fused_dit_block_bf16.launches - counts[1]) == (0, 3 * 2 + 2)
+    assert all(p.dtype == torch.float32 for p in eng.params.parameters())
+    assert all(p.dtype == torch.float32 for p in eng.ema_params.parameters())
+    assert all(v.dtype == torch.float32 for s in eng.optimizer.optimizer.state.values()
+               for v in s.values() if v.is_floating_point() and v.dim() > 0)
 
 
 # ---------------------------------------------------------------------------

@@ -33,16 +33,8 @@ sys.path.insert(0, str(ROOT))
 from cleandiffuser_tpu_torch.ops import build  # noqa: E402
 from cleandiffuser_tpu_torch.ops.dit_block import dit_block_reference  # noqa: E402
 
-BF16_HELPERS = """// d += a (16x16, row) * b (16x8, col), BF16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 (given as bits) rounded to BF16, the first in the low half
+# (the kernel source defines `mma_bf16`, the m16n8k16 BF16 MMA of its BF16 route)
+BF16_HELPERS = """// two f32 (given as bits) rounded to BF16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(uint32_t first, uint32_t second) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(__uint_as_float(first), __uint_as_float(second));
   return *reinterpret_cast<const uint32_t*>(&v);
