@@ -23,11 +23,12 @@ Phases, each of which raises on failure (exit code != 0):
                (flops from the shape) and the kernel's share of its bound.
    dit_block BF16 - K1's BF16 route (BF16 weights and biases) against its
                plain version (which promotes as jnp does) at (100, 32, 320)
-               mixed (f32 x and mod) and all-BF16, (3200, 32, 320) mixed and
-               (100, 64, 320) mixed on the cluster: error within 5e-2 (and
-               the share of that limit read), the route's time beside the
-               f32 route's and the plain version's in one call, TFLOP/s and
-               the share of the BF16 bound.
+               mixed (f32 x and mod) and all-BF16, (3200, 32, 320) mixed,
+               (100, 64, 320) mixed on the cluster, and (64, 32, 320)
+               all-BF16 (the forward of a `bf16_training` step): error
+               within 5e-2 (and the share of that limit read), the route's
+               time beside the f32 route's and the plain version's in one
+               call, TFLOP/s and the share of the BF16 bound.
 4. film_resblock - K3 against its plain version at every distinct block
                shape of the shipped Diffuser U-Net (B=3200 candidate
                trajectories, K=5, 8 groups, eps 1e-6): error, both times
@@ -105,11 +106,35 @@ Phases, each of which raises on failure (exit code != 0):
                EMA in f32 and with `bf16_sampling`: both normalized scores
                must reach 0.85 (the JAX package's bar); K1's launches on
                each route printed.
+13. DD CLI   - `cli.dd_d4rl_mujoco.pipeline(args)` in-process, as a user runs
+               it, on configs/dd/mujoco (halfcheetah-medium-v2, shipped
+               width, the synthetic data) with `mode=train
+               diffusion_gradient_steps=1000 invdyn_gradient_steps=500
+               log_interval=250 save_interval=500`, in results/chip_smoke_cli:
+               four windows (`make_train_scan`) with finite means and
+               `invdyn_loss` 0 in the last two, K1's f32 route 2 x 1000
+               launches (BF16 0), ckpt_500, ckpt_1000 and ckpt_latest; the
+               same config off the window grid for 500 steps (per-step
+               path), its steps/s beside the windows'; then ckpt_latest in
+               a fresh pipeline serving 5 `act` requests for 50 envs as
+               `mode=inference` makes them (normalised first states of the
+               dataset's episodes stand in for the envs' observations:
+               the card's machine has no gymnasium, so the env stepping of
+               `d4rl_eval_loop` is not run): actions finite, in [-1, 1],
+               (50, 6), 40 K1 launches per request.
+14. Diffuser CLI - the same for `cli.diffuser_d4rl_mujoco` on
+               configs/diffuser/mujoco with `diffusion_gradient_steps=200
+               classifier_gradient_steps=100 log_interval=50
+               save_interval=100`: K3 16 x 200 launches, K2 0,
+               `classifier_loss` 0 in the last two windows, the three
+               checkpoints, and 2 requests at 50 envs x 64 candidates from
+               ckpt_latest (320 K3 launches each).
 
 Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
-(`launches`) and in the training steps (`train_launches`), error and times
+(`launches`), in the training steps (`train_launches`) and in the CLI
+phases by part (`cli_launches`), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -123,6 +148,8 @@ both sides compute in full float32.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -136,6 +163,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from cleandiffuser_tpu_torch.cli import dd_d4rl_mujoco, diffuser_d4rl_mujoco  # noqa: E402
 from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset  # noqa: E402
 from cleandiffuser_tpu_torch.dataset.hermetic import goal2d_sequence_dataset  # noqa: E402
 from cleandiffuser_tpu_torch.diffusion.basic import DiffusionModel  # noqa: E402
@@ -206,6 +234,19 @@ BF16_PLAN_MAX, BF16_PLAN_MEAN, BF16_LOSS_RTOL = 0.02, 0.005, 0.05
 BF16_TRAIN_STEPS = 10
 # the hermetic DD gate (tests/test_hermetic_parity.py:132-157)
 GOAL2D_STEPS, GOAL2D_BAR = 3000, 0.85
+# the CLI phases: the shipped configs trained through the CLIs' `pipeline(args)`
+# with these overrides, in CLI_DIR (under the gitignored results/)
+DD_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=1000", "invdyn_gradient_steps=500",
+                "log_interval=250", "save_interval=500")
+# the same config with save_interval off the log grid: the per-step path, no
+# save in its 500 steps, the inverse dynamics on in both of its windows as in
+# the windowed run's first two
+DD_CLI_PER_STEP = ("mode=train", "diffusion_gradient_steps=500", "invdyn_gradient_steps=500",
+                   "log_interval=250", "save_interval=600")
+DIFFUSER_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=200",
+                      "classifier_gradient_steps=100", "log_interval=50", "save_interval=100")
+DD_CLI_REQUESTS, DIFFUSER_CLI_REQUESTS = 5, 2
+CLI_DIR = ROOT / "results" / "chip_smoke_cli"
 # (H, Cin, Cout) of the 16 residual blocks of the shipped Diffuser U-Net
 # (obs 17 + act 6 = 23 channels in, model_dim 32, dim_mult (1, 2, 2, 2),
 # horizon 32), in the order the net runs them
@@ -416,9 +457,11 @@ def check_kernel_bf16(dev) -> dict:
     rng = np.random.default_rng(SEED + 10)
     record = None
     # the bf16 DD plan's call (f32 x and mod), all-BF16, candidate
-    # evaluation, the antmaze horizon on the cluster
+    # evaluation, the antmaze horizon on the cluster, and the forward of a
+    # `bf16_training` step (batch 64: x and mod BF16, cast by the engine)
     for B, H, route, iters in ((100, 32, "mixed", 50), (100, 32, "bf16", 50),
-                               (3200, 32, "mixed", 5), (100, 64, "mixed", 25)):
+                               (3200, 32, "mixed", 5), (100, 64, "mixed", 25),
+                               (64, 32, "bf16", 50)):
         x, mod, ws = block_inputs(rng, dev, B, H, D)
         wb = [w.to(torch.bfloat16) for w in ws]
         xb, modb = (x.to(torch.bfloat16), mod.to(torch.bfloat16)) if route == "bf16" else (x, mod)
@@ -1265,6 +1308,164 @@ def check_checkpoint(dev):
         raise AssertionError("a resumed DD run disagrees with the uninterrupted one")
 
 
+def read_jsonl(path: Path) -> list:
+    return [json.loads(s) for s in path.read_text().splitlines()] if path.exists() else []
+
+
+def run_cli(cli, overrides) -> tuple:
+    """`cli.pipeline(args)` of the shipped config with `overrides`, run in
+    CLI_DIR (the CLI writes its results/torch/<pipeline>/<env>/ tree
+    there). Returns (args, the run's directory, the train.jsonl lines this
+    run wrote, seconds)."""
+    args = load_config(cli.CONFIG_DIR, "mujoco", list(overrides))
+    run = CLI_DIR / "results/torch" / args.pipeline_name / args.task.env_name
+    before = len(read_jsonl(run / "train.jsonl"))
+    cwd = os.getcwd()
+    os.chdir(CLI_DIR)
+    try:
+        t0 = time.perf_counter()
+        cli.pipeline(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    return args, run, read_jsonl(run / "train.jsonl")[before:], seconds
+
+
+def check_windows(logs: list, steps: int, log_interval: int, second: str, budget: int):
+    """The CLI's log windows: one per `log_interval` steps, finite means,
+    the budget-gated `second` loss above 0 in the windows within its budget
+    and 0 after."""
+    if [lg["gradient_steps"] for lg in logs] != list(range(log_interval, steps + 1,
+                                                           log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    for lg in logs:
+        if not all(np.isfinite(lg[k]) for k in ("loss", "grad_norm", second)):
+            raise AssertionError(f"non-finite window means {lg}")
+        if (lg[second] > 0) != (lg["gradient_steps"] <= budget):
+            raise AssertionError(f"{second} {lg[second]} at step {lg['gradient_steps']} with a "
+                                 f"budget of {budget}")
+
+
+def check_checkpoints(run: Path, args, steps: int, parts) -> list:
+    tags = [str(s) for s in range(args.save_interval, steps + 1, args.save_interval)] + ["latest"]
+    missing = [f"ckpt_{t}.{p}" for t in tags for p in parts if not (run / f"ckpt_{t}.{p}").exists()]
+    if missing:
+        raise AssertionError(f"missing checkpoints {missing} in {run}")
+    return tags
+
+
+def cli_requests(pipe, obs: np.ndarray, n: int, **kw) -> list:
+    """n `act` requests as the CLIs' evaluation makes them (normalised numpy
+    observations in, numpy actions out), each checked; per-request ms."""
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act = pipe.act(obs, **kw)[0].cpu().numpy()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if act.shape != (obs.shape[0], pipe.act_dim):
+            raise AssertionError(f"actions {act.shape}")
+        if not (np.isfinite(act).all() and np.abs(act).max() <= 1.0):
+            raise AssertionError("actions non-finite or outside [-1, 1]")
+    return lat
+
+
+def check_dd_cli(dev) -> dict:
+    """The DD CLI as users run it, `mode=train` at the shipped width through
+    K1's f32 route, window by window, beside the per-step path; then its
+    `ckpt_latest` served as `mode=inference` serves it. Returns K1's
+    launches by route and part."""
+    phase("DD CLI: cli.dd_d4rl_mujoco mode=train (windows), then act from ckpt_latest")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    reset_counts()
+    args, run, logs, seconds = run_cli(dd_d4rl_mujoco, DD_CLI_TRAIN)
+    k1, k1_bf16 = fused_dit_block.launches, fused_dit_block_bf16.launches
+    steps = args.diffusion_gradient_steps
+    print(f"{steps} steps in {len(logs)} windows of {args.log_interval} at d_model "
+          f"{args.d_model}, batch {args.batch_size}: {seconds:.1f} s with set-up and saves",
+          flush=True)
+    print(f"dit_block launches {k1} (expected {args.depth * steps}), BF16 route {k1_bf16}",
+          flush=True)
+    if k1 != args.depth * steps or k1_bf16:
+        raise AssertionError(f"the DD CLI's training launched K1 {k1} times (BF16 {k1_bf16})")
+    check_windows(logs, steps, args.log_interval, "invdyn_loss", args.invdyn_gradient_steps)
+    tags = check_checkpoints(run, args, steps, ("diffusion", "invdyn"))
+    print(f"checkpoints {['ckpt_' + t for t in tags]} in {run}", flush=True)
+
+    # the same training per step (planner_window_fn says why), in turn
+    _, _, per_step, _ = run_cli(dd_d4rl_mujoco, DD_CLI_PER_STEP)
+    win = [lg["steps_per_sec"] for lg in logs]
+    one = [lg["steps_per_sec"] for lg in per_step]
+    print(f"steps/s per window of {args.log_interval}: windowed {win}, per-step {one}; the "
+          f"second window (steps {args.log_interval + 1}-{2 * args.log_interval}, both with the "
+          f"inverse dynamics): windowed {1e3 / win[1]:.3f} ms per step, per-step "
+          f"{1e3 / one[1]:.3f} ms per step", flush=True)
+
+    # mode=inference: ckpt_latest in a fresh pipeline, requests as
+    # d4rl_eval_loop makes them; the env stepping itself (gymnasium's MuJoCo
+    # envs) does not run here: the card's machine has no gymnasium
+    dataset, pipe = dd_d4rl_mujoco.build(args, dev)
+    pipe.load(str(run / "ckpt_latest"))
+    if pipe.agent.step != steps:
+        raise AssertionError(f"ckpt_latest holds step {pipe.agent.step}, not {steps}")
+    obs = dataset.seq_obs[:args.num_envs, 0]  # normalised first states of 50 episodes
+    cold = cli_requests(pipe, obs, 1)
+    reset_counts()
+    lat = cli_requests(pipe, obs, DD_CLI_REQUESTS)
+    serve, serve_bf16 = fused_dit_block.launches, fused_dit_block_bf16.launches
+    want = DD_CLI_REQUESTS * args.sampling_steps * args.depth
+    print(f"{DD_CLI_REQUESTS} requests x {args.num_envs} envs from ckpt_latest: latency ms "
+          f"{[round(v, 3) for v in lat]} (median {statistics.median(lat):.3f}; cold "
+          f"{cold[0]:.3f}); dit_block launches {serve} (expected {want}), BF16 {serve_bf16}",
+          flush=True)
+    if serve != want or serve_bf16:
+        raise AssertionError(f"serving ckpt_latest launched K1 {serve} times (BF16 {serve_bf16})")
+    return {"dit_block": {"dd_train": k1, "dd_serve": serve},
+            "dit_block_bf16": {"dd_train": k1_bf16, "dd_serve": serve_bf16}}
+
+
+def check_diffuser_cli(dev) -> dict:
+    """The Diffuser CLI, `mode=train` at the shipped width through K3,
+    window by window; then its `ckpt_latest` served at 50 envs x 64
+    candidates. Returns K3's and K2's launches by part."""
+    phase("Diffuser CLI: cli.diffuser_d4rl_mujoco mode=train (windows), then act from "
+          "ckpt_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(diffuser_d4rl_mujoco, DIFFUSER_CLI_TRAIN)
+    k3, k2 = fused_film_resblock.launches, fused_solver_update.launches
+    steps = args.diffusion_gradient_steps
+    dataset, pipe = diffuser_d4rl_mujoco.build(args, dev)
+    n_blocks = len(pipe.agent.params["diffusion"].blocks)
+    print(f"{steps} steps in {len(logs)} windows of {args.log_interval} at model_dim "
+          f"{args.model_dim}, batch {args.batch_size}: {seconds:.1f} s with set-up and saves; "
+          f"steps/s per window {[lg['steps_per_sec'] for lg in logs]}", flush=True)
+    print(f"film_resblock launches {k3} (expected {n_blocks} x {steps}), solver_update {k2}",
+          flush=True)
+    if k3 != n_blocks * steps or k2:
+        raise AssertionError(f"the Diffuser CLI's training launched K3 {k3} times, K2 {k2}")
+    check_windows(logs, steps, args.log_interval, "classifier_loss",
+                  args.classifier_gradient_steps)
+    tags = check_checkpoints(run, args, steps, ("diffusion", "classifier"))
+    print(f"checkpoints {['ckpt_' + t for t in tags]} in {run}", flush=True)
+
+    pipe.load(str(run / "ckpt_latest"))
+    obs = dataset.seq_obs[:args.num_envs, 0]
+    reset_counts()
+    lat = cli_requests(pipe, obs, DIFFUSER_CLI_REQUESTS, num_candidates=args.num_candidates)
+    serve, serve_k2 = fused_film_resblock.launches, fused_solver_update.launches
+    want = DIFFUSER_CLI_REQUESTS * args.sampling_steps * n_blocks
+    print(f"{DIFFUSER_CLI_REQUESTS} requests x {args.num_envs} envs x {args.num_candidates} "
+          f"candidates from ckpt_latest: latency ms {[round(v, 3) for v in lat]} (the first "
+          f"one cold); film_resblock launches {serve} (expected {want}), solver_update "
+          f"{serve_k2}", flush=True)
+    if serve != want or serve_k2:
+        raise AssertionError(f"serving ckpt_latest launched K3 {serve} times, K2 {serve_k2}")
+    return {"film_resblock": {"diffuser_train": k3, "diffuser_serve": serve},
+            "solver_update": {"diffuser_train": k2, "diffuser_serve": serve_k2}}
+
+
 def main() -> int:
     kind = check_device()
     dev = torch.device("cuda", 0)
@@ -1284,9 +1485,12 @@ def main() -> int:
     k3_train, k2_diffuser_train, _ = check_diffuser_training(dev)
     check_checkpoint(dev)
     check_goal2d(dev)
+    cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,
+        # the CLI phases: training through the CLI and serving its checkpoint
+        "cli_launches": cli[name],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         # no single PyTorch call computes any of these blocks or steps

@@ -14,6 +14,9 @@ Ported so far:
   fused FiLM residual-block kernel, the half-U-Net classifier for guidance,
   and the discrete VP-SDE sampler, whose ddpm step can run the fused
   solver-update kernel.
+- The training of both, the D4RL-MuJoCo datasets and the Goal2D task, and
+  their command-line entry points (`cli/`): the windowed trainer and the
+  training and evaluation loops of `pipelines/runner.py`.
 """
 
 __version__ = "0.1.0"

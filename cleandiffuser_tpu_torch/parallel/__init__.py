@@ -1,1 +1,1 @@
-from .integrate import setup_mesh
+from .integrate import device_of, place_pipeline, setup_mesh

@@ -1,12 +1,17 @@
 """Dataset acquisition for the pipelines (counterpart of
-cleandiffuser_tpu/pipelines/data_loading.py; the PushT demos, the
-gymnasium eval envs and the d4rl score ranges come with their slices).
+cleandiffuser_tpu/pipelines/data_loading.py; the PushT demos and the
+antmaze, maze2d and kitchen eval envs come with their slices).
 
 Nothing is downloaded. The resolution order is:
 
 1. a local .npz snapshot at `$CLEANDIFFUSER_DATA/<env_name>[.qlearning].npz`
    (default directory `dev/d4rl`) with the d4rl key schema;
 2. the synthetic generator (dataset/fake.py), with a printed warning.
+
+`get_normalized_score_fn(env_name)` is d4rl's normalized score, and
+`make_eval_env_fns(env_name, n)` the gymnasium eval envs of the locomotion
+tasks (`HalfCheetah-v5`, `Hopper-v5`, `Walker2d-v5`); gymnasium is imported
+only there, so the package imports where it is not installed.
 """
 
 from __future__ import annotations
@@ -19,7 +24,25 @@ import numpy as np
 
 from ..dataset.fake import fake_d4rl_dataset, fake_d4rl_qlearning_dataset
 
-__all__ = ["load_d4rl_dataset", "load_d4rl_qlearning_dataset", "data_dir"]
+__all__ = ["load_d4rl_dataset", "load_d4rl_qlearning_dataset", "data_dir",
+           "D4RL_SCORE_RANGES", "get_normalized_score_fn", "make_eval_env_fns"]
+
+# d4rl's (random, expert) returns per task prefix; the sparse-reward suites
+# score a (clipped) task-completion count
+D4RL_SCORE_RANGES = {
+    "halfcheetah": (-280.178953, 12135.0),
+    "hopper": (-20.272305, 3234.3),
+    "walker2d": (1.629008, 4592.3),
+    "antmaze": (0.0, 1.0),
+    "kitchen": (0.0, 4.0),
+    "maze2d-umaze": (23.85, 161.86),
+    "maze2d-medium": (13.13, 277.39),
+    "maze2d-large": (6.7, 273.99),
+}
+# gymnasium's MuJoCo envs standing in for the d4rl locomotion tasks
+GYM_LOCOMOTION = {"halfcheetah": "HalfCheetah-v5", "hopper": "Hopper-v5",
+                  "walker2d": "Walker2d-v5"}
+
 
 def data_dir() -> Path:
     """Where snapshots are looked for: `$CLEANDIFFUSER_DATA`, else dev/d4rl."""
@@ -51,3 +74,31 @@ def load_d4rl_qlearning_dataset(env_name: str) -> Dict[str, np.ndarray]:
         return data
     print(f"[data] no snapshot at {path}; using SYNTHETIC data (hermetic mode)")
     return fake_d4rl_qlearning_dataset(env_name, n_steps=100_000, ep_len=1000)
+
+
+def get_normalized_score_fn(env_name: str):
+    """d4rl's normalized score of a return: the longest matching prefix of
+    `D4RL_SCORE_RANGES`, else the identity."""
+    best = None
+    for prefix, rng in D4RL_SCORE_RANGES.items():
+        if env_name.startswith(prefix) and (best is None or len(prefix) > len(best[0])):
+            best = (prefix, rng)
+    if best is not None:
+        lo, hi = best[1]
+        return lambda ret: (ret - lo) / (hi - lo)
+    return lambda ret: ret
+
+
+def make_eval_env_fns(env_name: str, num_envs: int):
+    """`num_envs` thunks of the gymnasium eval env of a d4rl task."""
+    for prefix in ("antmaze", "maze2d", "kitchen"):
+        if env_name.startswith(prefix):
+            raise NotImplementedError(
+                f"{env_name}: the {prefix} eval envs are not ported yet (ROADMAP queue 1, "
+                "item 5)")
+    import gymnasium as gym
+
+    for prefix, gid in GYM_LOCOMOTION.items():
+        if env_name.startswith(prefix):
+            return [lambda: gym.make(gid) for _ in range(num_envs)]
+    raise ValueError(f"no gymnasium mapping for {env_name}")

@@ -18,9 +18,9 @@ consecutive states. With `use_pallas_block=True` the forward of every DiT
 block runs the kernel, its backward autograd through the plain version.
 The budget counts the engine's host step counter (the reference's
 `train_step` keeps its own, which a loaded checkpoint does not restore; its
-fused trainer counts the restored device step, as this one does). The
-fused trainer over a device dataset (`make_train_scan`) comes with the
-data slice.
+fused trainer counts the restored device step, as this one does).
+`make_train_scan` is the windowed trainer the CLI runs: a log window of
+those steps on batches gathered on the device, logs kept on the device.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from ..nn_diffusion import DiT1d
 from ..utils.jax_params import load_agent_params, load_jax_params
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
+from .runner import train_window
 
 __all__ = ["DDPipeline"]
 
@@ -131,6 +132,18 @@ class DDPipeline:
             o2 = obs[:, 1:].reshape(-1, self.obs_dim)
             log["invdyn_loss"] = self.invdyn.update(o, a, o2)["loss"]
         return log
+
+    def make_train_scan(self, dataset, batch_size: int, n_steps: int):
+        """The fused trainer of one log window: `run(generator) -> log`
+        takes `n_steps` steps, each a device gather from `generator`
+        (`dataset.sample_batch`), the diffusion update and, while the
+        engine's step is within `invdyn_gradient_steps`, the
+        inverse-dynamics update: the steps `train_step(dataset.sample_batch(
+        generator, batch_size))` takes one by one. Returns the window means
+        of "loss", "grad_norm" and "invdyn_loss" (0 on the steps past the
+        budget) as device scalars, with no host sync inside the window."""
+        return train_window(self.train_step, dataset, batch_size, n_steps,
+                            ("loss", "grad_norm", "invdyn_loss"), self.device)
 
     def save(self, path: str):
         self.agent.save(path + ".diffusion")

@@ -23,9 +23,10 @@ classifier's update (Adam, cosine schedule) on that trajectory noised to a
 random level, against the batch's value. With `use_pallas_block=True` the
 U-Net's forward runs K3 in every residual block, its backward autograd
 through the plain version. `terminal_penalty` and `discount` are the value
-targets' settings: stored as the JAX pipeline stores them, read by nothing
-until the data slice, which builds those targets, is ported. The fused
-trainer over a device dataset (`make_train_scan`) comes with that slice.
+targets' settings: stored as the JAX pipeline stores them and read by
+nothing here (the dataset builds the targets from its own).
+`make_train_scan` is the windowed trainer the CLI runs: a log window of
+those steps on batches gathered on the device, logs kept on the device.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..nn_diffusion import JannerUNet1d
 from ..utils.jax_params import load_agent_params, load_jax_params
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
+from .runner import train_window
 
 __all__ = ["DiffuserPipeline"]
 
@@ -139,6 +141,19 @@ class DiffuserPipeline:
             xt, t, _ = self.agent.add_noise(x, t, eps, self.agent.generator)
             log["classifier_loss"] = self.classifier.update(xt, t, f32(batch["val"]))["loss"]
         return log
+
+    def make_train_scan(self, dataset, batch_size: int, n_steps: int):
+        """The fused trainer of one log window: `run(generator) -> log`
+        takes `n_steps` steps, each a device gather from `generator`
+        (`dataset.sample_batch`), the diffusion update and, while the
+        engine's step is within `classifier_gradient_steps`, the
+        classifier's update on the batch noised by the engine's `add_noise`:
+        the steps `train_step(dataset.sample_batch(generator, batch_size))`
+        takes one by one. Returns the window means of "loss", "grad_norm"
+        and "classifier_loss" (0 on the steps past the budget) as device
+        scalars, with no host sync inside the window."""
+        return train_window(self.train_step, dataset, batch_size, n_steps,
+                            ("loss", "grad_norm", "classifier_loss"), self.device)
 
     def save(self, path: str):
         self.agent.save(path + ".diffusion")

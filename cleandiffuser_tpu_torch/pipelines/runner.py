@@ -1,0 +1,270 @@
+"""The CLIs' training and evaluation loops (counterpart of
+cleandiffuser_tpu/pipelines/runner.py).
+
+- `train_loop(step_fn, ...)`: `step_fn(generator) -> log` per step, or,
+  when a window trainer is given and the schedule aligns with it,
+  `window_fn(generator) -> log` per log window; logs per window (with
+  steps/s), saves `ckpt_<step>` and `ckpt_latest` on the save grid, resumes
+  from `resume_fn`'s step and realigns an off-grid resume with per-step
+  updates first.
+- `planner_window_fn(pipe, dataset, args, mesh)`: the pipeline's
+  `make_train_scan` window when the config's intervals allow it, else None
+  with the reason printed.
+- `d4rl_eval_loop(act_fn, env_name, ...)`: vectorised evaluation on the
+  gymnasium envs with the reference's per-benchmark reward bookkeeping.
+
+The reference's window is one compiled `lax.scan` program; the port's
+(`train_window`) is a host loop over the same steps that keeps every log on
+the device, so the host reads the device once per window, not once per
+step. The random stream is an explicit `torch.Generator` on the device the
+data lives on; a resumed run draws from a fresh stream seeded by the seed
+and the resume step, as the reference's `fold_in(PRNGKey(seed), step)`.
+`make_rl_train_scan` and `rl_window_fn` come with their callers, DQL, IDQL
+and EDP (ROADMAP queue 1, item 4).
+"""
+
+from __future__ import annotations
+
+import inspect
+import time
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.logger import Logger
+from ..utils.tensors import default_device
+
+__all__ = ["train_loop", "train_window", "planner_window_fn", "d4rl_eval_loop",
+           "step_generator"]
+
+
+def train_window(step_fn: Callable, dataset, batch_size: int, n_steps: int,
+                 keys: Sequence[str], device) -> Callable:
+    """`run(generator) -> log`: `n_steps` x `step_fn(dataset.sample_batch(
+    generator, batch_size))`, the logs' `keys` summed on the device (a key a
+    step does not log, such as a budget-gated second model's loss past its
+    budget, enters as 0) and returned as window means, device scalars. No
+    host sync inside the window."""
+    def run(generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        acc = {k: torch.zeros((), device=device) for k in keys}
+        for _ in range(n_steps):
+            log = step_fn(dataset.sample_batch(generator, batch_size))
+            for k, v in log.items():
+                acc[k] = acc[k] + v
+        return {k: v / n_steps for k, v in acc.items()}
+
+    return run
+
+
+def _mesh_window_ok(args, mesh) -> bool:
+    """The window runs on one device; a mesh waits for the multi-device path."""
+    if mesh is None:
+        return True
+    raise NotImplementedError("a training window on a mesh: the multi-device path is not "
+                              "ported yet (ROADMAP queue 1, item 10)")
+
+
+def planner_window_fn(pipe, dataset, args, mesh,
+                      steps_key: str = "diffusion_gradient_steps"):
+    """The pipeline's `make_train_scan` window of `log_interval` steps, or
+    None (per-step path, with the reason printed) when the pipeline has none
+    or the save interval or the step count is off the log grid."""
+    if not hasattr(pipe, "make_train_scan") or not _mesh_window_ok(args, mesh):
+        print(f"[runner] WARNING: {type(pipe).__name__} has no make_train_scan — "
+              "falling back to per-step dispatch", flush=True)
+        return None
+    steps = getattr(args, steps_key)
+    for name, value in (("save_interval", args.save_interval), (steps_key, steps)):
+        if value % args.log_interval != 0:
+            print(f"[runner] WARNING: {name}={value} is not a multiple of "
+                  f"log_interval={args.log_interval} — falling back to per-step dispatch",
+                  flush=True)
+            return None
+    return pipe.make_train_scan(dataset, args.batch_size, args.log_interval)
+
+
+def step_generator(seed: int, start_step: int, device) -> torch.Generator:
+    """The training stream of a run that starts at `start_step`: a generator
+    on `device` seeded from (seed, start_step), so a resumed run draws
+    afresh."""
+    s = int(np.random.SeedSequence([seed, start_step]).generate_state(1, np.uint32)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def train_loop(
+    step_fn: Callable[[torch.Generator], Dict[str, torch.Tensor]],
+    gradient_steps: int,
+    log_interval: int,
+    save_interval: int,
+    save_fn: Callable[[str], None],
+    logger: Optional[Logger] = None,
+    seed: int = 0,
+    resume_fn: Optional[Callable[[], int]] = None,
+    window_fn: Optional[Callable[[torch.Generator], Dict[str, torch.Tensor]]] = None,
+    device=None,
+):
+    """Generic training loop: `step_fn(generator) -> log` of device scalars.
+
+    Logs window means with the window's steps/s, saves `save_fn(str(step))`
+    and `save_fn("latest")` every `save_interval` steps, and resumes from
+    `resume_fn()`'s step. With `window_fn` (a `make_train_scan` window of
+    `log_interval` steps) and a schedule on the window grid, it runs window
+    by window; a resume off the grid first realigns with per-step updates
+    (then saves "latest", and the numbered checkpoint if the realign ended
+    on a save boundary). `device` is where the generator draws (the data's
+    device; the CUDA device when None).
+    """
+    device = default_device(device)
+    start_step = 0
+    if resume_fn is not None:
+        start_step = int(resume_fn())
+        if start_step > 0:
+            print(f"[train_loop] resuming from step {start_step}")
+    generator = step_generator(seed, start_step, device)
+    aligned = save_interval % log_interval == 0 and gradient_steps % log_interval == 0
+
+    if (window_fn is not None and start_step % log_interval != 0
+            and start_step < gradient_steps and aligned):
+        # realign to the window grid with per-step dispatch, then switch
+        realign = min(log_interval - start_step % log_interval, gradient_steps - start_step)
+        print(f"[train_loop] resume step {start_step} off the {log_interval}-step window "
+              f"grid: realigning with {realign} per-step updates", flush=True)
+        for _ in range(realign):
+            step_fn(generator)
+        start_step += realign
+        # a crash before the next save would otherwise resume off the grid
+        save_fn("latest")
+        if start_step % save_interval == 0:
+            save_fn(str(start_step))
+
+    if window_fn is not None and start_step % log_interval == 0 and aligned:
+        t_window = time.time()
+        step = start_step
+        while step < gradient_steps:
+            log = window_fn(generator)
+            step += log_interval
+            out = {k: float(v) for k, v in log.items()}
+            out["gradient_steps"] = step
+            now = time.time()
+            out["steps_per_sec"] = round(log_interval / max(now - t_window, 1e-9), 2)
+            t_window = now
+            print(out, flush=True)
+            if logger is not None:
+                logger.log(out, "train")
+            if step % save_interval == 0:
+                save_fn(str(step))
+                save_fn("latest")
+        return
+    if window_fn is not None:
+        print(f"[train_loop] WARNING: start step {start_step}, save_interval {save_interval} "
+              f"and gradient_steps {gradient_steps} are not all on the {log_interval}-step "
+              "window grid — running per-step dispatch", flush=True)
+    # logs accumulate on the device: one read per key per log window
+    log_acc: Dict[str, torch.Tensor] = {}
+    t_window = time.time()
+    for step in range(start_step, gradient_steps):
+        log = step_fn(generator)
+        for key, v in log.items():
+            log_acc[key] = log_acc.get(key, 0.0) + v
+        if (step + 1) % log_interval == 0:
+            out = {k: float(v) / log_interval for k, v in log_acc.items()}
+            out["gradient_steps"] = step + 1
+            now = time.time()
+            out["steps_per_sec"] = round(log_interval / max(now - t_window, 1e-9), 2)
+            t_window = now
+            print(out, flush=True)
+            if logger is not None:
+                logger.log(out, "train")
+            log_acc = {}
+        if (step + 1) % save_interval == 0:
+            save_fn(str(step + 1))
+            save_fn("latest")
+
+
+def d4rl_eval_loop(
+    act_fn: Callable[[np.ndarray], np.ndarray],
+    env_name: str,
+    normalizer,
+    num_envs: int,
+    num_episodes: int,
+    seed: int = 0,
+    max_steps: int = 1000,
+    logger: Optional[Logger] = None,
+    reward_mode: str = "mujoco",
+):
+    """Vectorised evaluation with the reference's per-benchmark reward
+    bookkeeping (numpy, on the host; `act_fn` maps normalised observations
+    to actions as a numpy array):
+
+    - "mujoco":  ep_reward += rew * (1 - cum_done) if t < max_steps else rew
+    - "antmaze": ep_reward += rew, clipped to [0, 1]
+    - "kitchen": ep_reward += rew, clipped to [0, 4], 280-step horizon
+    - "maze2d":  finished |= (rew == 1); ep_reward += finished (steps since
+                 the goal was first reached)
+
+    An `act_fn` declaring `ep_reward` receives the running per-env episode
+    reward; one declaring `goal_normed` the per-env goal xy normalised with
+    the state normaliser's first two dims. Returns the normalised scores,
+    (num_episodes, num_envs). The envs come from `make_eval_env_fns`
+    (gymnasium's MuJoCo envs for the locomotion tasks so far).
+    """
+    from ..env.wrapper import DuckSyncVectorEnv
+    from .data_loading import get_normalized_score_fn, make_eval_env_fns
+
+    if reward_mode == "kitchen":
+        max_steps = min(max_steps, 280)
+    sig_params = inspect.signature(act_fn).parameters
+    wants_rew = "ep_reward" in sig_params
+    wants_goal = "goal_normed" in sig_params
+    envs = DuckSyncVectorEnv(make_eval_env_fns(env_name, num_envs))
+    score_fn = get_normalized_score_fn(env_name)
+    clip_hi = {"antmaze": 1.0, "kitchen": 4.0}.get(reward_mode)
+    episode_rewards = []
+    for ep in range(num_episodes):
+        # a block of seeds per episode: sub-env i of episode ep gets
+        # seed + ep * num_envs + i, distinct across episodes
+        obs, _ = envs.reset(seed=seed + ep * num_envs)
+        ep_reward = np.zeros(num_envs)
+        cum_done = np.zeros(num_envs)
+        finished = np.zeros(num_envs, dtype=bool)
+        goal_normed = None
+        if wants_goal:
+            if not all(hasattr(e, "goal") for e in envs.envs):
+                raise ValueError(
+                    f"act_fn declares goal_normed but env {env_name} exposes "
+                    "no per-env .goal (only maze2d eval wrappers do)")
+            goals = np.stack([np.asarray(e.goal, np.float32) for e in envs.envs])
+            pad = np.zeros((num_envs, obs.shape[-1] - 2), np.float32)
+            goal_normed = normalizer.normalize(np.concatenate([goals, pad], -1))[:, :2]
+        t = 0
+        while not np.all(cum_done) and t < max_steps + 1:
+            nobs = normalizer.normalize(obs)
+            kw = {}
+            if wants_rew:
+                kw["ep_reward"] = ep_reward
+            if wants_goal:
+                kw["goal_normed"] = goal_normed
+            act = np.asarray(act_fn(nobs, **kw))
+            obs, rew, term, trunc, _ = envs.step(act)
+            done = np.logical_or(term, trunc)
+            t += 1
+            cum_done = np.logical_or(cum_done, done)
+            if reward_mode == "mujoco":
+                ep_reward += rew * (1 - cum_done) if t < max_steps else rew
+            elif reward_mode == "maze2d":
+                finished |= rew == 1.0
+                ep_reward += finished
+            else:
+                ep_reward += rew
+        if clip_hi is not None:
+            ep_reward = np.clip(ep_reward, 0.0, clip_hi)
+        episode_rewards.append([score_fn(r) for r in ep_reward])
+        print(f"episode {ep}: {np.mean(episode_rewards[-1]):.3f}")
+    episode_rewards = np.array(episode_rewards)
+    mean, std = np.mean(episode_rewards, -1), np.std(episode_rewards, -1)
+    print(mean, std)
+    if logger is not None:
+        logger.log({"normalized_score_mean": float(np.mean(episode_rewards)),
+                    "normalized_score_std": float(np.std(episode_rewards))}, "inference")
+    return episode_rewards

@@ -2,9 +2,22 @@
 
 from __future__ import annotations
 
+import random
+
+import numpy as np
 import torch
 
-__all__ = ["at_least_ndim", "default_device"]
+__all__ = ["at_least_ndim", "default_device", "set_seed"]
+
+
+def set_seed(seed: int) -> torch.Generator:
+    """Seed python, numpy and torch, and return a fresh CPU
+    `torch.Generator` seeded with `seed`: the counterpart of the
+    reference's returned PRNG key."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
 
 
 def at_least_ndim(x, ndim: int, pad: int = 0):
