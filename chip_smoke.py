@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: Decision Diffuser (DD)
 planning and Diffuser planning at the shipped widths, through the
-hand-written Hopper kernels.
+hand-written Hopper kernels, and the DQL, IDQL and EDP diffusion policies
+(MLPs, no kernel) through their CLIs.
 
     python3 chip_smoke.py
 
@@ -109,12 +110,12 @@ Phases, each of which raises on failure (exit code != 0):
 13. DD CLI   - `cli.dd_d4rl_mujoco.pipeline(args)` in-process, as a user runs
                it, on configs/dd/mujoco (halfcheetah-medium-v2, shipped
                width, the synthetic data) with `mode=train
-               diffusion_gradient_steps=1000 invdyn_gradient_steps=500
-               log_interval=250 save_interval=500`, in results/chip_smoke_cli:
+               diffusion_gradient_steps=500 invdyn_gradient_steps=250
+               log_interval=125 save_interval=250`, in results/chip_smoke_cli:
                four windows (`make_train_scan`) with finite means and
-               `invdyn_loss` 0 in the last two, K1's f32 route 2 x 1000
-               launches (BF16 0), ckpt_500, ckpt_1000 and ckpt_latest; the
-               same config off the window grid for 500 steps (per-step
+               `invdyn_loss` 0 in the last two, K1's f32 route 2 x 500
+               launches (BF16 0), ckpt_250, ckpt_500 and ckpt_latest; the
+               same config off the window grid for 250 steps (per-step
                path), its steps/s beside the windows'; then ckpt_latest in
                a fresh pipeline serving 5 `act` requests for 50 envs as
                `mode=inference` makes them (normalised first states of the
@@ -129,6 +130,29 @@ Phases, each of which raises on failure (exit code != 0):
                `classifier_loss` 0 in the last two windows, the three
                checkpoints, and 2 requests at 50 envs x 64 candidates from
                ckpt_latest (320 K3 launches each).
+15. RL CLIs  - `cli.dql_d4rl_mujoco`, `cli.idql_d4rl_mujoco` and
+               `cli.edp_d4rl_mujoco` in-process on configs/{dql,idql,edp}/mujoco
+               (halfcheetah-medium-v2: obs 17, act 6; critics 256 wide, the
+               IDQLMlp 256 wide with 3 blocks; batch 256; the synthetic data)
+               with `mode=train gradient_steps=1250 log_interval=250
+               save_interval=250`: five finite window means, ckpt_250 to
+               ckpt_1250 and ckpt_latest (step 1250); DQL and EDP: the actor EMA in
+               ckpt_1000 equals the initial weights bit for bit (the EMA gate
+               opens at step 1000) and in ckpt_latest it does not; IDQL: the
+               Q and V optimizers' counts in ckpt_latest are 625 (the critic
+               moves on even steps). Then 200 steps off the window grid
+               (the per-step path), its steps/s beside the windows'; then
+               ckpt_latest in a fresh pipeline serving 5 `act` requests at
+               50 envs with the config's candidates (DQL 2,500 rows x 5
+               steps, IDQL 12,800 x 5, EDP 2,500 x 15), normalised dataset
+               observations standing in for the envs': actions finite, in
+               [-1, 1], (50, 6), the median latency. No kernel launches in
+               these phases (all four counts read 0).
+16. DQL Goal2D - the hermetic DQL of tests/test_hermetic_parity.py:101-108
+               (emb 32, critic 128, discount 0.95) trained 3000 steps at
+               batch 128 on the Goal2D behavior data on the card, with grad
+               through the 5-step sampler; 128 episodes with 50 candidates
+               per env: the normalized score must reach 0.85.
 
 Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
@@ -163,9 +187,18 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from cleandiffuser_tpu_torch.cli import dd_d4rl_mujoco, diffuser_d4rl_mujoco  # noqa: E402
-from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset  # noqa: E402
-from cleandiffuser_tpu_torch.dataset.hermetic import goal2d_sequence_dataset  # noqa: E402
+from cleandiffuser_tpu_torch.cli import (  # noqa: E402
+    dd_d4rl_mujoco,
+    diffuser_d4rl_mujoco,
+    dql_d4rl_mujoco,
+    edp_d4rl_mujoco,
+    idql_d4rl_mujoco,
+)
+from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset, D4RLMuJoCoTDDataset  # noqa: E402
+from cleandiffuser_tpu_torch.dataset.hermetic import (  # noqa: E402
+    goal2d_qlearning_dataset,
+    goal2d_sequence_dataset,
+)
 from cleandiffuser_tpu_torch.diffusion.basic import DiffusionModel  # noqa: E402
 from cleandiffuser_tpu_torch.diffusion.vp_solvers import ddpm_coefficients  # noqa: E402
 from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn  # noqa: E402
@@ -188,7 +221,7 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
     solver_update_reference,
 )
 from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
-from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline  # noqa: E402
+from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline, DQLPipeline  # noqa: E402
 from cleandiffuser_tpu_torch.utils.config import load_config  # noqa: E402
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of  # noqa: E402
 
@@ -235,18 +268,30 @@ BF16_TRAIN_STEPS = 10
 # the hermetic DD gate (tests/test_hermetic_parity.py:132-157)
 GOAL2D_STEPS, GOAL2D_BAR = 3000, 0.85
 # the CLI phases: the shipped configs trained through the CLIs' `pipeline(args)`
-# with these overrides, in CLI_DIR (under the gitignored results/)
-DD_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=1000", "invdyn_gradient_steps=500",
-                "log_interval=250", "save_interval=500")
+# with these overrides, in CLI_DIR (under the gitignored results/). The DD
+# run's depth was cut from 1000 to 500 steps when the RL phases came, to keep
+# the script near half of its time limit.
+DD_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=500", "invdyn_gradient_steps=250",
+                "log_interval=125", "save_interval=250")
 # the same config with save_interval off the log grid: the per-step path, no
-# save in its 500 steps, the inverse dynamics on in both of its windows as in
+# save in its 250 steps, the inverse dynamics on in both of its windows as in
 # the windowed run's first two
-DD_CLI_PER_STEP = ("mode=train", "diffusion_gradient_steps=500", "invdyn_gradient_steps=500",
-                   "log_interval=250", "save_interval=600")
+DD_CLI_PER_STEP = ("mode=train", "diffusion_gradient_steps=250", "invdyn_gradient_steps=250",
+                   "log_interval=125", "save_interval=300")
 DIFFUSER_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=200",
                       "classifier_gradient_steps=100", "log_interval=50", "save_interval=100")
 DD_CLI_REQUESTS, DIFFUSER_CLI_REQUESTS = 5, 2
 CLI_DIR = ROOT / "results" / "chip_smoke_cli"
+# the RL CLI phases: 5 windows of 250, a save after each, so that ckpt_1000
+# holds the last step before the actor EMA's gate opens and ckpt_latest the
+# 1250th (the loop saves on the save grid only: with save_interval=500 the
+# last save would be step 1000); then 200 steps with the save interval off
+# the log grid (the per-step path; no save, so ckpt_latest stays)
+RL_CLI_TRAIN = ("mode=train", "gradient_steps=1250", "log_interval=250", "save_interval=250")
+RL_CLI_PER_STEP = ("mode=train", "gradient_steps=200", "log_interval=100", "save_interval=250")
+RL_CLI_REQUESTS = 5
+# the hermetic DQL gate (tests/test_hermetic_parity.py:101-108)
+DQL_GOAL2D_STEPS, DQL_GOAL2D_BATCH = 3000, 128
 # (H, Cin, Cout) of the 16 residual blocks of the shipped Diffuser U-Net
 # (obs 17 + act 6 = 23 channels in, model_dim 32, dim_mult (1, 2, 2, 2),
 # horizon 32), in the order the net runs them
@@ -1357,12 +1402,15 @@ def check_checkpoints(run: Path, args, steps: int, parts) -> list:
 
 def cli_requests(pipe, obs: np.ndarray, n: int, **kw) -> list:
     """n `act` requests as the CLIs' evaluation makes them (normalised numpy
-    observations in, numpy actions out), each checked; per-request ms."""
+    observations in, numpy actions out: the planners' `act` returns
+    (actions, info), the policies' the actions), each checked; per-request
+    ms."""
     lat = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        act = pipe.act(obs, **kw)[0].cpu().numpy()
+        out = pipe.act(obs, **kw)
+        act = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
         lat.append((time.perf_counter() - t0) * 1e3)
         if act.shape != (obs.shape[0], pipe.act_dim):
             raise AssertionError(f"actions {act.shape}")
@@ -1466,6 +1514,123 @@ def check_diffuser_cli(dev) -> dict:
             "solver_update": {"diffuser_train": k2, "diffuser_serve": serve_k2}}
 
 
+def check_rl_cli(dev, family: str) -> dict:
+    """One RL CLI as users run it: `mode=train` at the shipped width window
+    by window, the checkpoints and their gates, the per-step path beside
+    it, then `ckpt_latest` served as `mode=inference` serves it. Returns
+    the kernels' launches in the phase (all 0: the path has no kernel)."""
+    cli = {"dql": dql_d4rl_mujoco, "idql": idql_d4rl_mujoco, "edp": edp_d4rl_mujoco}[family]
+    phase(f"{family.upper()} CLI: cli.{family}_d4rl_mujoco mode=train (windows), then act from "
+          "ckpt_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, RL_CLI_TRAIN)
+    steps = args.gradient_steps
+    # a fresh pipeline holds the CLI's initial weights (a seeded init); it
+    # then serves ckpt_latest
+    dataset, pipe = cli.build(args, dev)
+    keys = pipe.LOG_KEYS
+    width = (f"actor {args.actor_hidden_dim} x {args.actor_n_blocks} blocks, critic "
+             f"{args.critic_hidden_dim}" if family == "idql" else f"critic {args.hidden_dim}")
+    print(f"{steps} steps in {len(logs)} windows of {args.log_interval} (obs {pipe.obs_dim}, "
+          f"act {pipe.act_dim}, {width}, batch {args.batch_size}, T {args.diffusion_steps}, "
+          f"{args.sampling_steps} sampling steps): {seconds:.1f} s with set-up and saves",
+          flush=True)
+    if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
+                                                           args.log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    for lg in logs:
+        if not all(np.isfinite(lg[k]) for k in keys):
+            raise AssertionError(f"non-finite window means {lg}")
+    print("window means: " + "; ".join(
+        ", ".join(f"{k} {lg[k]:.4g}" for k in keys) for lg in logs), flush=True)
+    tags = [str(t) for t in range(args.save_interval, steps + 1, args.save_interval)] + ["latest"]
+    missing = [t for t in tags if not (run / f"ckpt_{t}.pt").exists()]
+    if missing or "1000" not in tags:
+        raise AssertionError(f"checkpoints {tags}: missing {missing} in {run}")
+    load = lambda tag: torch.load(run / f"ckpt_{tag}.pt", map_location="cpu", weights_only=True)
+    latest = load("latest")
+    if latest["actor"]["step"] != steps:
+        raise AssertionError(f"ckpt_latest holds step {latest['actor']['step']}, not {steps}")
+    if family == "idql":
+        counts = {name: (latest["critic"][name]["count"],
+                         {int(s["step"]) for s in latest["critic"][name]["optimizer"]["state"]
+                          .values()}) for name in ("q_opt_state", "v_opt_state")}
+        print(f"ckpt_latest: critic optimizers' (schedule count, Adam steps) {counts} "
+              f"(expected {steps // 2}: the critic moves on even steps)", flush=True)
+        if any(c != (steps // 2, {steps // 2}) for c in counts.values()):
+            raise AssertionError(f"IDQL's critic optimizers took {counts} steps")
+    else:
+        init = {k: v.cpu() for k, v in pipe.actor.params.state_dict().items()}
+        same = lambda ema: all(torch.equal(ema[k], init[k]) for k in init)
+        at_1000, at_latest = same(load("1000")["actor"]["ema_params"]), same(
+            latest["actor"]["ema_params"])
+        print(f"actor EMA equal to the initial weights bit for bit: ckpt_1000 {at_1000}, "
+              f"ckpt_latest {at_latest} (expected True, False: the gate opens at step 1000)",
+              flush=True)
+        if not at_1000 or at_latest:
+            raise AssertionError("the actor EMA's gate did not hold at step 1000")
+    print(f"checkpoints {['ckpt_' + t for t in tags]} in {run}", flush=True)
+
+    per_args, _, per_step, _ = run_cli(cli, RL_CLI_PER_STEP)
+    win = [lg["steps_per_sec"] for lg in logs]
+    one = [lg["steps_per_sec"] for lg in per_step]
+    print(f"steps/s: windowed {win} (windows of {args.log_interval}), per-step {one} (windows "
+          f"of {per_args.log_interval}); ms per step, the last window of each: windowed "
+          f"{1e3 / win[-1]:.3f}, per-step {1e3 / one[-1]:.3f}", flush=True)
+
+    # mode=inference: ckpt_latest in the fresh pipeline, requests as the
+    # CLI's evaluation makes them. Normalised dataset observations stand in
+    # for the envs': the card's machine has no gymnasium, so the env
+    # stepping does not run here.
+    pipe.load(str(run / "ckpt_latest.pt"))
+    wt = args.weight_temperature if family == "idql" else args.task.weight_temperature
+    kw = dict(num_candidates=args.num_candidates, weight_temperature=wt,
+              use_ema=args.use_ema, temperature=args.temperature)
+    obs = dataset.obs[:args.num_envs]
+    cold = cli_requests(pipe, obs, 1, **kw)
+    lat = cli_requests(pipe, obs, RL_CLI_REQUESTS, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    print(f"{RL_CLI_REQUESTS} requests x {args.num_envs} envs x {args.num_candidates} candidates "
+          f"({args.num_envs * args.num_candidates} rows x {args.sampling_steps} steps) from "
+          f"ckpt_latest: latency ms {[round(v, 3) for v in lat]} (median "
+          f"{statistics.median(lat):.3f}; cold {cold[0]:.3f}); kernel launches in the phase "
+          f"{counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the {family} CLI phase launched a kernel: {counts}")
+    return counts
+
+
+def check_dql_goal2d(dev) -> float:
+    """The hermetic DQL gate on the card: backprop through the 5-step
+    sampler at every step, then 128 episodes with 50 candidates per env."""
+    phase("Goal2D score: hermetic DQL trained on the card")
+    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=dev)
+    pipe = DQLPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
+                       gradient_steps=DQL_GOAL2D_STEPS, discount=0.95, eta=1.0, rng=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    for _ in range(DQL_GOAL2D_STEPS):
+        log = pipe.train_step(ds.sample_batch(gen, DQL_GOAL2D_BATCH))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(f"{DQL_GOAL2D_STEPS} train_steps (batch {DQL_GOAL2D_BATCH}, {len(ds)} transitions): "
+          f"{train_s:.1f} s ({1e3 * train_s / DQL_GOAL2D_STEPS:.3f} ms per step); last "
+          f"{ {k: round(v.item(), 4) for k, v in log.items()} }", flush=True)
+    norm = ds.get_normalizer()
+    score = normalized_score_fn(device=dev)
+    t0 = time.perf_counter()
+    ret = evaluate_policy(lambda g, obs: pipe.act(norm.normalize(obs), num_candidates=50,
+                                                  generator=g),
+                          num_envs=128, seed=1, device=dev)
+    s = score(ret)
+    print(f"normalized score {s:.4f} (return {ret:.4f}; anchors {score.anchors}; bar "
+          f"{GOAL2D_BAR}); 40 requests at 128 x 50 in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if not s >= GOAL2D_BAR:
+        raise AssertionError(f"DQL Goal2D score {s:.4f} below {GOAL2D_BAR}")
+    return s
+
+
 def main() -> int:
     kind = check_device()
     dev = torch.device("cuda", 0)
@@ -1486,11 +1651,14 @@ def main() -> int:
     check_checkpoint(dev)
     check_goal2d(dev)
     cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
+    # the RL policies' path (MLPs) launches none of the kernels
+    rl = {family: check_rl_cli(dev, family) for family in ("dql", "idql", "edp")}
+    check_dql_goal2d(dev)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,
         # the CLI phases: training through the CLI and serving its checkpoint
-        "cli_launches": cli[name],
+        "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         # no single PyTorch call computes any of these blocks or steps

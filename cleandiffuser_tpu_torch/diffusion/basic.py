@@ -115,13 +115,18 @@ class DiffusionModel:
             return None
         return params["condition"](condition, mask=mask, train=train, generator=generator)
 
-    def apply_diffusion(self, params: nn.ModuleDict, x, t, emb, train: bool = False):
-        """The backbone's prediction. With the bf16 flag of the mode set
-        (`bf16_training` when `train`, else `bf16_sampling`): x and emb cast
-        to bf16, the net on its params cast to bf16 (already bf16 when the
-        sampler passes its bf16 copy), the prediction cast to f32."""
+    def apply_diffusion(self, params: nn.ModuleDict, x, t, emb, train: bool = False,
+                        generator: Optional[torch.Generator] = None):
+        """The backbone's prediction. A backbone with dropout (a non-zero
+        `dropout` attribute) takes `train` and draws its masks from
+        `generator`. With the bf16 flag of the mode set (`bf16_training`
+        when `train`, else `bf16_sampling`): x and emb cast to bf16, the net
+        on its params cast to bf16 (already bf16 when the sampler passes its
+        bf16 copy), the prediction cast to f32."""
         net = params["diffusion"]
         if not (self.bf16_training if train else self.bf16_sampling):
+            if train and getattr(net, "dropout", 0.0):
+                return net(x, t, emb, train=True, generator=generator)
             return net(x, t, emb)
         if not isinstance(net, DiT1d):
             # the reference runs XLA in bf16 here; the port's other
@@ -196,7 +201,11 @@ class DiffusionModel:
         """Resume from a checkpoint the JAX engine's `save` wrote: params,
         EMA, Adam moments, schedule count and step (its PRNG key has no
         counterpart here; the generator keeps its state)."""
-        ckpt = load_jax_checkpoint(path)
+        self.load_jax_state(load_jax_checkpoint(path))
+
+    def load_jax_state(self, ckpt: dict):
+        """`load_jax_checkpoint` from the fields of a JAX TrainState already
+        read (utils/train_state.py `jax_train_state`)."""
         load_agent_params(self.params, ckpt["params"])
         load_agent_params(self.ema_params, ckpt["ema_params"])
         load_agent_moments(self.optimizer.optimizer, self.params, ckpt["mu"], ckpt["nu"],

@@ -128,7 +128,7 @@ class BaseDiffusionSDE(DiffusionModel):
         xt, t, eps = self.add_noise(x0, t, eps, generator)
         emb = self.apply_condition(params, condition, mask=keep, train=True,
                                    generator=generator)
-        pred = self.apply_diffusion(params, xt, t, emb, train=True)
+        pred = self.apply_diffusion(params, xt, t, emb, train=True, generator=generator)
         loss = (pred - (eps if self.predict_noise else x0)) ** 2
         if self.loss_weight is not None:
             loss = loss * self.loss_weight
@@ -198,6 +198,11 @@ class BaseDiffusionSDE(DiffusionModel):
         (backbone and condition) to bf16 once per call (`bf16_params`), not
         once per step; its solver math stays f32. With `final_logp` (default: whether there is a
         classifier) the log holds "log_p" of the final sample at t = 0.
+
+        `fn` follows the caller's grad mode, as the reference's sampler is a
+        plain differentiable function: DQL's policy loss backpropagates
+        through it into `params`. Callers that only sample run it under
+        `torch.no_grad()`; with `fused_update`, grad mode on raises.
         """
         if solver not in SUPPORTED_SOLVERS:
             raise ValueError(f"Solver {solver} is not supported.")
@@ -215,10 +220,14 @@ class BaseDiffusionSDE(DiffusionModel):
         stds = torch.cat([
             zero, sigmas[:-1] / sigmas[1:] * torch.sqrt(1 - (alphas[1:] / alphas[:-1]) ** 2)])
 
-        @torch.no_grad()
         def fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None, cls_params=None,
                condition_cg=None, w_cg: float = 0.0):
+            if fused_update and torch.is_grad_enabled():
+                # K2 has no backward; a quiet switch to the plain step would
+                # be a fallback
+                raise RuntimeError("fused_update has no backward: sample under torch.no_grad()")
+
             def draw(n):
                 if noise is not None:
                     return noise[0] if n < 0 else noise[1][n]

@@ -4,7 +4,8 @@
 
 - In training, each batch element's embedding is zeroed with probability
   `dropout` (Bernoulli keep-mask drawn from `generator`, which must lie on
-  the condition's device): the classifier-free-guidance mechanism. A
+  the condition's device): the classifier-free-guidance mechanism. With
+  `dropout` 0 nothing is drawn and every element is kept. A
   caller-passed `mask` is taken as the keep-mask instead, which is how the
   tests replay the reference's draws.
 - At sampling time (train=False) the mask defaults to all-ones, or the
@@ -33,7 +34,7 @@ class BaseNNCondition(nn.Module):
 
     def get_mask(self, condition, mask, train: bool,
                  generator: Optional[torch.Generator] = None):
-        if train and mask is None:
+        if train and mask is None and self.dropout > 0:
             u = torch.rand(condition.shape[0], generator=generator, device=condition.device)
             return (u > self.dropout).to(torch.float32)
         return 1.0 if mask is None else mask

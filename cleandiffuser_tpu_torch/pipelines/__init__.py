@@ -1,2 +1,6 @@
 from .dd import DDPipeline
 from .diffuser import DiffuserPipeline
+from .dql import DQLPipeline
+from .edp import EDPPipeline
+from .idql import IDQLPipeline
+from .runner import make_rl_train_scan, rl_window_fn

@@ -10,6 +10,11 @@ cleandiffuser_tpu/pipelines/runner.py).
 - `planner_window_fn(pipe, dataset, args, mesh)`: the pipeline's
   `make_train_scan` window when the config's intervals allow it, else None
   with the reason printed.
+- `make_rl_train_scan(pipe, dataset, batch_size, n_steps)`: the window of
+  the RL pipelines (DQL, EDP, IDQL): `n_steps` x `pipe.train_step` on device
+  gathers, the logs of `pipe.LOG_KEYS` as window means on the device;
+  `rl_window_fn(pipe, dataset, args, mesh)` builds it for a CLI, or returns
+  None with the reason printed.
 - `d4rl_eval_loop(act_fn, env_name, ...)`: vectorised evaluation on the
   gymnasium envs with the reference's per-benchmark reward bookkeeping.
 
@@ -19,8 +24,6 @@ the device, so the host reads the device once per window, not once per
 step. The random stream is an explicit `torch.Generator` on the device the
 data lives on; a resumed run draws from a fresh stream seeded by the seed
 and the resume step, as the reference's `fold_in(PRNGKey(seed), step)`.
-`make_rl_train_scan` and `rl_window_fn` come with their callers, DQL, IDQL
-and EDP (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ import torch
 from ..utils.logger import Logger
 from ..utils.tensors import default_device
 
-__all__ = ["train_loop", "train_window", "planner_window_fn", "d4rl_eval_loop",
-           "step_generator"]
+__all__ = ["train_loop", "train_window", "planner_window_fn", "make_rl_train_scan",
+           "rl_window_fn", "d4rl_eval_loop", "step_generator"]
 
 
 def train_window(step_fn: Callable, dataset, batch_size: int, n_steps: int,
@@ -65,6 +68,19 @@ def _mesh_window_ok(args, mesh) -> bool:
                               "ported yet (ROADMAP queue 1, item 10)")
 
 
+def _on_log_grid(args, steps_key: str) -> bool:
+    """Whether the save interval and the step count are multiples of the log
+    interval; prints which is not."""
+    for name, value in (("save_interval", args.save_interval),
+                        (steps_key, getattr(args, steps_key))):
+        if value % args.log_interval != 0:
+            print(f"[runner] WARNING: {name}={value} is not a multiple of "
+                  f"log_interval={args.log_interval} — falling back to per-step dispatch",
+                  flush=True)
+            return False
+    return True
+
+
 def planner_window_fn(pipe, dataset, args, mesh,
                       steps_key: str = "diffusion_gradient_steps"):
     """The pipeline's `make_train_scan` window of `log_interval` steps, or
@@ -74,14 +90,28 @@ def planner_window_fn(pipe, dataset, args, mesh,
         print(f"[runner] WARNING: {type(pipe).__name__} has no make_train_scan — "
               "falling back to per-step dispatch", flush=True)
         return None
-    steps = getattr(args, steps_key)
-    for name, value in (("save_interval", args.save_interval), (steps_key, steps)):
-        if value % args.log_interval != 0:
-            print(f"[runner] WARNING: {name}={value} is not a multiple of "
-                  f"log_interval={args.log_interval} — falling back to per-step dispatch",
-                  flush=True)
-            return None
+    if not _on_log_grid(args, steps_key):
+        return None
     return pipe.make_train_scan(dataset, args.batch_size, args.log_interval)
+
+
+def make_rl_train_scan(pipe, dataset, batch_size: int, n_steps: int) -> Callable:
+    """The RL pipelines' window: `run(generator) -> log` takes the `n_steps`
+    steps `pipe.train_step(dataset.sample_batch(generator, batch_size))`
+    takes one by one, and returns the means of `pipe.LOG_KEYS` as device
+    scalars, with no host sync inside the window."""
+    return train_window(pipe.train_step, dataset, batch_size, n_steps, pipe.LOG_KEYS,
+                        pipe.device)
+
+
+def rl_window_fn(pipe, dataset, args, mesh):
+    """`make_rl_train_scan` of `log_interval` steps for an RL CLI, or None
+    (per-step path, with the reason printed) when the save interval or
+    `gradient_steps` is off the log grid."""
+    _mesh_window_ok(args, mesh)
+    if not _on_log_grid(args, "gradient_steps"):
+        return None
+    return make_rl_train_scan(pipe, dataset, args.batch_size, args.log_interval)
 
 
 def step_generator(seed: int, start_step: int, device) -> torch.Generator:

@@ -13,6 +13,11 @@ kernel is (K, Cin, Cout), a norm has `scale` and `bias`. So the JAX
 parameters copy into them unchanged (utils/jax_params.py), and a Hopper
 kernel reads the conv weights as they are stored.
 
+The MLPs and critics of the RL pipelines (`Mlp`, `DQLCritic`, `TwinQ`,
+`V`) name their children as flax does (`q1_model` / `q2_model`, `Q1` /
+`Q2`, `Dense_i`, `LayerNorm_i`), so the converter maps them onto the JAX
+param trees.
+
 Type promotion. PyTorch does not promote inside a product (`f32 @ bf16`
 raises), while `jnp` and flax's `Dense` cast the operands to their common
 type first (`jnp.result_type`: f32 with bf16 is f32, bf16 with bf16 is
@@ -44,6 +49,10 @@ __all__ = [
     "Conv1d",
     "GroupNorm",
     "LayerNorm",
+    "Mlp",
+    "DQLCritic",
+    "TwinQ",
+    "V",
 ]
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
@@ -175,3 +184,94 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# MLPs and the RL critics
+class Mlp(nn.Module):
+    """Plain MLP: `activation` after every hidden Dense, `out_activation`
+    (if any) after the last."""
+
+    JAX_NAMES = {"layers": "Dense_{}"}
+
+    def __init__(self, in_dim: int, hidden_dims, out_dim: int, activation: Callable = F.relu,
+                 out_activation: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dims = (in_dim, *hidden_dims, out_dim)
+        self.layers = nn.ModuleList(
+            dense(i, o, generator=generator) for i, o in zip(dims[:-1], dims[1:]))
+        self.activation, self.out_activation = activation, out_activation
+
+    def forward(self, x):
+        for layer in self.layers[:-1]:
+            x = self.activation(layer(x))
+        x = self.layers[-1](x)
+        return x if self.out_activation is None else self.out_activation(x)
+
+
+class _QHead(nn.Module):
+    """(Dense -> LayerNorm -> activation) per activation, then Dense(1)."""
+
+    JAX_NAMES = {"dense": "Dense_{}", "norm": "LayerNorm_{}"}
+
+    def __init__(self, in_dim: int, hidden_dim: int, activations,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activations = tuple(activations)
+        dims = [in_dim] + [hidden_dim] * len(self.activations)
+        self.dense = nn.ModuleList([dense(i, hidden_dim, generator=generator) for i in dims[:-1]]
+                                   + [dense(hidden_dim, 1, generator=generator)])
+        self.norm = nn.ModuleList(LayerNorm(hidden_dim) for _ in self.activations)
+
+    def forward(self, x):
+        for layer, norm, act in zip(self.dense, self.norm, self.activations):
+            x = act(norm(layer(x)))
+        return self.dense[-1](x)
+
+
+class DQLCritic(nn.Module):
+    """Twin Q over [obs, act] with a tanh, mish, mish stack."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden_dim: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        acts = (torch.tanh, F.mish, F.mish)
+        self.q1_model = _QHead(obs_dim + act_dim, hidden_dim, acts, generator)
+        self.q2_model = _QHead(obs_dim + act_dim, hidden_dim, acts, generator)
+
+    def forward(self, obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return self.q1_model(x), self.q2_model(x)
+
+    def q1(self, obs, act):
+        return self.q1_model(torch.cat([obs, act], dim=-1))
+
+    def q_min(self, obs, act):
+        return torch.minimum(*self(obs, act))
+
+
+class TwinQ(nn.Module):
+    """IQL's twin Q (mish, mish); calling it gives the min of the heads."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden_dim: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        acts = (F.mish, F.mish)
+        self.Q1 = _QHead(obs_dim + act_dim, hidden_dim, acts, generator)
+        self.Q2 = _QHead(obs_dim + act_dim, hidden_dim, acts, generator)
+
+    def both(self, obs, act):
+        x = torch.cat([obs, act], dim=-1)
+        return self.Q1(x), self.Q2(x)
+
+    def forward(self, obs, act):
+        return torch.minimum(*self.both(obs, act))
+
+
+class V(_QHead):
+    """IQL's value net over obs (mish, mish)."""
+
+    def __init__(self, obs_dim: int, hidden_dim: int = 256,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(obs_dim, hidden_dim, (F.mish, F.mish), generator)

@@ -185,14 +185,15 @@ def load_adam_moments(optimizer: torch.optim.Optimizer, model: nn.Module, mu: di
 
 def jax_params_of(model: nn.Module) -> dict:
     """The model's parameters as a flax param tree of numpy arrays (blocks
-    in the flat `PallasDiTBlock_i` layout)."""
+    in the flat `PallasDiTBlock_i` layout), copies that later updates of the
+    model leave as they are."""
     tree: dict = {}
     for key, t in model.state_dict().items():
         path, layout = _jax_path(model, key)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(_to_jax(t.detach().cpu().numpy(), layout))
+        node[path[-1]] = np.array(_to_jax(t.detach().cpu().numpy(), layout), order="C")
     return tree
 
 

@@ -17,13 +17,23 @@ the optimizer is a `torch.optim` one, and every step is a handful of
   computes it. It runs through a `LambdaLR` on base lr 1, so the rate a step
   uses is exactly the schedule's value (`CosineAnnealingLR` is recursive and
   drifts from the closed form).
+- `make_adam`: optax's `adam` (no decay, no clipping), the RL critics'
+  optimizer, on a float rate or a schedule.
 - `ema_update`: `e * rate + p * (1 - rate)` in that form (not `lerp`, whose
-  rounding differs).
+  rounding differs). The RL pipelines' two gates and their target rule:
+  `ema_gate` (the actor's EMA every `interval` steps from step 1000, read
+  on the host step counter, no device sync) and `target_update` (the
+  critic target takes `1 - tau` of the *online* net, reference dql.py:207-212
+  and idql.py:169-172; IQL's own target rule, utils/iql.py, weights the
+  other way round, and each is kept where it is used).
 - `save_state` / `load_state`: the port's own checkpoint (params, EMA,
-  optimizer moments, schedule count, step, generator state); a resumed run
-  continues exactly.
+  optimizer moments, schedule count, step, generator state; the dict of
+  `train_state_dict`, which the RL pipelines store beside their critics');
+  a resumed run continues exactly.
 - `load_jax_checkpoint`: reads a pickle written by the JAX `save_state`
-  without JAX, flax, optax or the JAX package installed.
+  without JAX, flax, optax or the JAX package installed; `read_jax_pickle`
+  reads the RL pipelines' pickles ({"actor": TrainState, "critic": ...}),
+  `jax_train_state` and `jax_adam_state` take their fields apart.
 """
 
 from __future__ import annotations
@@ -39,12 +49,19 @@ import torch.nn as nn
 __all__ = [
     "TrainOptimizer",
     "make_optimizer",
+    "make_adam",
     "cosine_decay_schedule",
     "ema_update",
+    "ema_gate",
+    "target_update",
+    "train_state_dict",
+    "load_train_state_dict",
     "save_state",
     "load_state",
     "load_jax_checkpoint",
     "read_jax_pickle",
+    "jax_train_state",
+    "jax_adam_state",
 ]
 
 
@@ -127,6 +144,11 @@ def make_optimizer(params: Iterable[nn.Parameter], lr: Union[float, Callable] = 
     return TrainOptimizer(params, lr, weight_decay, grad_clip_norm, decoupled)
 
 
+def make_adam(params: Iterable[nn.Parameter], lr: Union[float, Callable]) -> TrainOptimizer:
+    """optax.adam(lr): Adam with no decay and no clipping."""
+    return TrainOptimizer(params, lr, weight_decay=0.0, decoupled=False)
+
+
 @torch.no_grad()
 def ema_update(ema: nn.Module, params: nn.Module, rate: float) -> None:
     """ema <- ema * rate + params * (1 - rate), in place, over the
@@ -136,27 +158,53 @@ def ema_update(ema: nn.Module, params: nn.Module, rate: float) -> None:
     torch._foreach_add_(e, torch._foreach_mul(list(params.parameters()), 1.0 - rate))
 
 
-def save_state(path, params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
-               step: int, generator: Optional[torch.Generator] = None) -> None:
-    """Write params, EMA, optimizer state (moments and schedule count), the
-    step and the generator's state to one file."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": params.state_dict(), "ema_params": ema_params.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": step,
-                "generator": None if generator is None else generator.get_state()}, path)
+def ema_gate(step: int, interval: int, start: int = 1000) -> bool:
+    """Whether the RL actors' EMA moves at host step `step` (the count of
+    updates taken before this one): every `interval` steps from `start`.
+    Until then the EMA actor is the initial network."""
+    return step % interval == 0 and step >= start
 
 
-def load_state(path, params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
-               generator: Optional[torch.Generator] = None) -> int:
-    """Restore a `save_state` file in place; returns the step."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
+def target_update(target: nn.Module, online: nn.Module, tau: float = 0.005) -> None:
+    """target <- (1 - tau) * online + tau * target: the DQL, EDP and IDQL
+    critic-target rule, which keeps `1 - tau` of the online net."""
+    ema_update(target, online, tau)
+
+
+def train_state_dict(params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
+                     step: int, generator: Optional[torch.Generator] = None) -> dict:
+    """Params, EMA, optimizer state (moments and schedule count), the step
+    and the generator's state, as one dict for `torch.save`."""
+    return {"params": params.state_dict(), "ema_params": ema_params.state_dict(),
+            "optimizer": optimizer.state_dict(), "step": step,
+            "generator": None if generator is None else generator.get_state()}
+
+
+def load_train_state_dict(state: dict, params: nn.Module, ema_params: nn.Module,
+                          optimizer: TrainOptimizer,
+                          generator: Optional[torch.Generator] = None) -> int:
+    """Restore a `train_state_dict` in place; returns the step."""
     params.load_state_dict(state["params"])
     ema_params.load_state_dict(state["ema_params"])
     optimizer.load_state_dict(state["optimizer"])
     if generator is not None and state["generator"] is not None:
         generator.set_state(state["generator"])
     return state["step"]
+
+
+def save_state(path, params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
+               step: int, generator: Optional[torch.Generator] = None) -> None:
+    """Write `train_state_dict` to one file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(train_state_dict(params, ema_params, optimizer, step, generator), path)
+
+
+def load_state(path, params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
+               generator: Optional[torch.Generator] = None) -> int:
+    """Restore a `save_state` file in place; returns the step."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return load_train_state_dict(state, params, ema_params, optimizer, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +223,9 @@ _OPTAX_FIELDS = {
     "EmptyState": (),
 }
 _JAX_MODULES = ("cleandiffuser_tpu", "optax", "flax", "jax")
+# the flax.struct dataclasses of the JAX package's checkpoints: the engines'
+# TrainState and the RL pipelines' critic states
+_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState")
 
 
 class _StandIn:
@@ -206,7 +257,7 @@ _NUMPY_NAMES = ("_reconstruct", "ndarray", "dtype", "scalar")
 class _JaxUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         top = module.split(".")[0]
-        if top in _JAX_MODULES and (name == "TrainState" or name in _OPTAX_FIELDS):
+        if top in _JAX_MODULES and (name in _JAX_STATES or name in _OPTAX_FIELDS):
             return type(name, (_StandIn,), {"name": name})
         if top == "numpy" and name in _NUMPY_NAMES:
             return super().find_class(module, name)
@@ -247,19 +298,31 @@ def read_jax_pickle(path):
         return _plain(_JaxUnpickler(f).load())
 
 
+def jax_adam_state(opt_state) -> dict:
+    """An optax state read by `read_jax_pickle`: "mu", "nu" (the Adam
+    moments, shaped as the params), "count" (Adam's) and "schedule_count"
+    (None without a schedule)."""
+    adam = _find(opt_state, "ScaleByAdamState")
+    if adam is None:
+        raise ValueError("the optimizer state has no Adam moments")
+    sched = _find(opt_state, "ScaleByScheduleState")
+    return {"mu": adam["mu"], "nu": adam["nu"], "count": int(adam["count"]),
+            "schedule_count": None if sched is None else int(sched["count"])}
+
+
+def jax_train_state(state: dict) -> dict:
+    """A JAX TrainState read by `read_jax_pickle`: "params", "ema_params",
+    the `jax_adam_state` fields and "step"."""
+    if state.get("_class") != "TrainState":
+        raise ValueError("not a JAX TrainState")
+    return {"params": state["params"], "ema_params": state["ema_params"],
+            **jax_adam_state(state["opt_state"]), "step": int(state["step"])}
+
+
 def load_jax_checkpoint(path) -> dict:
-    """Read a JAX `save_state` pickle. Returns nested dicts of numpy arrays:
-    "params", "ema_params", "mu", "nu" (the Adam moments, shaped as the
-    params), "count" (Adam's), "schedule_count" (None without a schedule)
-    and "step"."""
+    """Read a JAX `save_state` pickle: nested dicts of numpy arrays, as
+    `jax_train_state` returns them."""
     state = read_jax_pickle(path)
     if state.get("_class") != "TrainState":
         raise ValueError(f"{path} holds no JAX TrainState")
-    adam = _find(state["opt_state"], "ScaleByAdamState")
-    if adam is None:
-        raise ValueError(f"{path}: the optimizer state has no Adam moments")
-    sched = _find(state["opt_state"], "ScaleByScheduleState")
-    return {"params": state["params"], "ema_params": state["ema_params"],
-            "mu": adam["mu"], "nu": adam["nu"], "count": int(adam["count"]),
-            "schedule_count": None if sched is None else int(sched["count"]),
-            "step": int(state["step"])}
+    return jax_train_state(state)

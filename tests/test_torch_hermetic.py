@@ -1,6 +1,9 @@
 """Hermetic score gates of the PyTorch port: Decision Diffuser and Diffuser
 trained on the Goal2D behavior data (dataset/hermetic.py) must plan to the
-JAX package's bars (tests/test_hermetic_parity.py:132 and :203).
+JAX package's bars (tests/test_hermetic_parity.py:132 and :203), and the
+DQL, IDQL and EDP policies must act to its bar of 0.85
+(tests/test_hermetic_parity.py:101-129, the JAX package measured ~0.92,
+~0.91 and ~0.92).
 
 Normalized score 1.0 is the closed-form optimum, 0.0 the uniform-random
 policy; the behavior data scores ~0.49. The configurations, step counts,
@@ -20,10 +23,19 @@ Slow tier (minutes each on a CPU): excluded from the default run.
 import pytest
 import torch
 
-from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset
-from cleandiffuser_tpu_torch.dataset.hermetic import goal2d_sequence_dataset
+from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset, D4RLMuJoCoTDDataset
+from cleandiffuser_tpu_torch.dataset.hermetic import (
+    goal2d_qlearning_dataset,
+    goal2d_sequence_dataset,
+)
 from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn
-from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline
+from cleandiffuser_tpu_torch.pipelines import (
+    DDPipeline,
+    DiffuserPipeline,
+    DQLPipeline,
+    EDPPipeline,
+    IDQLPipeline,
+)
 
 pytestmark = pytest.mark.slow
 
@@ -103,3 +115,31 @@ def test_diffuser_beats_behavior(device):
     assert mean >= _mean_bar(), (
         f"Diffuser mean normalized score {mean:.3f} over seeds 0-4 ({scores}) < "
         f"{_mean_bar():.3f}")
+
+
+# the JAX recipes (tests/test_hermetic_parity.py:101-129): pipeline, its
+# arguments, training steps, candidates per env; batch 128, 128 episodes
+RL_RECIPES = {
+    "dql": (DQLPipeline, dict(emb_dim=32, hidden_dim=128, gradient_steps=3000, discount=0.95,
+                              eta=1.0), 3000, 50),
+    "idql": (IDQLPipeline, dict(emb_dim=32, actor_hidden_dim=128, critic_hidden_dim=128,
+                                actor_n_blocks=2, gradient_steps=3000, discount=0.95,
+                                iql_tau=0.7), 3000, 64),
+    "edp": (EDPPipeline, dict(emb_dim=32, hidden_dim=128, gradient_steps=6000, discount=0.95,
+                              eta=1.0), 6000, 50),
+}
+
+
+@pytest.mark.parametrize("family", list(RL_RECIPES))
+def test_rl_policy_reaches_near_optimum(device, family):
+    cls, kw, steps, n_cand = RL_RECIPES[family]
+    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=device)
+    pipe = cls(obs_dim=2, act_dim=2, rng=0, device=device, **kw)
+    _train(pipe, ds, steps, 128)
+    norm = ds.get_normalizer()
+    score = normalized_score_fn(device=device)
+    s = score(evaluate_policy(
+        lambda gen, obs: pipe.act(norm.normalize(obs), num_candidates=n_cand, generator=gen),
+        num_envs=128, seed=1, device=device))
+    print(f"{family.upper()} Goal2D normalized score on {device}: {s:.4f}")
+    assert s >= 0.85, f"{family.upper()} normalized score {s:.3f} < 0.85"
