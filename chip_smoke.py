@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: Decision Diffuser (DD)
 planning and Diffuser planning at the shipped widths, through the
 hand-written Hopper kernels, and the DQL, IDQL and EDP diffusion policies
-(MLPs, no kernel) through their CLIs.
+(MLPs, no kernel) through their CLIs; the CLIs of the D4RL antmaze and
+kitchen suites, and AdaptDiffuser's.
 
     python3 chip_smoke.py
 
@@ -34,7 +35,11 @@ Phases, each of which raises on failure (exit code != 0):
                shape of the shipped Diffuser U-Net (B=3200 candidate
                trajectories, K=5, 8 groups, eps 1e-6): error, both times
                and both TFLOP/s per shape (flops from the shape), and their
-               sums over the 16 blocks of one U-Net call.
+               sums over the 16 blocks of one U-Net call. Then the same at
+               the antmaze suite's U-Net (model_dim 64: channels 64 to 512,
+               H = 64 at the top; 951 GFLOP per call at B = 3200), with each
+               shape's thread-block plan and shared memory against the
+               device's limit and the share of the 3xTF32 bound.
 5. solver_update - K2 against its plain version at the plan's state shape
                (3200, 32, 23) with a real ddpm step's coefficients: exact
                without noise, N(0, 1) moments of the in-kernel noise over
@@ -73,7 +78,8 @@ Phases, each of which raises on failure (exit code != 0):
                version, the gradients (its backward is autograd through the
                plain version, as the JAX custom VJP's), and forward and
                forward + backward times against plain, with TFLOP/s and the
-               forward's share of its bound.
+               forward's share of its bound; then the same at DD antmaze's
+               training shape (64, 64, 320), on 2-block clusters.
 9. DD training - DDPipeline from configs/dd/mujoco at full width (batch 64)
                with the fused block on and seeded weights: the first step's
                gradients through K1 against the plain block, 20 `train_step`s
@@ -153,12 +159,41 @@ Phases, each of which raises on failure (exit code != 0):
                batch 128 on the Goal2D behavior data on the card, with grad
                through the 5-step sampler; 128 episodes with 50 candidates
                per env: the normalized score must reach 0.85.
+17. suite CLIs - `cli.dd_d4rl_{antmaze,kitchen}` (200 steps in two windows,
+               K1 2 launches per step, at H = 64 on clusters for antmaze; 2
+               requests at 50 envs, 40 launches each; one plan through K1
+               against the plain block) and `cli.diffuser_d4rl_{antmaze,
+               kitchen}` (40 steps, K3 16 per step; 2 requests at 50 x 64,
+               320 launches each, the U-Net's block shapes read on the way
+               in; one plan against the plain block, every candidate and
+               log p; K3 under autograd at batch 64 at each block shape, the
+               forward and every gradient against the plain block), on the
+               shipped configs and synthetic data.
+18. AdaptDiffuser - `cli.adaptdiffuser_d4rl_{mujoco,antmaze}`: 20 steps of
+               `mode=train`; from its ckpt_latest, one generation round of
+               2000 dataset start states with explicit noise (K3's launches
+               read just after it: 320; the U-Net's batch read by hooks:
+               2000), held against the same round through the plain block
+               (every trajectory and log p within PLAN_ATOL), the kept share
+               at the shipped metric_value, then 20 `finetune_step`s at
+               batch 32 (16 launches each, read on their own) and K3 under
+               autograd at batch 32 at each block shape; then `mode=finetune`
+               with one round and 20 fine-tuning steps, at the task's
+               metric_value, or, if that keeps nothing on the synthetic
+               data, again keeping all: the round's seconds and kept share;
+               `ckpt_finetuned_latest` served for one request at 50 x 64.
+19. suite RL CLIs - `cli.{dql,idql,edp}_d4rl_{antmaze,kitchen}`: one window
+               of 100 steps, then 2 requests from ckpt_latest at 50 envs
+               with the config's candidates; no kernel launch.
+
+The CLI phases generate each task's synthetic data once (`cache_cli_data`).
+The script prints its total seconds before the kernels' line.
 
 Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
-phases by part (`cli_launches`), error and times
+phases by CLI and part (`cli_launches`), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -166,7 +201,10 @@ operations are 3x the flops at the 495 TFLOP/s TF32 peak; K1's BF16 route
 does its four weight products at the 989 TFLOP/s BF16 peak and attention
 in 3xTF32; K2's are f32 at 67 TFLOP/s. The last line is {"ok": true,
 "device": {...}}. TF32 is off for every comparison (matmul and cuDNN), so
-both sides compute in full float32.
+both sides compute in full float32. Every device time (`cuda_ms`) replays
+one CUDA graph of the timed calls, so it is the device's alone: launched
+one by one from this host, the plain blocks' and the backward passes' many
+small launches leave the device waiting.
 """
 
 from __future__ import annotations
@@ -188,10 +226,22 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from cleandiffuser_tpu_torch.cli import (  # noqa: E402
+    adaptdiffuser_d4rl_antmaze,
+    adaptdiffuser_d4rl_mujoco,
+    dd_d4rl_antmaze,
+    dd_d4rl_kitchen,
     dd_d4rl_mujoco,
+    diffuser_d4rl_antmaze,
+    diffuser_d4rl_kitchen,
     diffuser_d4rl_mujoco,
+    dql_d4rl_antmaze,
+    dql_d4rl_kitchen,
     dql_d4rl_mujoco,
+    edp_d4rl_antmaze,
+    edp_d4rl_kitchen,
     edp_d4rl_mujoco,
+    idql_d4rl_antmaze,
+    idql_d4rl_kitchen,
     idql_d4rl_mujoco,
 )
 from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset, D4RLMuJoCoTDDataset  # noqa: E402
@@ -299,6 +349,35 @@ UNET_BLOCKS = [(32, 23, 32), (32, 32, 32), (16, 32, 64), (16, 64, 64), (8, 64, 1
                (8, 128, 128), (4, 128, 256), (4, 256, 256), (4, 256, 256), (4, 256, 256),
                (4, 512, 128), (4, 128, 128), (8, 256, 64), (8, 64, 64), (16, 128, 32),
                (16, 32, 32)]
+# the same for the antmaze suite's Diffuser and AdaptDiffuser U-Net (obs 29 +
+# act 8 = 37 channels in, model_dim 64, dim_mult (1, 2, 2, 2), horizon 64):
+# channels 64 to 512, 8x the MuJoCo net's work
+ANTMAZE_UNET_BLOCKS = [(64, 37, 64), (64, 64, 64), (32, 64, 128), (32, 128, 128), (16, 128, 256),
+                       (16, 256, 256), (8, 256, 512), (8, 512, 512), (8, 512, 512),
+                       (8, 512, 512), (8, 1024, 256), (8, 256, 256), (16, 512, 128),
+                       (16, 128, 128), (32, 256, 64), (32, 64, 64)]
+# the antmaze and kitchen CLI phases, sized by their cost: DD 200 steps in
+# two windows (the inverse dynamics in the first), Diffuser 40 in two; 2
+# requests each (the first one cold); the RL CLIs one window of 100 steps
+SUITE_DD_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=200", "invdyn_gradient_steps=100",
+                      "log_interval=100", "save_interval=200")
+SUITE_DIFFUSER_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=40",
+                            "classifier_gradient_steps=20", "log_interval=20",
+                            "save_interval=40")
+SUITE_CLI_REQUESTS = 2
+SUITE_RL_CLI_TRAIN = ("mode=train", "gradient_steps=100", "log_interval=100", "save_interval=100")
+# AdaptDiffuser: 20 training steps, then one generation round (2000
+# trajectories) and 20 fine-tuning steps at batch 32, saved once; a
+# metric_value below every log p for the case where the shipped one keeps
+# nothing on the synthetic data
+ADAPT_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=20", "classifier_gradient_steps=20",
+                   "log_interval=10", "save_interval=20")
+ADAPT_CLI_FINETUNE = ("mode=finetune", "ft_max_rounds=1", "ft_target=500",
+                      "ft_gradient_steps=20", "log_interval=10", "save_interval=20")
+ADAPT_KEEP_ALL = -1e9
+# cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
+# times it may grow 4x before a timing fails
+SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
 KERNELS = (fused_dit_block, fused_dit_block_bf16, fused_film_resblock, fused_solver_update)
 # NVIDIA H100 SXM peaks (data sheet, dense): f32 outside the tensor cores,
 # TF32 and BF16 on them, and HBM3 bandwidth
@@ -312,19 +391,45 @@ def phase(name):
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls. The device
-    first spins for ~0.5 s, so the host has enqueued every call before
-    the device reaches them: the events then time the device alone, not
-    the host's launch rate (the plain block is ~25 launches, and the host
-    of a one-card machine is shared and slow)."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1_000_000_000)
-    start.record()
-    for _ in range(iters):
+    """Mean device time of fn() over `iters` back-to-back calls, the device
+    alone. The host of a one-card machine is shared and slow: launched one
+    by one, the plain blocks' ~25 launches per call (and the autograd
+    passes' more) leave the device waiting on the host, and a spin before
+    them does not help, as the launch queue lets the host run only so far
+    ahead. So the calls are captured in one CUDA graph (after a warm-up
+    call on a side stream, as capture asks) and the device runs them back
+    to back from one launch. The graph is replayed once, then timed behind
+    a device spin that must outlast the host's three enqueues (the device
+    has not reached the start event when the host is done), else the spin
+    is lengthened 4x, a few times, and then the timing fails."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        torch.cuda._sleep(spin)
+        start.record()
+        graph.replay()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cuda_ms.longer_spins += 1
+        spin *= 4
+    raise AssertionError(f"the device reached the start event before the host had enqueued "
+                         f"the graph, {SPIN_TRIES} times: the time would include the host's")
+
+
+cuda_ms.longer_spins = 0  # timings repeated with a longer spin, over the run
 
 
 def seeded_tree(tree: dict, rng: np.random.Generator) -> dict:
@@ -566,13 +671,21 @@ def film_args(rng, dev, B, H, Cin, Cout, K, requires_grad=False) -> list:
     return args
 
 
-def check_film_kernel(dev) -> dict:
-    phase("film_resblock vs plain version")
+def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
+    """K3 against its plain version at every distinct block shape of a
+    U-Net (`blocks`, in the order the net runs them) at B = 3200: error,
+    both times, TFLOP/s and the share of the 3xTF32 bound per shape, the
+    thread-block plan (rows, samples, shared memory against the device's
+    limit), and the sums over the net's blocks. Returns the record at the
+    most frequent shape."""
+    phase(f"film_resblock vs plain version ({net} U-Net)")
     B, K, G = 3200, 5, 8
+    lib = load_film_resblock_library()
+    smem_limit = lib.film_resblock_max_smem_optin(dev.index or 0)
     rng = np.random.default_rng(SEED + 2)
     worst, timed = 0.0, {}
-    shapes = list(dict.fromkeys(UNET_BLOCKS))
-    most_frequent = max(shapes, key=UNET_BLOCKS.count)
+    shapes = list(dict.fromkeys(blocks))
+    most_frequent = max(shapes, key=blocks.count)
     for H, Cin, Cout in shapes:
         args = film_args(rng, dev, B, H, Cin, Cout, K)
         kw = dict(K=K, groups=G, eps=1e-6)
@@ -581,30 +694,38 @@ def check_film_kernel(dev) -> dict:
         torch.cuda.synchronize()
         max_abs, max_rel = errors(out, ref)
         worst = max(worst, max_abs)
+        rows, smem = lib.film_resblock_block_rows(Cout), lib.film_resblock_smem_bytes(
+            B, H, Cin, Cout, K, G)
         print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}) "
-              f"x{UNET_BLOCKS.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
-              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f})", flush=True)
+              f"x{blocks.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
+              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); plan: "
+              f"{rows}-row thread blocks of {rows // H} sample(s), {-(-B * H // rows)} blocks, "
+              f"{smem} B of shared memory (device limit {smem_limit})", flush=True)
         torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+        if not 0 < smem <= smem_limit:
+            raise AssertionError(f"film_resblock_smem_bytes {smem} outside (0, {smem_limit}]")
         ms, plain_ms, times = timed[(H, Cin, Cout)] = time_pair(
             lambda: fused_film_resblock(*args, **kw),
             lambda: film_resblock_reference(*args, **kw), 20)
         gf = film_gflop(B, H, Cin, Cout, K)
         print(f"  device time per block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"({gf:.3f} GFLOP: kernel {gf / ms:.2f}, plain {gf / plain_ms:.2f} TFLOP/s) "
-              f"(runs {times['kernel']} / {times['plain']})", flush=True)
-    total = {k: sum(timed[s][i] for s in UNET_BLOCKS) for i, k in enumerate(("kernel", "plain"))}
-    gf = sum(film_gflop(B, *s, K) for s in UNET_BLOCKS)
-    print(f"sum over the {len(UNET_BLOCKS)} blocks of one U-Net call ({gf:.2f} GFLOP): kernel "
-          f"{total['kernel']:.4f} ms ({gf / total['kernel']:.2f} TFLOP/s, "
-          f"{gf / TF32X3_TFLOPS / total['kernel']:.1%} of the 3xTF32 bound), plain "
-          f"{total['plain']:.4f} ms ({gf / total['plain']:.2f} TFLOP/s); most frequent shape "
-          f"{most_frequent}")
+              f"({gf:.3f} GFLOP: kernel {gf / ms:.2f}, plain {gf / plain_ms:.2f} TFLOP/s; kernel "
+              f"at {gf / TF32X3_TFLOPS / ms:.1%} of the 3xTF32 bound) (runs {times['kernel']} / "
+              f"{times['plain']})", flush=True)
+    total = {k: sum(timed[s][i] for s in blocks) for i, k in enumerate(("kernel", "plain"))}
+    gf = sum(film_gflop(B, *s, K) for s in blocks)
+    print(f"sum over the {len(blocks)} blocks of one U-Net call ({gf:.2f} GFLOP; 3xTF32 bound "
+          f"{gf / TF32X3_TFLOPS:.4f} ms): kernel {total['kernel']:.4f} ms "
+          f"({gf / total['kernel']:.2f} TFLOP/s, {gf / TF32X3_TFLOPS / total['kernel']:.1%} of "
+          f"the bound), plain {total['plain']:.4f} ms ({gf / total['plain']:.2f} TFLOP/s); most "
+          f"frequent shape {most_frequent}", flush=True)
     ms, plain_ms, _ = timed[most_frequent]
     H, Cin, Cout = most_frequent
     gbytes = 4 * (B * H * Cin + B * Cout + K * Cin * Cout + K * Cout * Cout
                   + (Cin + 1) * Cout * (Cin != Cout) + 6 * Cout + B * H * Cout) / 1e9
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **bound(film_gflop(B, H, Cin, Cout, K) / TF32X3_TFLOPS, gbytes)}
+    record = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+              **bound(film_gflop(B, H, Cin, Cout, K) / TF32X3_TFLOPS, gbytes)}
+    return record
 
 
 def check_solver_kernel(dev) -> dict:
@@ -640,9 +761,10 @@ def check_solver_kernel(dev) -> dict:
     if not (same and other):
         raise AssertionError("solver_update noise is not a function of the seed")
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the plain version draws from the default generator: a CUDA graph
+    # (cuda_ms) captures only that one
     ms, plain_ms, times = time_pair(lambda: fused_solver_update(xt, eps, coefs, 7),
-                                    lambda: solver_update_reference(xt, eps, coefs, gen), 200)
+                                    lambda: solver_update_reference(xt, eps, coefs), 200)
     print(f"device time per step at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(runs {times['kernel']} / {times['plain']})")
     # xt and eps read, out written; ~6 flops per element besides the noise
@@ -717,6 +839,77 @@ def plan_gap(traj, ref) -> tuple:
     return d.max().item() / scale, d.mean().item() / scale, scale
 
 
+def use_kernels(pipe, on: bool) -> int:
+    """Switch every fused block of a planner (the DiT blocks, the U-Net's
+    residual blocks, in params and EMA) to its kernel or to its plain
+    version; returns how many blocks were switched."""
+    blocks = [m for net in (pipe.agent.params, pipe.agent.ema_params) for m in net.modules()
+              if hasattr(m, "use_kernel")]
+    for m in blocks:
+        m.use_kernel = on
+    return len(blocks)
+
+
+def compare_dd_plan(pipe: DDPipeline, obs, dev):
+    """One DD plan through K1 against the same plan through the plain block
+    (the pipeline's blocks switched), the same explicit noise: the plan and
+    the actions within PLAN_ATOL."""
+    E, H, O = obs.shape[0], pipe.horizon, pipe.obs_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = (torch.randn((E, H, O), generator=gen, device=dev),
+             torch.randn((pipe.sampling_steps, E, H, O), generator=gen, device=dev))
+    act_k, info_k = pipe.act(obs, noise=noise)
+    use_kernels(pipe, False)
+    act_p, info_p = pipe.act(obs, noise=noise)
+    use_kernels(pipe, True)
+    d_traj = (info_k["traj"] - info_p["traj"]).abs().max().item()
+    d_act = (act_k - act_p).abs().max().item()
+    # seeded weights can take a plan far out of the data's range (antmaze's
+    # ddim plan reaches |x| ~ 600, where an f32 ulp is 6e-5): beyond 100 the
+    # plan is held to 1e-5 of its scale
+    scale = info_p["traj"].abs().max().item()
+    tol = PLAN_ATOL * max(1.0, scale / 100)
+    print(f"plan kernel vs plain: max |traj diff| {d_traj:.3e}, max |act diff| {d_act:.3e} "
+          f"(max |traj| {scale:.3f}; atol {tol:.3g})", flush=True)
+    if not (d_traj <= tol and d_act <= PLAN_ATOL):
+        raise AssertionError("plan through the kernel disagrees with the plain version")
+
+
+def compare_diffuser_plan(pipe, obs, K: int, dev):
+    """One Diffuser plan through K3 against the same plan through the plain
+    block, the same explicit noise: every candidate and its log p within
+    PLAN_ATOL, the chosen index wherever the top two are apart, the actions
+    where it is the same."""
+    E, D = obs.shape[0], pipe.obs_dim + pipe.act_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (K * E, pipe.horizon, D)
+    noise = (torch.randn(shape, generator=gen, device=dev),
+             torch.randn((pipe.sampling_steps,) + shape, generator=gen, device=dev))
+    t0 = time.perf_counter()
+    act_k, info_k = pipe.act(obs, num_candidates=K, noise=noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    use_kernels(pipe, False)
+    act_p, info_p = pipe.act(obs, num_candidates=K, noise=noise)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    use_kernels(pipe, True)
+    d_traj = (info_k["candidates"] - info_p["candidates"]).abs().max().item()
+    d_logp = (info_k["candidate_logp"] - info_p["candidate_logp"]).abs().max().item()
+    top2 = info_p["candidate_logp"].topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > PLAN_ATOL
+    same_idx = info_k["idx"] == info_p["idx"]
+    d_act = (act_k - act_p).abs()[same_idx].max().item() if same_idx.any() else 0.0
+    print(f"plan kernel vs plain ({1e3 * (t1 - t0):.1f} / {1e3 * (t2 - t1):.1f} ms): max "
+          f"|candidate diff| {d_traj:.3e}, max |logp diff| {d_logp:.3e}, chosen index equal in "
+          f"{int(same_idx.sum())}/{E} envs ({int(clear.sum())} with a top-two gap > "
+          f"{PLAN_ATOL}), max |act diff| where equal {d_act:.3e} (max |traj| "
+          f"{info_p['candidates'].abs().max().item():.3f}; atol {PLAN_ATOL})", flush=True)
+    if not (d_traj <= PLAN_ATOL and d_logp <= PLAN_ATOL and d_act <= PLAN_ATOL
+            and bool(same_idx[clear].all())):
+        raise AssertionError("plan through the kernel disagrees with the plain version")
+
+
 def check_slice(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int:
     phase(f"slice: DD planning ({bench})")
     args = load_config(ROOT / "configs/dd" / bench, bench)
@@ -752,23 +945,7 @@ def check_slice(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -> int
     print(f"same requests through the plain block: latency ms "
           f"{[round(v, 3) for v in plain_lat]} (median {statistics.median(plain_lat):.3f})")
 
-    # one plan, kernel vs plain version, same explicit noise
-    shape = (E, H, O)
-    noise = (torch.randn(shape, generator=gen, device=dev),
-             torch.randn((args.sampling_steps,) + shape, generator=gen, device=dev))
-    act_k, info_k = pipe.act(obs[1], noise=noise)
-    act_p, info_p = plain.act(obs[1], noise=noise)
-    d_traj = (info_k["traj"] - info_p["traj"]).abs().max().item()
-    d_act = (act_k - act_p).abs().max().item()
-    # seeded weights can take a plan far out of the data's range (antmaze's
-    # ddim plan reaches |x| ~ 600, where an f32 ulp is 6e-5): beyond 100 the
-    # plan is held to 1e-5 of its scale
-    scale = info_p["traj"].abs().max().item()
-    tol = PLAN_ATOL * max(1.0, scale / 100)
-    print(f"plan kernel vs plain: max |traj diff| {d_traj:.3e}, max |act diff| {d_act:.3e} "
-          f"(max |traj| {scale:.3f}; atol {tol:.3g})")
-    if not (d_traj <= tol and d_act <= PLAN_ATOL):
-        raise AssertionError("plan through the kernel disagrees with the plain version")
+    compare_dd_plan(pipe, obs[1], dev)
     return launches
 
 
@@ -870,11 +1047,12 @@ def diffuser_setup(args, rng):
               model_dim=args.model_dim, dim_mult=tuple(args.task.dim_mult),
               diffusion_steps=args.diffusion_steps, sampling_steps=args.sampling_steps,
               solver=args.solver, predict_noise=args.predict_noise,
-              action_loss_weight=args.action_loss_weight,
-              terminal_penalty=args.terminal_penalty, discount=args.discount,
+              action_loss_weight=args.action_loss_weight, discount=args.discount,
               ema_rate=args.ema_rate, diffusion_gradient_steps=args.diffusion_gradient_steps,
               classifier_gradient_steps=args.classifier_gradient_steps,
               w_cg=args.task.w_cg, temperature=args.temperature, rng=args.seed)
+    if "terminal_penalty" in args:  # the MuJoCo configs' (stored, read by nothing)
+        kw["terminal_penalty"] = args.terminal_penalty
     probe = DiffuserPipeline(**kw, device="cpu")
     weights = {
         "params": seeded_tree(agent_params_of(probe.agent.params), rng),
@@ -930,26 +1108,7 @@ def check_diffuser_slice(dev):
     print(f"same requests through the plain block: latency ms "
           f"{[round(v, 3) for v in plain_lat]} (median {statistics.median(plain_lat):.3f})")
 
-    # one plan, kernel vs plain block, same explicit noise
-    shape = (K * E, args.task.horizon, O + A)
-    noise = (torch.randn(shape, generator=gen, device=dev),
-             torch.randn((args.sampling_steps,) + shape, generator=gen, device=dev))
-    act_k, info_k = pipe.act(obs[1], num_candidates=K, noise=noise)
-    act_p, info_p = plain.act(obs[1], num_candidates=K, noise=noise)
-    d_traj = (info_k["candidates"] - info_p["candidates"]).abs().max().item()
-    d_logp = (info_k["candidate_logp"] - info_p["candidate_logp"]).abs().max().item()
-    top2 = info_p["candidate_logp"].topk(2, dim=0).values
-    clear = (top2[0] - top2[1]) > PLAN_ATOL  # envs whose best candidate is not a near-tie
-    same_idx = info_k["idx"] == info_p["idx"]
-    d_act = (act_k - act_p).abs()[same_idx].max().item() if same_idx.any() else 0.0
-    print(f"plan kernel vs plain: max |candidate diff| {d_traj:.3e}, max |logp diff| "
-          f"{d_logp:.3e}, chosen index equal in {int(same_idx.sum())}/{E} envs "
-          f"({int(clear.sum())} with a top-two gap > {PLAN_ATOL}), max |act diff| where equal "
-          f"{d_act:.3e} (max |traj| {info_p['candidates'].abs().max().item():.3f}; "
-          f"atol {PLAN_ATOL})")
-    if not (d_traj <= PLAN_ATOL and d_logp <= PLAN_ATOL and d_act <= PLAN_ATOL
-            and bool(same_idx[clear].all())):
-        raise AssertionError("plan through the kernel disagrees with the plain version")
+    compare_diffuser_plan(pipe, obs[1], K, dev)
 
     # one request through the fused solver update too
     pipe.fused_update = True
@@ -964,11 +1123,12 @@ def check_diffuser_slice(dev):
     return k3, k2
 
 
-def check_kernel_autograd(dev) -> dict:
-    """K1 through its autograd Function at DD's training shape: forward
+def check_kernel_autograd(dev, H: int = 32, config: str = "mujoco") -> dict:
+    """K1 through its autograd Function at DD's training shape (batch 64,
+    the `config`'s horizon H; H = 64 runs on 2-block clusters): forward
     against the plain version, gradients, and times."""
-    phase("dit_block under autograd at DD's training shape")
-    B, H, D, NH = 64, 32, 320, 10
+    phase(f"dit_block under autograd at DD's training shape ({config}: H = {H})")
+    B, D, NH = 64, 320, 10
     rng = np.random.default_rng(SEED + 5)
     x, mod, ws = block_inputs(rng, dev, B, H, D, requires_grad=True)
     inputs = [x, mod, *ws]
@@ -987,6 +1147,9 @@ def check_kernel_autograd(dev) -> dict:
     torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
     if g_err > BLOCK_RTOL:
         raise AssertionError("the Function's gradients disagree with the plain version's")
+    # the graphs of `out` and `ref` hold the inputs' gradient accumulators on
+    # this stream; the timed backward passes are captured on another (cuda_ms)
+    del out, ref
 
     with torch.no_grad():
         ms, plain_ms, times = time_pair(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
@@ -1009,14 +1172,14 @@ def check_kernel_autograd(dev) -> dict:
             "fb_plain_ms": fb_plain_ms, **b}
 
 
-def check_film_autograd(dev, B: int):
-    """K3 through its autograd Function at every distinct U-Net block shape
-    at the training batch B: the forward against the plain version
-    (BLOCK_ATOL / BLOCK_RTOL) and the gradients of every input."""
+def check_film_autograd(dev, B: int, blocks=UNET_BLOCKS):
+    """K3 through its autograd Function at every distinct block shape of a
+    U-Net (`blocks`) at the training batch B: the forward against the plain
+    version (BLOCK_ATOL / BLOCK_RTOL) and the gradients of every input."""
     rng = np.random.default_rng(SEED + 9)
     kw = dict(K=5, groups=8, eps=1e-6)
     worst = worst_g = 0.0
-    for H, Cin, Cout in dict.fromkeys(UNET_BLOCKS):
+    for H, Cin, Cout in dict.fromkeys(blocks):
         inputs = film_args(rng, dev, B, H, Cin, Cout, kw["K"], requires_grad=True)
         g = torch.from_numpy(rng.standard_normal((B, H, Cout)).astype(np.float32)).to(dev)
         out = film_resblock_op(*inputs, **kw)
@@ -1033,7 +1196,7 @@ def check_film_autograd(dev, B: int):
         if g_err > BLOCK_RTOL:
             raise AssertionError("K3's Function's gradients disagree with the plain version's")
         worst, worst_g = max(worst, max_abs), max(worst_g, g_err)
-    print(f"K3 under autograd at B={B}, all {len(set(UNET_BLOCKS))} shapes: forward max_abs_err "
+    print(f"K3 under autograd at B={B}, all {len(set(blocks))} shapes: forward max_abs_err "
           f"{worst:.3e}, gradients {worst_g:.3e} (limit {BLOCK_RTOL})", flush=True)
 
 
@@ -1362,10 +1525,11 @@ def run_cli(cli, overrides) -> tuple:
     CLI_DIR (the CLI writes its results/torch/<pipeline>/<env>/ tree
     there). Returns (args, the run's directory, the train.jsonl lines this
     run wrote, seconds)."""
-    args = load_config(cli.CONFIG_DIR, "mujoco", list(overrides))
+    args = load_config(cli.CONFIG_DIR, cli.CONFIG_DIR.name, list(overrides))
     run = CLI_DIR / "results/torch" / args.pipeline_name / args.task.env_name
     before = len(read_jsonl(run / "train.jsonl"))
     cwd = os.getcwd()
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
     os.chdir(CLI_DIR)
     try:
         t0 = time.perf_counter()
@@ -1600,6 +1764,344 @@ def check_rl_cli(dev, family: str) -> dict:
     return counts
 
 
+def cache_cli_data():
+    """Every CLI module's data loader, made once per env name for the run
+    (each call returns copies): the synthetic 100k-step data is the same
+    from one CLI phase to the next, and generating it takes seconds."""
+    memo = {}
+
+    def cached(fn):
+        def load(env_name):
+            if (fn, env_name) not in memo:
+                memo[(fn, env_name)] = fn(env_name)
+            return {k: v.copy() for k, v in memo[(fn, env_name)].items()}
+        return load
+
+    wrapped = {}
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("cleandiffuser_tpu_torch.cli."):
+            for attr in ("load_d4rl_dataset", "load_d4rl_qlearning_dataset"):
+                fn = getattr(mod, attr, None)
+                if fn is not None:
+                    setattr(mod, attr, wrapped.setdefault(fn, cached(fn)))
+
+
+def check_dd_suite_cli(dev, suite: str) -> dict:
+    """The DD CLI of the antmaze or kitchen suite as users run it:
+    `mode=train` at the shipped width through K1 (H = 64 on 2-block
+    clusters for antmaze), window by window, then `ckpt_latest` served at 50
+    envs, and one plan through K1 against the same plan through the plain
+    block with the same explicit noise. Returns K1's launches by part."""
+    cli = {"antmaze": dd_d4rl_antmaze, "kitchen": dd_d4rl_kitchen}[suite]
+    phase(f"DD CLI ({suite}): cli.dd_d4rl_{suite} mode=train (windows), then act from "
+          "ckpt_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, SUITE_DD_CLI_TRAIN)
+    k1, k1_bf16 = fused_dit_block.launches, fused_dit_block_bf16.launches
+    steps = args.diffusion_gradient_steps
+    print(f"{steps} steps in {len(logs)} windows of {args.log_interval} (obs {args.task.obs_dim}, "
+          f"horizon {args.task.horizon}, d_model {args.d_model}, {args.solver}, predict_noise "
+          f"{args.predict_noise}, batch {args.batch_size}): {seconds:.1f} s with set-up and saves; "
+          f"steps/s per window {[lg['steps_per_sec'] for lg in logs]}; dit_block launches {k1} "
+          f"(expected {args.depth * steps}), BF16 route {k1_bf16}", flush=True)
+    if not args.use_pallas_block:
+        raise AssertionError("the shipped config must turn the fused block on")
+    if k1 != args.depth * steps or k1_bf16:
+        raise AssertionError(f"the DD {suite} CLI's training launched K1 {k1} times (BF16 "
+                             f"{k1_bf16})")
+    check_windows(logs, steps, args.log_interval, "invdyn_loss", args.invdyn_gradient_steps)
+    tags = check_checkpoints(run, args, steps, ("diffusion", "invdyn"))
+    print(f"checkpoints {['ckpt_' + t for t in tags]} in {run}", flush=True)
+
+    dataset, pipe = cli.build(args, dev)
+    pipe.load(str(run / "ckpt_latest"))
+    if pipe.agent.step != steps:
+        raise AssertionError(f"ckpt_latest holds step {pipe.agent.step}, not {steps}")
+    print(f"return scale {pipe.return_scale}, value shift {pipe.val_shift}", flush=True)
+    obs = dataset.seq_obs[:args.num_envs, 0]  # normalised first states of 50 episodes
+    reset_counts()
+    lat = cli_requests(pipe, obs, SUITE_CLI_REQUESTS)
+    serve, serve_bf16 = fused_dit_block.launches, fused_dit_block_bf16.launches
+    want = SUITE_CLI_REQUESTS * args.sampling_steps * args.depth
+    print(f"{SUITE_CLI_REQUESTS} requests x {args.num_envs} envs (CFG batch "
+          f"{2 * args.num_envs} x horizon {args.task.horizon}) from ckpt_latest: latency ms "
+          f"{[round(v, 3) for v in lat]} (the first one cold); dit_block launches {serve} "
+          f"(expected {want}), BF16 {serve_bf16}", flush=True)
+    if serve != want or serve_bf16:
+        raise AssertionError(f"serving ckpt_latest launched K1 {serve} times (BF16 {serve_bf16})")
+
+    compare_dd_plan(pipe, torch.as_tensor(obs, device=dev), dev)
+    return {f"dd_{suite}_train": k1, f"dd_{suite}_serve": serve}
+
+
+def check_diffuser_suite_cli(dev, suite: str) -> dict:
+    """The Diffuser CLI of the antmaze or kitchen suite: `mode=train` at the
+    shipped width (model_dim 64: channels 64 to 512) through K3, window by
+    window; then `ckpt_latest` served at 50 envs x 64 candidates, the U-Net's
+    block shapes read on the way in, one plan through K3 against the plain
+    block, and K3 under autograd at the training batch at each of those
+    shapes. Returns K3's and K2's launches by part."""
+    cli = {"antmaze": diffuser_d4rl_antmaze, "kitchen": diffuser_d4rl_kitchen}[suite]
+    phase(f"Diffuser CLI ({suite}): cli.diffuser_d4rl_{suite} mode=train (windows), then act "
+          "from ckpt_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, SUITE_DIFFUSER_CLI_TRAIN)
+    k3, k2 = fused_film_resblock.launches, fused_solver_update.launches
+    steps = args.diffusion_gradient_steps
+    dataset, pipe = cli.build(args, dev)
+    n_blocks = len(pipe.agent.params["diffusion"].blocks)
+    print(f"{steps} steps in {len(logs)} windows of {args.log_interval} (obs {args.task.obs_dim}, "
+          f"act {args.task.act_dim}, horizon {args.task.horizon}, model_dim {args.model_dim}, "
+          f"dim_mult {tuple(args.task.dim_mult)}, batch {args.batch_size}): {seconds:.1f} s with "
+          f"set-up and saves; steps/s per window {[lg['steps_per_sec'] for lg in logs]}; "
+          f"film_resblock launches {k3} (expected {n_blocks} x {steps}), solver_update {k2}",
+          flush=True)
+    if k3 != n_blocks * steps or k2:
+        raise AssertionError(f"the Diffuser {suite} CLI's training launched K3 {k3} times, K2 {k2}")
+    check_windows(logs, steps, args.log_interval, "classifier_loss",
+                  args.classifier_gradient_steps)
+    tags = check_checkpoints(run, args, steps, ("diffusion", "classifier"))
+    print(f"checkpoints {['ckpt_' + t for t in tags]} in {run}", flush=True)
+
+    pipe.load(str(run / "ckpt_latest"))
+    obs = dataset.seq_obs[:args.num_envs, 0]
+    seen, unhook = seen_blocks(pipe)
+    reset_counts()
+    lat = cli_requests(pipe, obs, SUITE_CLI_REQUESTS, num_candidates=args.num_candidates)
+    serve, serve_k2 = fused_film_resblock.launches, fused_solver_update.launches
+    unhook()
+    shapes = block_shapes(pipe, seen)
+    want = SUITE_CLI_REQUESTS * args.sampling_steps * n_blocks
+    print(f"{SUITE_CLI_REQUESTS} requests x {args.num_envs} envs x {args.num_candidates} "
+          f"candidates from ckpt_latest: latency ms {[round(v, 3) for v in lat]} (the first one "
+          f"cold); film_resblock launches {serve} (expected {want}), solver_update {serve_k2}; "
+          f"the U-Net's (H, Cin, Cout) per block: {shapes}", flush=True)
+    if serve != want or serve_k2:
+        raise AssertionError(f"serving ckpt_latest launched K3 {serve} times, K2 {serve_k2}")
+    if suite == "antmaze" and shapes != ANTMAZE_UNET_BLOCKS:
+        raise AssertionError(f"the antmaze U-Net's blocks are {shapes}, not {ANTMAZE_UNET_BLOCKS}")
+    compare_diffuser_plan(pipe, torch.as_tensor(obs, device=dev), args.num_candidates, dev)
+    check_film_autograd(dev, args.batch_size, shapes)  # the training steps' regime
+    return {f"diffuser_{suite}_train": k3, f"diffuser_{suite}_serve": serve}, {
+        f"diffuser_{suite}_train": k2, f"diffuser_{suite}_serve": serve_k2}
+
+
+def seen_blocks(pipe) -> tuple:
+    """Forward pre-hooks on the EMA U-Net's residual blocks (the sampler's):
+    a list that collects the (B, H, Cin) of every block call, and a
+    function that removes the hooks."""
+    seen = []
+    hooks = [b.register_forward_pre_hook(lambda m, a: seen.append(tuple(a[0].shape)))
+             for b in pipe.agent.ema_params["diffusion"].blocks]
+    return seen, lambda: [h.remove() for h in hooks]
+
+
+def block_shapes(pipe, seen: list) -> list:
+    """(H, Cin, Cout) of each U-Net block from the first call's inputs."""
+    blocks = pipe.agent.params["diffusion"].blocks
+    return [(H, Cin, blocks[i].conv1.kernel.shape[-1])
+            for i, (_, H, Cin) in enumerate(seen[:len(blocks)])]
+
+
+def check_generation_round(pipe, dataset, args, dev) -> tuple:
+    """One generation round as `mode=finetune` runs it, from the loaded
+    checkpoint: GENERATION_BATCH dataset start states, explicit noise,
+    through K3 (its launches read just after the call, the batch that
+    reached the U-Net read by hooks) and again through the plain block:
+    every trajectory and log p within PLAN_ATOL. The threshold is below
+    every log p, so the filter keeps all rows and the shipped
+    `metric_value`'s share is read from them. Returns (K3 launches, the
+    U-Net's block shapes, the trajectories)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = adaptdiffuser_d4rl_mujoco.GENERATION_BATCH
+    start_obs = dataset.sample_batch(gen, n)["obs"]["state"][:, 0]
+    shape = (n, pipe.horizon, pipe.obs_dim + pipe.act_dim)
+    noise = (torch.randn(shape, generator=gen, device=dev),
+             torch.randn((pipe.sampling_steps,) + shape, generator=gen, device=dev))
+    seen, unhook = seen_blocks(pipe)
+    reset_counts()
+    t0 = time.perf_counter()
+    traj_k, logp_k = pipe.generate_and_filter(start_obs, ADAPT_KEEP_ALL, noise=noise)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = fused_film_resblock.launches
+    unhook()
+    use_kernels(pipe, False)
+    traj_p, logp_p = pipe.generate_and_filter(start_obs, ADAPT_KEEP_ALL, noise=noise)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    use_kernels(pipe, True)
+    n_blocks = len(pipe.agent.params["diffusion"].blocks)
+    batches = sorted({b for b, _, _ in seen})
+    shapes = block_shapes(pipe, seen)
+    kept = (logp_k[:, 0] > float(args.task.metric_value)).float().mean().item()
+    want = n_blocks * pipe.sampling_steps
+    print(f"one generation round from ckpt_latest: {len(start_obs)} start states, U-Net batch "
+          f"{batches}, {traj_k.shape[0]} rows out at metric_value {ADAPT_KEEP_ALL}: kernel "
+          f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s; film_resblock launches {launches} (expected "
+          f"{n_blocks} x {pipe.sampling_steps} = {want}); kept share at the shipped metric_value "
+          f"{args.task.metric_value}: {kept:.1%} (log p in [{logp_k.min().item():.3f}, "
+          f"{logp_k.max().item():.3f}])", flush=True)
+    if launches != want or batches != [n] or len(seen) != want:
+        raise AssertionError(f"the round launched K3 {launches} times at U-Net batches {batches}")
+    if not (traj_k.shape[0] == traj_p.shape[0] == n and torch.isfinite(traj_k).all()):
+        raise AssertionError(f"the round kept {traj_k.shape[0]} / {traj_p.shape[0]} of {n} rows")
+    d_traj = (traj_k - traj_p).abs().max().item()
+    d_logp = (logp_k - logp_p).abs().max().item()
+    print(f"round kernel vs plain: max |traj diff| {d_traj:.3e}, max |logp diff| {d_logp:.3e} "
+          f"(max |traj| {traj_p.abs().max().item():.3f}; atol {PLAN_ATOL})", flush=True)
+    if not (d_traj <= PLAN_ATOL and d_logp <= PLAN_ATOL):
+        raise AssertionError("the generation round through K3 disagrees with the plain version")
+    return launches, shapes, traj_k
+
+
+def check_adaptdiffuser_cli(dev, suite: str) -> dict:
+    """An AdaptDiffuser CLI as users run it: a short `mode=train` through K3;
+    then, from its ckpt_latest, one generation round at B = 2000 held
+    against the plain block (`check_generation_round`) and fine-tuning
+    steps at batch 32, each part's K3 launches read on its own, and K3
+    under autograd at that batch at every block shape; then `mode=finetune`
+    for one round and a few steps, first at the task's shipped
+    `metric_value` and, where that keeps nothing on the synthetic data (the
+    CLI raises), again at ADAPT_KEEP_ALL, below every log p; then
+    `ckpt_finetuned_latest` loaded and served for one request at 50 x 64.
+    Returns K3's launches by part."""
+    cli = {"mujoco": adaptdiffuser_d4rl_mujoco, "antmaze": adaptdiffuser_d4rl_antmaze}[suite]
+    phase(f"AdaptDiffuser CLI ({suite}): cli.adaptdiffuser_d4rl_{suite} mode=train, "
+          "mode=finetune, then act from ckpt_finetuned_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, ADAPT_CLI_TRAIN)
+    k3_train = fused_film_resblock.launches
+    steps = args.diffusion_gradient_steps
+    dataset, pipe = cli.build(args, dev)
+    n_blocks = len(pipe.agent.params["diffusion"].blocks)
+    print(f"mode=train: {steps} steps in {len(logs)} windows (horizon {args.task.horizon}, "
+          f"model_dim {args.model_dim}): {seconds:.1f} s; film_resblock launches {k3_train} "
+          f"(expected {n_blocks * steps})", flush=True)
+    if k3_train != n_blocks * steps:
+        raise AssertionError(f"AdaptDiffuser's training launched K3 {k3_train} times")
+    check_checkpoints(run, args, steps, ("diffusion", "classifier"))
+
+    pipe.load(str(run / "ckpt_latest"))
+    generate, shapes, traj = check_generation_round(pipe, dataset, args, dev)
+    ft_steps = int(dict(a.split("=", 1) for a in ADAPT_CLI_FINETUNE)["ft_gradient_steps"])
+    B = adaptdiffuser_d4rl_mujoco.FINETUNE_BATCH
+    rng = np.random.default_rng(SEED)
+    reset_counts()
+    losses = [pipe.finetune_step(traj[torch.as_tensor(rng.integers(0, len(traj), B),
+                                                      device=dev)])["loss"]
+              for _ in range(ft_steps)]
+    torch.cuda.synchronize()
+    tuned = fused_film_resblock.launches
+    print(f"{ft_steps} finetune_steps at batch {B} on the round's trajectories: film_resblock "
+          f"launches {tuned} (expected {n_blocks} x {ft_steps}); loss {losses[0].item():.4f} "
+          f"-> {losses[-1].item():.4f}", flush=True)
+    if tuned != n_blocks * ft_steps or not all(torch.isfinite(v) for v in losses):
+        raise AssertionError(f"the finetune steps launched K3 {tuned} times, losses {losses}")
+    check_film_autograd(dev, B, shapes)
+
+    def finetune(*extra) -> tuple:
+        """`mode=finetune` with `extra` overrides: (K3 launches in the run;
+        whether anything was kept)."""
+        log_path = run / "finetune.jsonl"
+        before = len(read_jsonl(log_path))
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            run_cli(cli, (*ADAPT_CLI_FINETUNE, *extra))
+            failed = None
+        except RuntimeError as e:
+            if "zero trajectories" not in str(e):
+                raise
+            failed = str(e)
+        seconds = time.perf_counter() - t0
+        k3 = fused_film_resblock.launches
+        logs = read_jsonl(log_path)[before:]
+        rounds = [lg for lg in logs if "round" in lg]
+        steps_done = 0 if failed else ft_steps
+        threshold = extra[0].split("=")[1] if extra else args.task.metric_value
+        print(f"mode=finetune at metric_value {threshold}: rounds "
+              f"{[(lg['generated'], lg['kept'], round(lg['seconds'], 3)) for lg in rounds]} "
+              f"(generated, kept, seconds); kept share "
+              f"{sum(lg['kept'] for lg in rounds) / sum(lg['generated'] for lg in rounds):.1%}; "
+              f"fine-tuning logs "
+              f"{[(lg['gradient_steps'], round(lg['loss'], 4)) for lg in logs if 'loss' in lg]}; "
+              f"{seconds:.1f} s with set-up; film_resblock launches {k3} (the round's "
+              f"{generate} + {steps_done} steps x {tuned // ft_steps}, as measured above)"
+              + (f"; the CLI raised: {failed}" if failed else ""), flush=True)
+        if len(rounds) != 1 or k3 != generate + tuned // ft_steps * steps_done:
+            raise AssertionError(f"the finetune ran {len(rounds)} rounds with {k3} K3 launches")
+        return k3, failed is None
+
+    finetune_cli, kept = finetune()
+    if not kept:  # the shipped threshold kept nothing: again, keeping all
+        k3, kept = finetune(f"task.metric_value={ADAPT_KEEP_ALL}")
+        finetune_cli += k3
+        if not kept:
+            raise AssertionError(f"the finetune kept nothing at metric_value {ADAPT_KEEP_ALL}")
+    if not (run / "ckpt_finetuned_latest.diffusion").exists():
+        raise AssertionError(f"no ckpt_finetuned_latest in {run}")
+
+    pipe.load(str(run / "ckpt_finetuned_latest"))
+    if pipe.agent.step != steps + ft_steps:
+        raise AssertionError(f"ckpt_finetuned_latest holds step {pipe.agent.step}")
+    obs = dataset.seq_obs[:args.num_envs, 0]
+    reset_counts()
+    lat = cli_requests(pipe, obs, 1, num_candidates=args.num_candidates)
+    serve = fused_film_resblock.launches
+    want = args.sampling_steps * n_blocks
+    print(f"1 request x {args.num_envs} envs x {args.num_candidates} candidates from "
+          f"ckpt_finetuned_latest (step {pipe.agent.step}): {lat[0]:.3f} ms (cold); "
+          f"film_resblock launches {serve} (expected {want})", flush=True)
+    if serve != want:
+        raise AssertionError(f"serving ckpt_finetuned_latest launched K3 {serve} times")
+    return {f"adaptdiffuser_{suite}_train": k3_train, f"adaptdiffuser_{suite}_generate": generate,
+            f"adaptdiffuser_{suite}_finetune": tuned,
+            f"adaptdiffuser_{suite}_finetune_cli": finetune_cli,
+            f"adaptdiffuser_{suite}_serve": serve}
+
+
+def check_rl_suite_cli(dev, family: str, suite: str) -> dict:
+    """A DQL, IDQL or EDP CLI of the antmaze or kitchen suite: `mode=train`
+    for one window at the shipped width, then `ckpt_latest` served at 50
+    envs with the config's candidates. Returns the kernels' launches in the
+    phase (all 0: MLPs)."""
+    cli = {("dql", "antmaze"): dql_d4rl_antmaze, ("dql", "kitchen"): dql_d4rl_kitchen,
+           ("idql", "antmaze"): idql_d4rl_antmaze, ("idql", "kitchen"): idql_d4rl_kitchen,
+           ("edp", "antmaze"): edp_d4rl_antmaze, ("edp", "kitchen"): edp_d4rl_kitchen}[
+               (family, suite)]
+    phase(f"{family.upper()} CLI ({suite}): cli.{family}_d4rl_{suite} mode=train, then act "
+          "from ckpt_latest")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, SUITE_RL_CLI_TRAIN)
+    steps = args.gradient_steps
+    dataset, pipe = cli.build(args, dev)
+    keys = pipe.LOG_KEYS
+    if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
+                                                           args.log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    if not all(np.isfinite(lg[k]) for lg in logs for k in keys):
+        raise AssertionError(f"non-finite window means {logs}")
+    print(f"{steps} steps (obs {pipe.obs_dim}, act {pipe.act_dim}, batch {args.batch_size}, "
+          f"{args.solver} x {args.sampling_steps}, max_q_backup "
+          f"{getattr(pipe, 'max_q_backup', '-')}): {seconds:.1f} s with set-up and a save; "
+          f"{logs[-1]['steps_per_sec']} steps/s; window means "
+          f"{ {k: round(logs[-1][k], 4) for k in keys} }", flush=True)
+    pipe.load(str(run / "ckpt_latest.pt"))
+    if pipe.actor.step != steps:
+        raise AssertionError(f"ckpt_latest holds step {pipe.actor.step}, not {steps}")
+    kw = dict(num_candidates=args.num_candidates, weight_temperature=args.task.weight_temperature,
+              use_ema=args.use_ema, temperature=args.temperature)
+    lat = cli_requests(pipe, dataset.obs[:args.num_envs], 2, **kw)
+    counts = {k.__name__: k.launches for k in KERNELS}
+    print(f"2 requests x {args.num_envs} envs x {args.num_candidates} candidates from "
+          f"ckpt_latest: latency ms {[round(v, 3) for v in lat]} (the first one cold); kernel "
+          f"launches in the phase {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the {family} {suite} CLI phase launched a kernel: {counts}")
+    return counts
+
+
 def check_dql_goal2d(dev) -> float:
     """The hermetic DQL gate on the card: backprop through the 5-step
     sampler at every step, then 128 episodes with 50 candidates per env."""
@@ -1632,12 +2134,14 @@ def check_dql_goal2d(dev) -> float:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     kind = check_device()
     dev = torch.device("cuda", 0)
     build_kernels(dev)
     k1 = check_kernel(dev)
     k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
+    check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze")
     k2 = check_solver_kernel(dev)
     k1_launches = check_slice(dev)
     check_slice(dev, "antmaze", 1)  # horizon 64: K1 on clusters of two thread blocks
@@ -1645,15 +2149,29 @@ def main() -> int:
     check_slice_bf16(dev, "antmaze", 1)
     k3_launches, k2_launches = check_diffuser_slice(dev)
     check_kernel_autograd(dev)
+    check_kernel_autograd(dev, 64, "antmaze")  # DD antmaze's training forward, on clusters
     k1_train, k2_dd_train, _ = check_dd_training(dev)
     k1_bf16_train, _ = check_dd_training_bf16(dev)
     k3_train, k2_diffuser_train, _ = check_diffuser_training(dev)
     check_checkpoint(dev)
     check_goal2d(dev)
+    cache_cli_data()
     cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
+    for suite in ("antmaze", "kitchen"):
+        cli["dit_block"].update(check_dd_suite_cli(dev, suite))
+    for suite in ("antmaze", "kitchen"):
+        k3_cli, k2_cli = check_diffuser_suite_cli(dev, suite)
+        cli["film_resblock"].update(k3_cli)
+        cli["solver_update"].update(k2_cli)
+    for suite in ("mujoco", "antmaze"):
+        cli["film_resblock"].update(check_adaptdiffuser_cli(dev, suite))
     # the RL policies' path (MLPs) launches none of the kernels
     rl = {family: check_rl_cli(dev, family) for family in ("dql", "idql", "edp")}
+    rl.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
+               for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
     check_dql_goal2d(dev)
+    print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s ({cuda_ms.longer_spins} "
+          "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,

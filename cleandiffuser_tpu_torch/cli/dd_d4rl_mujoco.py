@@ -11,7 +11,9 @@ Runs on the CUDA device, and raises without one, unless the config says
 window by window (`make_train_scan`) when the intervals allow it, with DiT
 blocks through the fused kernel when `use_pallas_block` is on (as shipped);
 `mode=inference` loads `ckpt_<diffusion_ckpt>` and evaluates on gymnasium's
-MuJoCo envs (`d4rl_eval_loop`), which must be installed.
+MuJoCo envs (`d4rl_eval_loop`), which must be installed. The antmaze and
+kitchen CLIs run through `build` and `pipeline` here with their own dataset,
+return scale, value shift and reward mode.
 """
 
 import sys
@@ -30,19 +32,24 @@ from ..utils.tensors import set_seed
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/dd/mujoco"
 
 
-def build(args, device):
-    """The config's dataset and pipeline on `device`."""
-    dataset = D4RLMuJoCoDataset(
-        load_d4rl_dataset(args.task.env_name), horizon=args.task.horizon,
-        terminal_penalty=args.terminal_penalty, discount=args.discount, device=device,
-    )
+def build(args, device, dataset=None, return_scale: float = 1000.0, val_shift: float = 0.0):
+    """The config's dataset and pipeline on `device`. Another suite's CLI
+    passes its `dataset`, the return scale of a task that `DD_RETURN_SCALE`
+    does not list, and the shift of the scaled return (antmaze's returns
+    are <= 0: 1.0 moves them into [0, 1])."""
+    if dataset is None:
+        dataset = D4RLMuJoCoDataset(
+            load_d4rl_dataset(args.task.env_name), horizon=args.task.horizon,
+            terminal_penalty=args.terminal_penalty, discount=args.discount, device=device,
+        )
     pipe = DDPipeline(
         obs_dim=dataset.o_dim, act_dim=dataset.a_dim, horizon=args.task.horizon,
         emb_dim=args.emb_dim, d_model=args.d_model, n_heads=args.n_heads,
         depth=args.depth, label_dropout=args.label_dropout,
         predict_noise=args.predict_noise,
         next_obs_loss_weight=args.next_obs_loss_weight,
-        return_scale=DD_RETURN_SCALE.get(args.task.env_name, 1000.0),
+        return_scale=DD_RETURN_SCALE.get(args.task.env_name, return_scale),
+        val_shift=val_shift,
         ema_rate=args.ema_rate,
         diffusion_gradient_steps=args.diffusion_gradient_steps,
         invdyn_gradient_steps=args.invdyn_gradient_steps,
@@ -54,7 +61,9 @@ def build(args, device):
     return dataset, pipe
 
 
-def pipeline(args):
+def pipeline(args, build=build, reward_mode: str = "mujoco"):
+    """Run `args.mode` for the dataset and pipeline `build(args, device)`
+    makes; `reward_mode` is `d4rl_eval_loop`'s."""
     mesh = setup_mesh(args)  # before the first device use: the bf16_* keys
     device = device_of(args)
     set_seed(args.seed)
@@ -77,7 +86,7 @@ def pipeline(args):
         d4rl_eval_loop(
             lambda nobs: pipe.act(nobs)[0].cpu().numpy(), args.task.env_name,
             dataset.get_normalizer(), args.num_envs, args.num_episodes,
-            args.seed, logger=logger,
+            args.seed, logger=logger, reward_mode=reward_mode,
         )
     else:
         raise ValueError(f"Invalid mode: {args.mode}")

@@ -11,7 +11,9 @@ Runs on the CUDA device, and raises without one, unless the config says
 run the fused kernel (K3) on the card (the configs have no kernel switch
 for it). `mode=inference` is the reference
 CLI's own loop over gymnasium's MuJoCo envs, `num_candidates` plans per env
-per step, episodes of at most `MAX_STEPS` steps.
+per step, episodes of at most `MAX_STEPS` steps. The antmaze and kitchen
+CLIs, and AdaptDiffuser's, run through `build` and `pipeline` here with
+their own dataset, pipeline class and evaluation.
 """
 
 import sys
@@ -27,7 +29,7 @@ from ..pipelines.data_loading import (
     load_d4rl_dataset,
     make_eval_env_fns,
 )
-from ..pipelines.runner import planner_window_fn, train_loop
+from ..pipelines.runner import d4rl_eval_loop, planner_window_fn, train_loop
 from ..utils.config import load_config, parse_cli
 from ..utils.logger import Logger
 from ..utils.tensors import set_seed
@@ -36,16 +38,19 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/diffuser/mujoco"
 MAX_STEPS = 1000  # d4rl's locomotion episode length
 
 
-def build(args, device):
-    """The config's dataset and pipeline on `device`."""
-    dataset = D4RLMuJoCoDataset(
-        load_d4rl_dataset(args.task.env_name),
-        horizon=args.task.horizon,
-        terminal_penalty=args.terminal_penalty,
-        discount=args.discount,
-        device=device,
-    )
-    pipe = DiffuserPipeline(
+def build(args, device, dataset=None, pipeline_cls=DiffuserPipeline):
+    """The config's dataset and pipeline on `device`: `dataset` and
+    `pipeline_cls` (which takes DiffuserPipeline's arguments) are another
+    CLI's."""
+    if dataset is None:
+        dataset = D4RLMuJoCoDataset(
+            load_d4rl_dataset(args.task.env_name),
+            horizon=args.task.horizon,
+            terminal_penalty=args.terminal_penalty,
+            discount=args.discount,
+            device=device,
+        )
+    pipe = pipeline_cls(
         obs_dim=dataset.o_dim,
         act_dim=dataset.a_dim,
         horizon=args.task.horizon,
@@ -68,7 +73,49 @@ def build(args, device):
     return dataset, pipe
 
 
-def pipeline(args):
+def evaluate(pipe, dataset, args, logger):
+    """The reference CLI's evaluation on gymnasium's MuJoCo envs."""
+    normalizer = dataset.get_normalizer()
+    score_fn = get_normalized_score_fn(args.task.env_name)
+    import gymnasium as gym
+
+    envs = gym.vector.SyncVectorEnv(make_eval_env_fns(args.task.env_name, args.num_envs))
+    episode_rewards = []
+    for ep in range(args.num_episodes):
+        # per-episode seed block (vector reset seeds sub-envs [s..s+n-1])
+        obs, _ = envs.reset(seed=args.seed + ep * args.num_envs)
+        ep_reward, cum_done, t = np.zeros(args.num_envs), np.zeros(args.num_envs), 0
+        while not np.all(cum_done) and t < MAX_STEPS + 1:
+            nobs = normalizer.normalize(obs)
+            act, _ = pipe.act(nobs, num_candidates=args.num_candidates)
+            obs, rew, term, trunc, _ = envs.step(act.cpu().numpy())
+            done = np.logical_or(term, trunc)
+            t += 1
+            cum_done = np.logical_or(cum_done, done)
+            ep_reward += rew * (1 - cum_done) if t < MAX_STEPS else rew
+        episode_rewards.append([score_fn(r) for r in ep_reward])
+        print(f"episode {ep}: {np.mean(episode_rewards[-1]):.3f}")
+    episode_rewards = np.array(episode_rewards)
+    print(np.mean(episode_rewards, -1), np.std(episode_rewards, -1))
+    logger.log({"normalized_score_mean": float(np.mean(episode_rewards))}, "inference")
+
+
+def eval_loop(reward_mode: str):
+    """Evaluation through `d4rl_eval_loop` in `reward_mode`, the other
+    suites' (and AdaptDiffuser's) CLIs' way."""
+    def run(pipe, dataset, args, logger):
+        d4rl_eval_loop(
+            lambda nobs: pipe.act(nobs, num_candidates=args.num_candidates)[0].cpu().numpy(),
+            args.task.env_name, dataset.get_normalizer(), args.num_envs, args.num_episodes,
+            args.seed, logger=logger, reward_mode=reward_mode)
+    return run
+
+
+def pipeline(args, build=build, evaluate=evaluate, finetune=None):
+    """Run `args.mode` for the dataset and pipeline `build(args, device)`
+    makes: `evaluate(pipe, dataset, args, logger)` serves `mode=inference`
+    from `ckpt_<ckpt>`; a CLI that has `finetune(pipe, dataset, args,
+    save_path, logger)` takes `mode=finetune`."""
     mesh = setup_mesh(args)  # before the first device use
     device = device_of(args)
     set_seed(args.seed)
@@ -86,32 +133,11 @@ def pipeline(args):
             lambda tag: pipe.save(str(save_path / f"ckpt_{tag}")), logger, args.seed,
             window_fn=planner_window_fn(pipe, dataset, args, mesh), device=device,
         )
-
     elif args.mode == "inference":
         pipe.load(str(save_path / f"ckpt_{args.ckpt}"))
-        normalizer = dataset.get_normalizer()
-        score_fn = get_normalized_score_fn(args.task.env_name)
-        import gymnasium as gym
-
-        envs = gym.vector.SyncVectorEnv(make_eval_env_fns(args.task.env_name, args.num_envs))
-        episode_rewards = []
-        for ep in range(args.num_episodes):
-            # per-episode seed block (vector reset seeds sub-envs [s..s+n-1])
-            obs, _ = envs.reset(seed=args.seed + ep * args.num_envs)
-            ep_reward, cum_done, t = np.zeros(args.num_envs), np.zeros(args.num_envs), 0
-            while not np.all(cum_done) and t < MAX_STEPS + 1:
-                nobs = normalizer.normalize(obs)
-                act, _ = pipe.act(nobs, num_candidates=args.num_candidates)
-                obs, rew, term, trunc, _ = envs.step(act.cpu().numpy())
-                done = np.logical_or(term, trunc)
-                t += 1
-                cum_done = np.logical_or(cum_done, done)
-                ep_reward += rew * (1 - cum_done) if t < MAX_STEPS else rew
-            episode_rewards.append([score_fn(r) for r in ep_reward])
-            print(f"episode {ep}: {np.mean(episode_rewards[-1]):.3f}")
-        episode_rewards = np.array(episode_rewards)
-        print(np.mean(episode_rewards, -1), np.std(episode_rewards, -1))
-        logger.log({"normalized_score_mean": float(np.mean(episode_rewards))}, "inference")
+        evaluate(pipe, dataset, args, logger)
+    elif args.mode == "finetune" and finetune is not None:
+        finetune(pipe, dataset, args, save_path, logger)
     else:
         raise ValueError(f"Invalid mode: {args.mode}")
     logger.finish()

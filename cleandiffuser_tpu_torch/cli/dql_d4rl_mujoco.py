@@ -30,11 +30,17 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/dql/mujoco"
 MAX_STEPS = 1000  # d4rl's locomotion episode length
 
 
-def build(args, device, pipeline_cls=None):
+def build(args, device, pipeline_cls=None, dataset=None, **pipe_kw):
     """The config's dataset and pipeline (DQL's, or EDP's, which takes the
-    same keys; DQL's by default) on `device`."""
-    dataset = D4RLMuJoCoTDDataset(load_d4rl_qlearning_dataset(args.task.env_name),
-                                  args.normalize_reward, device=device)
+    same keys; DQL's by default) on `device`. Another suite's CLI passes its
+    `dataset` and pipeline arguments (`max_q_backup`); a config without
+    `predict_noise` leaves it to the pipeline's default (EDP's antmaze and
+    kitchen configs)."""
+    if dataset is None:
+        dataset = D4RLMuJoCoTDDataset(load_d4rl_qlearning_dataset(args.task.env_name),
+                                      args.normalize_reward, device=device)
+    if args.get("predict_noise") is not None:
+        pipe_kw["predict_noise"] = args.predict_noise
     pipe = (pipeline_cls or DQLPipeline)(
         obs_dim=dataset.o_dim, act_dim=dataset.a_dim,
         diffusion_steps=args.diffusion_steps, sampling_steps=args.sampling_steps,
@@ -42,7 +48,7 @@ def build(args, device, pipeline_cls=None):
         actor_lr=args.actor_learning_rate, critic_lr=args.critic_learning_rate,
         gradient_steps=args.gradient_steps, discount=args.discount, eta=args.task.eta,
         ema_rate=args.ema_rate, ema_update_interval=args.ema_update_interval,
-        predict_noise=args.predict_noise, rng=args.seed, device=device,
+        rng=args.seed, device=device, **pipe_kw,
     )
     return dataset, pipe
 

@@ -21,10 +21,12 @@ from .rl import run_rl_cli
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/idql/mujoco"
 
 
-def build(args, device):
-    """The config's dataset and pipeline on `device`."""
-    dataset = D4RLMuJoCoTDDataset(load_d4rl_qlearning_dataset(args.task.env_name),
-                                  args.normalize_reward, device=device)
+def build(args, device, dataset=None):
+    """The config's dataset (or another suite's `dataset`) and pipeline on
+    `device`."""
+    if dataset is None:
+        dataset = D4RLMuJoCoTDDataset(load_d4rl_qlearning_dataset(args.task.env_name),
+                                      args.normalize_reward, device=device)
     pipe = IDQLPipeline(
         obs_dim=dataset.o_dim, act_dim=dataset.a_dim,
         diffusion_steps=args.diffusion_steps, sampling_steps=args.sampling_steps,

@@ -1,4 +1,4 @@
-"""What the DQL, IDQL and EDP D4RL-MuJoCo CLIs share: set-up, `mode=train`
+"""What the DQL, IDQL and EDP D4RL CLIs share: set-up, `mode=train`
 window by window (`rl_window_fn`) when the intervals allow it, and
 `mode=inference` from `ckpt_<ckpt>`.
 
@@ -19,12 +19,13 @@ from ..utils.tensors import set_seed
 
 
 def run_rl_cli(args, build: Callable, weight_temperature: float,
-               inference: Optional[Callable] = None, resume: bool = False) -> None:
+               inference: Optional[Callable] = None, resume: bool = False,
+               reward_mode: str = "mujoco") -> None:
     """Run `args.mode` for the pipeline `build(args, device)` makes, as
     (dataset, pipe). Requests are `pipe.act(nobs, ...)` with the config's
     candidates and `weight_temperature`; `inference(act, dataset, args,
-    logger)` evaluates them, by default through `d4rl_eval_loop`. With
-    `resume`, `resume=true` in the config resumes training from
+    logger)` evaluates them, by default `d4rl_eval_loop` in `reward_mode`.
+    With `resume`, `resume=true` in the config resumes training from
     `ckpt_latest`."""
     mesh = setup_mesh(args)  # before the first device use
     device = device_of(args)
@@ -64,7 +65,7 @@ def run_rl_cli(args, build: Callable, weight_temperature: float,
         else:
             d4rl_eval_loop(lambda nobs: act(nobs).cpu().numpy(), args.task.env_name,
                            dataset.get_normalizer(), args.num_envs, args.num_episodes,
-                           args.seed, logger=logger)
+                           args.seed, logger=logger, reward_mode=reward_mode)
     else:
         raise ValueError(f"Invalid mode: {args.mode}")
     logger.finish()

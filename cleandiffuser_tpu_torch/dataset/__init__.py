@@ -1,4 +1,16 @@
 from .base import BaseDataset, DeviceSeqSampler, DeviceTDSampler
+from .d4rl_antmaze import (
+    D4RLAntmazeDataset,
+    D4RLAntmazeTDDataset,
+    DV_D4RLAntmazeSeqDataset,
+    MultiHorizonD4RLAntmazeDataset,
+)
+from .d4rl_kitchen import (
+    D4RLKitchenDataset,
+    D4RLKitchenTDDataset,
+    DV_D4RLKitchenSeqDataset,
+    MultiHorizonD4RLKitchenDataset,
+)
 from .d4rl_mujoco import (
     D4RLMuJoCoDataset,
     D4RLMuJoCoTDDataset,

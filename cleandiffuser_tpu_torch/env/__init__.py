@@ -1,2 +1,12 @@
+from .d4rl_eval import (
+    ANTMAZE_EVAL_CELLS,
+    ANTMAZE_GYM_IDS,
+    MAZE2D_GYM_IDS,
+    AntMazeD4RLWrapper,
+    PointMazeD4RLWrapper,
+    make_antmaze_env,
+    make_maze2d_env,
+)
 from .goal2d import Goal2DEnv, evaluate_policy, normalized_score_fn, optimal_return
+from .kitchen import ALL_KITCHEN_TASKS, KitchenLowdimWrapper, make_kitchen_env
 from .wrapper import DuckSyncVectorEnv

@@ -1,3 +1,4 @@
+from .adaptdiffuser import AdaptDiffuserPipeline
 from .dd import DDPipeline
 from .diffuser import DiffuserPipeline
 from .dql import DQLPipeline

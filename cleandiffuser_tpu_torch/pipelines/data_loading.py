@@ -1,6 +1,6 @@
 """Dataset acquisition for the pipelines (counterpart of
-cleandiffuser_tpu/pipelines/data_loading.py; the PushT demos and the
-antmaze, maze2d and kitchen eval envs come with their slices).
+cleandiffuser_tpu/pipelines/data_loading.py; the PushT demos come with the
+imitation slice).
 
 Nothing is downloaded. The resolution order is:
 
@@ -9,9 +9,12 @@ Nothing is downloaded. The resolution order is:
 2. the synthetic generator (dataset/fake.py), with a printed warning.
 
 `get_normalized_score_fn(env_name)` is d4rl's normalized score, and
-`make_eval_env_fns(env_name, n)` the gymnasium eval envs of the locomotion
-tasks (`HalfCheetah-v5`, `Hopper-v5`, `Walker2d-v5`); gymnasium is imported
-only there, so the package imports where it is not installed.
+`make_eval_env_fns(env_name, n)` the gymnasium eval envs of a d4rl task:
+gymnasium's MuJoCo envs for the locomotion tasks (`HalfCheetah-v5`,
+`Hopper-v5`, `Walker2d-v5`), the gymnasium_robotics envs in the d4rl
+layouts for antmaze, maze2d and kitchen (env/d4rl_eval.py, env/kitchen.py).
+gymnasium and gymnasium_robotics are imported only there, so the package
+imports where they are not installed.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ D4RL_SCORE_RANGES = {
 # gymnasium's MuJoCo envs standing in for the d4rl locomotion tasks
 GYM_LOCOMOTION = {"halfcheetah": "HalfCheetah-v5", "hopper": "Hopper-v5",
                   "walker2d": "Walker2d-v5"}
+KITCHEN_EVAL_TASKS = ["microwave", "kettle", "bottom burner", "light switch"]
 
 
 def data_dir() -> Path:
@@ -90,12 +94,28 @@ def get_normalized_score_fn(env_name: str):
 
 
 def make_eval_env_fns(env_name: str, num_envs: int):
-    """`num_envs` thunks of the gymnasium eval env of a d4rl task."""
-    for prefix in ("antmaze", "maze2d", "kitchen"):
-        if env_name.startswith(prefix):
-            raise NotImplementedError(
-                f"{env_name}: the {prefix} eval envs are not ported yet (ROADMAP queue 1, "
-                "item 5)")
+    """`num_envs` thunks of the gymnasium eval env of a d4rl task. The
+    antmaze, maze2d and kitchen envs need gymnasium_robotics: without it
+    the call raises ImportError; no other env stands in."""
+    if env_name.startswith(("antmaze", "maze2d", "kitchen")):
+        try:
+            import gymnasium_robotics  # noqa: F401
+        except ImportError as e:
+            raise ImportError(f"the {env_name} eval env needs gymnasium_robotics, which is "
+                              "not installed") from e
+    if env_name.startswith("antmaze"):
+        from ..env.d4rl_eval import make_antmaze_env
+
+        return [(lambda: make_antmaze_env(env_name)) for _ in range(num_envs)]
+    if env_name.startswith("maze2d"):
+        from ..env.d4rl_eval import make_maze2d_env
+
+        return [(lambda: make_maze2d_env(env_name)) for _ in range(num_envs)]
+    if env_name.startswith("kitchen"):
+        from ..env.kitchen import make_kitchen_env
+
+        # the mixed and partial datasets both evaluate on this 4-task goal set
+        return [(lambda: make_kitchen_env(KITCHEN_EVAL_TASKS)) for _ in range(num_envs)]
     import gymnasium as gym
 
     for prefix, gid in GYM_LOCOMOTION.items():

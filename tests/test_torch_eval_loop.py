@@ -4,8 +4,9 @@ scores (pipelines/data_loading.py) against the JAX package's.
 Both loops step gymnasium's `HalfCheetah-v5` for halfcheetah-medium-v2, 2
 envs, 1 episode, `max_steps=20`, with the same deterministic numpy `act_fn`
 and seed: their `episode_rewards` are identical in every reward mode
-(mujoco, antmaze, kitchen, maze2d: numpy bookkeeping over the same rewards).
-The env tests skip where gymnasium's MuJoCo envs are not installed.
+(mujoco, antmaze, kitchen, maze2d: numpy bookkeeping over the same rewards);
+and the antmaze and kitchen modes on their own eval envs. The env tests skip
+where gymnasium's MuJoCo envs (or gymnasium_robotics) are not installed.
 """
 
 import numpy as np
@@ -73,11 +74,22 @@ def test_normalized_scores_match_jax():
                 jax_data.get_normalized_score_fn(name)(ret), name
 
 
-@pytest.mark.parametrize("env_name", ["antmaze-medium-play-v2", "maze2d-umaze-v1",
-                                      "kitchen-partial-v0"])
-def test_unported_eval_envs_raise(env_name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        data_loading.make_eval_env_fns(env_name, 2)
+@pytest.mark.parametrize("reward_mode", ["antmaze", "kitchen"])
+def test_eval_loop_matches_jax_on_the_suite_envs(reward_mode):
+    """`d4rl_eval_loop` on the antmaze and kitchen eval envs
+    (gymnasium_robotics) against the JAX loop on its own wrappers: the same
+    episode rewards, clipped to [0, 1] and [0, 4] and scored."""
+    pytest.importorskip("gymnasium_robotics")
+    env = {"antmaze": "antmaze-medium-play-v2", "kitchen": "kitchen-mixed-v0"}[reward_mode]
+    o_dim, a_dim = (29, 8) if reward_mode == "antmaze" else (60, 9)
+    rng = np.random.default_rng(0)
+    norm = GaussianNormalizer(rng.standard_normal((64, o_dim)).astype(np.float32))
+    w = rng.standard_normal((o_dim, a_dim)).astype(np.float32) / np.sqrt(o_dim)
+    kw = dict(env_name=env, normalizer=norm, num_envs=2, num_episodes=1, seed=5, max_steps=8,
+              reward_mode=reward_mode)
+    got = d4rl_eval_loop(lambda nobs: np.tanh(nobs @ w), **kw)
+    np.testing.assert_array_equal(got, jax_eval_loop(lambda nobs: np.tanh(nobs @ w), **kw))
+    assert got.shape == (1, 2) and np.isfinite(got).all()
 
 
 def test_locomotion_eval_envs():

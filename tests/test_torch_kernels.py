@@ -146,6 +146,25 @@ def _max_rel_diff(a, b):
 
 
 @pytest.mark.gpu
+def test_dit_block_autograd_at_antmaze_training_shape(cuda):
+    """DD antmaze's training forward, (64, 64, 320) on 2-block clusters,
+    through `dit_block_op` (kernel forward, plain-version backward) against
+    the plain block: the output within TOL, one launch, and the gradient of
+    every input within 1e-4 of its largest entry (the backward recomputes
+    the plain block from the same inputs)."""
+    x, mod, ws = _unit_inputs(cuda, 64, 64, 320)
+    inputs = [t.requires_grad_(True) for t in (x, mod, *ws)]
+    g = torch.randn(64, 64, 320, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = ops.fused_dit_block.launches
+    out = ops.dit_block_op(*inputs, n_heads=10)
+    assert ops.fused_dit_block.launches == before + 1
+    ref = ops.dit_block_reference(*inputs, n_heads=10)
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+    for a, b in zip(torch.autograd.grad(out, inputs, g), torch.autograd.grad(ref, inputs, g)):
+        assert _max_rel_diff(a, b) < 1e-4
+
+
+@pytest.mark.gpu
 def test_dit1d_gradients_through_kernel_at_training_shape(cuda):
     """DD's training shape: a DiT1d at full width (d_model 320, 10 heads,
     depth 2) on a batch of 64 x 32, through the kernel's autograd Function
@@ -378,6 +397,34 @@ def test_film_resblock_kernel_at_unet_shapes(cuda, shape):
     block (64 rows: 64 / H samples) and 3 samples of a second."""
     H, Cin, Cout = shape
     _check_film(cuda, 64 // H + 3, H, Cin, Cout)
+
+
+# (H, Cin, Cout) of the distinct residual blocks of the shipped Diffuser and
+# AdaptDiffuser U-Nets of the antmaze suite (obs 29 + act 8 = 37 channels in,
+# model_dim 64, dim_mult (1, 2, 2, 2), horizon 64) and of the kitchen suite
+# (obs 60 + act 9 = 69 in, horizon 32): channels 64 to 512, H = 64 at the top
+ANTMAZE_UNET_SHAPES = [(64, 37, 64), (64, 64, 64), (32, 64, 128), (32, 128, 128),
+                       (16, 128, 256), (16, 256, 256), (8, 256, 512), (8, 512, 512),
+                       (8, 1024, 256), (8, 256, 256), (16, 512, 128), (16, 128, 128),
+                       (32, 256, 64), (32, 64, 64)]
+KITCHEN_UNET_SHAPES = [(32, 69, 64), (32, 64, 64), (16, 64, 128), (16, 128, 128),
+                       (8, 128, 256), (8, 256, 256), (4, 256, 512), (4, 512, 512),
+                       (4, 1024, 256), (4, 256, 256), (8, 512, 128), (8, 128, 128),
+                       (16, 256, 64), (16, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ANTMAZE_UNET_SHAPES + KITCHEN_UNET_SHAPES,
+                         ids=[f"antmaze-h{h}-{i}-{o}" for h, i, o in ANTMAZE_UNET_SHAPES]
+                         + [f"kitchen-h{h}-{i}-{o}" for h, i, o in KITCHEN_UNET_SHAPES])
+def test_film_resblock_kernel_at_model_dim_64_shapes(cuda, shape):
+    """The antmaze and kitchen U-Nets' blocks: H = 64 runs one sample per
+    64-row thread block, Cout = 512 four (H = 8) or eight (H = 4) samples
+    per 32-row block, Cin = 1024 streams through the x ring; at two full
+    thread blocks and 3 samples of a third."""
+    H, Cin, Cout = shape
+    rows = 32 if Cout > 256 else 64
+    _check_film(cuda, 2 * rows // H + 3, H, Cin, Cout)
 
 
 @pytest.mark.gpu
