@@ -2,7 +2,8 @@
 planning and Diffuser planning at the shipped widths, through the
 hand-written Hopper kernels, and the DQL, IDQL and EDP diffusion policies
 (MLPs, no kernel) through their CLIs; the CLIs of the D4RL antmaze and
-kitchen suites, and AdaptDiffuser's.
+kitchen suites, AdaptDiffuser's, and Diffusion Veteran's and DiffuserLite's
+(plain blocks, no kernel).
 
     python3 chip_smoke.py
 
@@ -185,6 +186,37 @@ Phases, each of which raises on failure (exit code != 0):
 19. suite RL CLIs - `cli.{dql,idql,edp}_d4rl_{antmaze,kitchen}`: one window
                of 100 steps, then 2 requests from ckpt_latest at 50 envs
                with the config's candidates; no kernel launch.
+20. Veteran CLIs - `cli.veteran_d4rl_{mujoco,maze2d,antmaze,kitchen}` on
+               configs/veteran/* (the plain DiT blocks, as the reference
+               builds them): `mode=train` (MuJoCo: 200 steps in two windows
+               at d_model 320, batch 64; the others 20 steps), then
+               `mode=train_expected_value` with its step count patched down
+               (200 / 20 TD steps), checkpoints on the save grid; then
+               `veteran_latest.pkl` served at the config's envs x
+               candidates (MuJoCo 5 requests at 50 x 32 = 1,600
+               trajectories; the others 2 requests), each request's
+               latency, one request profiled (device busy, idle share, the
+               planner's, scorer's and policy's profiler ranges; MuJoCo
+               also the plain DiT block at (1600, 32, 320) graph-timed for
+               its share), and one request held against the same request
+               on the port's CPU path with the same explicit noise (10 envs
+               on MuJoCo, 2 on the others): the whole candidate batch, its
+               scores before the argmax and the chosen plans within
+               PLAN_ATOL, the picks equal where the scores are apart.
+21. DiffuserLite CLIs - `cli.diffuserlite_d4rl_mujoco` on
+               configs/diffuserlite/mujoco (three levels of DiT d_model
+               256, horizons 5/5/9): `mode=training` (200 steps in two
+               windows, the inverse dynamics in the first),
+               `mode=prepare_dataset` (two batches of the config's 5000
+               pairs per level), `mode=reflow` (100 steps), then 5 R1
+               requests from ckpt_latest and 5 R2 from reflow_ckpt_latest
+               at 50 envs, one of each profiled (each level's range) and
+               held against the CPU (plans and actions within PLAN_ATOL);
+               `cli.diffuserlite_d4rl_{antmaze,kitchen}`: `mode=iql_training`
+               (100 steps), `mode=training` (20), 2 R1 requests at 50 x 64
+               candidates ranked by IQL's V through the CLI's act function,
+               one request against the CPU at 2 envs. No kernel launch in
+               phases 20-21 (every count reads 0).
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
@@ -193,7 +225,8 @@ Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
-phases by CLI and part (`cli_launches`), error and times
+phases by CLI and part (`cli_launches`: the Veteran and DiffuserLite
+phases' read 0), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -234,6 +267,9 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     diffuser_d4rl_antmaze,
     diffuser_d4rl_kitchen,
     diffuser_d4rl_mujoco,
+    diffuserlite_d4rl_antmaze,
+    diffuserlite_d4rl_kitchen,
+    diffuserlite_d4rl_mujoco,
     dql_d4rl_antmaze,
     dql_d4rl_kitchen,
     dql_d4rl_mujoco,
@@ -243,6 +279,10 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     idql_d4rl_antmaze,
     idql_d4rl_kitchen,
     idql_d4rl_mujoco,
+    veteran_d4rl_antmaze,
+    veteran_d4rl_kitchen,
+    veteran_d4rl_maze2d,
+    veteran_d4rl_mujoco,
 )
 from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoDataset, D4RLMuJoCoTDDataset  # noqa: E402
 from cleandiffuser_tpu_torch.dataset.hermetic import (  # noqa: E402
@@ -272,8 +312,12 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
 )
 from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline, DQLPipeline  # noqa: E402
+from cleandiffuser_tpu_torch.pipelines.diffuserlite_value import (  # noqa: E402
+    build_candidate_plan_fn,
+)
 from cleandiffuser_tpu_torch.utils.config import load_config  # noqa: E402
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of  # noqa: E402
+from cleandiffuser_tpu_torch.utils.train_state import read_jax_pickle  # noqa: E402
 
 SEED = 0
 N_REQUESTS = 5
@@ -375,6 +419,37 @@ ADAPT_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=20", "classifier_grad
 ADAPT_CLI_FINETUNE = ("mode=finetune", "ft_max_rounds=1", "ft_target=500",
                       "ft_gradient_steps=20", "log_interval=10", "save_interval=20")
 ADAPT_KEEP_ALL = -1e9
+# Diffusion Veteran (configs/veteran/*) and DiffuserLite (configs/diffuserlite/*)
+# through their CLIs, with no kernel on their path (the reference builds both
+# planners on the plain blocks). MuJoCo at full width: Veteran 200 planner
+# steps in two windows and 200 EV steps (its module constant patched down
+# from the reference's 1,000,000), then 5 requests at 50 envs x 32
+# candidates; DiffuserLite 200 steps in two windows (the inverse dynamics in
+# the first), 2 batches of the config's 5000 reflow pairs, 100 reflow steps,
+# then 5 R1 and 5 R2 requests at 50 envs. The other suites: 20 steps in two
+# windows and a save, 2 requests. A request is held against the same
+# request on the port's CPU path with the same explicit noise, at
+# LITE_COMPARE_ENVS / VETERAN_COMPARE_ENVS envs (the CPU runs the whole
+# candidate batch of each env).
+VETERAN_CLI_TRAIN = ("mode=train", "planner_diffusion_gradient_steps=200", "log_interval=100",
+                     "save_interval=100")
+VETERAN_EV_STEPS = 200
+VETERAN_EV_TRAIN = ("mode=train_expected_value", "log_interval=100", "save_interval=100")
+SUITE_VETERAN_CLI_TRAIN = ("mode=train", "planner_diffusion_gradient_steps=20",
+                           "log_interval=10", "save_interval=20")
+SUITE_VETERAN_EV_STEPS = 20
+SUITE_VETERAN_EV_TRAIN = ("mode=train_expected_value", "log_interval=10", "save_interval=20")
+VETERAN_COMPARE_ENVS, SUITE_COMPARE_ENVS = 10, 2
+LITE_CLI_TRAIN = ("mode=training", "diffusion_gradient_steps=200", "invdyn_gradient_steps=100",
+                  "log_interval=100", "save_interval=200")
+LITE_CLI_PREPARE = ("mode=prepare_dataset", "cond_dataset_size=10000")
+LITE_CLI_REFLOW = ("mode=reflow", "reflow_gradient_steps=100", "log_interval=50",
+                   "save_interval=100")
+SUITE_LITE_IQL = ("mode=iql_training", "iql_gradient_steps=100", "log_interval=50",
+                  "save_interval=100")
+SUITE_LITE_TRAIN = ("mode=training", "diffusion_gradient_steps=20", "invdyn_gradient_steps=10",
+                    "log_interval=10", "save_interval=20")
+LITE_COMPARE_ENVS = 50
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
@@ -1520,13 +1595,15 @@ def read_jsonl(path: Path) -> list:
     return [json.loads(s) for s in path.read_text().splitlines()] if path.exists() else []
 
 
-def run_cli(cli, overrides) -> tuple:
+def run_cli(cli, overrides, save_dir=None) -> tuple:
     """`cli.pipeline(args)` of the shipped config with `overrides`, run in
-    CLI_DIR (the CLI writes its results/torch/<pipeline>/<env>/ tree
-    there). Returns (args, the run's directory, the train.jsonl lines this
-    run wrote, seconds)."""
+    CLI_DIR (the CLI writes its results/torch/<save_dir>/<env>/ tree there;
+    `save_dir(args)` names it, the pipeline's name by default). Returns
+    (args, the run's directory, the train.jsonl lines this run wrote,
+    seconds)."""
     args = load_config(cli.CONFIG_DIR, cli.CONFIG_DIR.name, list(overrides))
-    run = CLI_DIR / "results/torch" / args.pipeline_name / args.task.env_name
+    name = save_dir(args) if save_dir is not None else args.pipeline_name
+    run = CLI_DIR / "results/torch" / name / args.task.env_name
     before = len(read_jsonl(run / "train.jsonl"))
     cwd = os.getcwd()
     CLI_DIR.mkdir(parents=True, exist_ok=True)
@@ -2133,6 +2210,368 @@ def check_dql_goal2d(dev) -> float:
     return s
 
 
+# ---------------------------------------------------------------------------
+# Diffusion Veteran and DiffuserLite: the CLIs, no kernel on the path
+VETERAN_CLIS = {"mujoco": veteran_d4rl_mujoco, "maze2d": veteran_d4rl_maze2d,
+                "antmaze": veteran_d4rl_antmaze, "kitchen": veteran_d4rl_kitchen}
+LITE_SUITE_CLIS = {"antmaze": (diffuserlite_d4rl_antmaze, "antmaze_act_fn", 1),
+                   "kitchen": (diffuserlite_d4rl_kitchen, "kitchen_act_fn", -1)}
+
+
+def kernel_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def no_kernel_launched(label: str) -> dict:
+    """The four kernels' launches since the last reset, which must all be 0
+    on these planners' path."""
+    counts = kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched a kernel: {counts}")
+    return counts
+
+
+def profile_request(fn, median_ms: float, ranges) -> dict:
+    """One call of `fn` under `torch.profiler`: the device's busy ms (every
+    device event's self time; one stream, so they do not overlap), the idle
+    share against the unprofiled median latency, and the device ms inside
+    each of the profiler `ranges` (the pipeline's `record_function`
+    spans)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, parts = 0.0, {r: 0.0 for r in ranges}
+    for e in prof.key_averages():
+        dev_total = getattr(e, "device_time_total", None)
+        if dev_total is None:
+            dev_total = e.cuda_time_total
+        if e.key in parts:
+            parts[e.key] = max(parts[e.key], dev_total / 1e3)
+            continue
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            self_us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if self_us is None else self_us) / 1e3
+    out = {"median_latency_ms": median_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / median_ms if busy else None,
+           "range_device_ms": parts}
+    if not busy:
+        print("profiler: no device time recorded (device busy and idle share not measured)",
+              flush=True)
+    return out
+
+
+def rows_of(seq_obs: np.ndarray, n: int) -> np.ndarray:
+    """The normalised first states of n episodes (cycled if there are
+    fewer): the observations a request of n envs is served."""
+    return seq_obs[np.arange(n) % seq_obs.shape[0], 0]
+
+
+def to_device(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def card_against_cpu(label: str, card: tuple, cpu: tuple, keys) -> dict:
+    """A request on the card against the same request on the CPU with the
+    same noise: each of `keys` of the info (the whole candidate batch and
+    its scores before the argmax, or the plan) within PLAN_ATOL; where a
+    request ranks candidates, the picks equal wherever the CPU's top two
+    scores are more than 2 PLAN_ATOL apart, and the actions of the envs
+    whose picks agree within PLAN_ATOL. Returns the gaps."""
+    (act_c, info_c), (act_p, info_p) = card, cpu
+    gaps = {k: (info_c[k].cpu() - info_p[k]).abs().max().item() for k in keys}
+    agree = torch.ones(act_p.shape[0], dtype=torch.bool)
+    if "scores" in info_p:
+        top2 = info_p["scores"].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * PLAN_ATOL
+        agree = info_c["idx"].cpu() == info_p["idx"]
+        if not agree[clear].all():
+            raise AssertionError(f"{label}: the card picked other candidates than the CPU where "
+                                 "the scores are apart")
+        gaps["picks_agree"] = f"{int(agree.sum())}/{agree.numel()}"
+    gaps["act"] = (act_c.cpu()[agree] - act_p[agree]).abs().max().item() if agree.any() else 0.0
+    print(f"{label}: card against CPU, same noise (TF32 off): max |diff| "
+          f"{ {k: (round(v, 9) if isinstance(v, float) else v) for k, v in gaps.items()} } "
+          f"(limit {PLAN_ATOL})", flush=True)
+    bad = {k: v for k, v in gaps.items() if isinstance(v, float) and not v <= PLAN_ATOL}
+    if bad:
+        raise AssertionError(f"{label}: card and CPU differ: {bad}")
+    return gaps
+
+
+def veteran_noise(pipe, E: int, K: int, gen: torch.Generator) -> dict:
+    """Explicit draws of one Veteran request: the planner's (initial,
+    per-step) of the E*K prior's shape and the policy's."""
+    shape = (E * K, pipe.planner_horizon, pipe.planner_dim)
+    pol = (E, pipe.act_dim)
+    return {"plan": (torch.randn(shape, generator=gen),
+                     torch.randn((pipe.planner_sampling_steps, *shape), generator=gen)),
+            "policy": (torch.randn(pol, generator=gen),
+                       torch.randn((pipe.policy_sampling_steps, *pol), generator=gen))}
+
+
+def check_veteran_cli(dev, suite: str) -> dict:
+    """A Diffusion Veteran CLI as users run it: `mode=train` (planner,
+    critic head, DVInvMlp policy) window by window, then
+    `mode=train_expected_value` from its checkpoint, then
+    `veteran_latest.pkl` served at the config's envs x candidates (MuJoCo:
+    50 x 32 = 1,600 trajectories of 20 ddpm steps through the plain DiT),
+    one request profiled, and one held against the CPU. Returns the
+    kernels' launches in the phase (all 0)."""
+    cli = VETERAN_CLIS[suite]
+    full = suite == "mujoco"
+    train, ev_steps, ev_train = ((VETERAN_CLI_TRAIN, VETERAN_EV_STEPS, VETERAN_EV_TRAIN) if full
+                                 else (SUITE_VETERAN_CLI_TRAIN, SUITE_VETERAN_EV_STEPS,
+                                       SUITE_VETERAN_EV_TRAIN))
+    save_dir = ((lambda a: f"{a.pipeline_name}_{a.guidance_type}") if full else None)
+    phase(f"Veteran CLI ({suite}): cli.veteran_d4rl_{suite} mode=train, "
+          "mode=train_expected_value, then act from veteran_latest.pkl")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, train, save_dir)
+    steps = args.planner_diffusion_gradient_steps
+    keys = ("planner_loss", "val_loss", "val_pred", "policy_bc_loss")
+    if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
+                                                           args.log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    if not all(np.isfinite(lg[k]) for lg in logs for k in keys):
+        raise AssertionError(f"non-finite window means {logs}")
+    tags = [str(t) for t in range(args.save_interval, steps + 1, args.save_interval)]
+    missing = [t for t in tags + ["latest"] if not (run / f"veteran_{t}.pkl").exists()]
+    if missing:
+        raise AssertionError(f"missing checkpoints veteran_{missing}.pkl in {run}")
+    print(f"{steps} steps (obs {args.task.obs_dim}, horizon {args.task.planner_horizon} stride "
+          f"{args.task.stride}, DiT d_model {args.planner_d_model} depth {args.planner_depth}, "
+          f"{args.guidance_type} {args.pipeline_type}, batch {args.batch_size}): {seconds:.1f} s "
+          f"with set-up and saves; steps/s per window {[lg['steps_per_sec'] for lg in logs]}; "
+          f"last window { {k: round(logs[-1][k], 4) for k in keys} }; checkpoints "
+          f"{['veteran_' + t + '.pkl' for t in tags]} and veteran_latest.pkl", flush=True)
+
+    old = veteran_d4rl_mujoco.EV_GRADIENT_STEPS
+    veteran_d4rl_mujoco.EV_GRADIENT_STEPS = ev_steps
+    try:
+        ev_args, _, ev_logs, ev_seconds = run_cli(cli, ev_train, save_dir)
+    finally:
+        veteran_d4rl_mujoco.EV_GRADIENT_STEPS = old
+    if [lg["gradient_steps"] for lg in ev_logs] != list(range(ev_args.log_interval,
+                                                              ev_steps + 1,
+                                                              ev_args.log_interval)):
+        raise AssertionError(f"EV windows at {[lg['gradient_steps'] for lg in ev_logs]}")
+    if not all(np.isfinite(lg[k]) for lg in ev_logs for k in ("loss_v", "v_mean")):
+        raise AssertionError(f"non-finite EV window means {ev_logs}")
+    print(f"EV stage: {ev_steps} TD steps at batch {veteran_d4rl_mujoco.EV_BATCH} from "
+          f"veteran_latest.pkl: {ev_seconds:.1f} s; steps/s per window "
+          f"{[lg['steps_per_sec'] for lg in ev_logs]}; last window "
+          f"loss_v {ev_logs[-1]['loss_v']:.4f} v_mean {ev_logs[-1]['v_mean']:.4f}", flush=True)
+
+    dataset, pipe = cli.build(args, dev)
+    pipe.load(str(run / "veteran_latest.pkl"))
+    if pipe.planner.step != steps:
+        raise AssertionError(f"veteran_latest.pkl holds step {pipe.planner.step}, not {steps}")
+    E, K = args.num_envs, args.planner_num_candidates
+    obs = rows_of(dataset.seq_obs, E)
+    n = N_REQUESTS if full else SUITE_CLI_REQUESTS
+    lat = cli_requests(pipe, obs, n, num_candidates=K)
+    counts = no_kernel_launched(f"the Veteran {suite} CLI phase")
+    median = statistics.median(lat[1:]) if len(lat) > 2 else lat[-1]
+    prof = profile_request(lambda: pipe.act(obs, num_candidates=K), median,
+                           ("veteran.plan", "veteran.score", "veteran.policy"))
+    print(f"{n} requests x {E} envs x {K} candidates ({E * K} trajectories, "
+          f"{args.planner_solver} x {args.planner_sampling_steps}, policy "
+          f"{args.policy_solver} x {args.policy_sampling_steps}) from veteran_latest.pkl: "
+          f"plan latency ms {[round(v, 3) for v in lat]} (the first one cold); one profiled "
+          f"request: {json.dumps(prof)}; kernel launches in the phase {counts}", flush=True)
+    if full and args.planner_net == "transformer":
+        # the plain DiT block at the request's shape, graph-timed, for its
+        # share of the request's device time (K1's shape: the plain version)
+        D = args.planner_d_model
+        x, mod, ws = block_inputs(np.random.default_rng(SEED), dev, E * K,
+                                  args.task.planner_horizon, D)
+        with torch.no_grad():
+            block = cuda_ms(lambda: dit_block_reference(x, mod, *ws, n_heads=D // 32), 3)
+        calls = args.planner_sampling_steps * args.planner_depth
+        print(f"plain DiT block at ({E * K}, {args.task.planner_horizon}, {D}): {block:.4f} ms; "
+              f"x {calls} calls = {calls * block:.2f} ms, "
+              f"{calls * block / prof['device_busy_ms']:.1%} of the request's device busy "
+              "time" if prof["device_busy_ms"] else "", flush=True)
+        del x, mod, ws
+
+    n_cmp = VETERAN_COMPARE_ENVS if full else SUITE_COMPARE_ENVS
+    gen = torch.Generator().manual_seed(SEED)
+    noise = veteran_noise(pipe, n_cmp, K, gen)
+    card = pipe.act(obs[:n_cmp], num_candidates=K, noise=to_device(noise, dev))
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset)
+    cpu_pipe.load(str(run / "veteran_latest.pkl"))
+    t0 = time.perf_counter()
+    cpu = cpu_pipe.act(obs[:n_cmp], num_candidates=K, noise=noise)
+    print(f"the CPU request ({n_cmp} envs x {K} candidates): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card_against_cpu(f"Veteran {suite} ({n_cmp} envs x {K})", card, cpu,
+                     ("candidates", "scores", "traj"))
+    return counts
+
+
+def lite_noise(pipe, E: int, gen: torch.Generator, K: int = 1) -> list:
+    """Each level's explicit initial draw of one DiffuserLite request (level
+    0's for E*K rows)."""
+    return [torch.randn(((E * K) if i == 0 else E, h, pipe.obs_dim), generator=gen)
+            for i, h in enumerate(pipe.planning_horizons)]
+
+
+def check_diffuserlite_cli(dev) -> dict:
+    """DiffuserLite's MuJoCo CLI as users run it: `mode=training` window by
+    window, `mode=prepare_dataset` (two batches of the config's 5000 pairs
+    per level), `mode=reflow`, then `ckpt_latest` served as R1 (3 Euler steps
+    per level) and `reflow_ckpt_latest` as R2 (1 step), 5 requests each at
+    50 envs, one of each profiled and held against the CPU. Returns the
+    kernels' launches in the phase (all 0)."""
+    cli = diffuserlite_d4rl_mujoco
+    phase("DiffuserLite CLI (mujoco): cli.diffuserlite_d4rl_mujoco mode=training, "
+          "prepare_dataset, reflow, then R1 and R2 requests")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, LITE_CLI_TRAIN)
+    steps, budget = args.diffusion_gradient_steps, args.invdyn_gradient_steps
+    levels = len(args.task.planning_horizons)
+    if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
+                                                           args.log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    for lg in logs:
+        if not all(np.isfinite(lg[f"loss{i}"]) for i in range(levels)):
+            raise AssertionError(f"non-finite window means {lg}")
+        if (lg["invdyn_loss"] > 0) != (lg["gradient_steps"] <= budget):
+            raise AssertionError(f"invdyn_loss {lg['invdyn_loss']} at step "
+                                 f"{lg['gradient_steps']} with a budget of {budget}")
+    parts = [f"diffusion{i}" for i in range(levels)] + ["invdyn"]
+    check_checkpoints(run, args, steps, parts)
+    print(f"{steps} steps (levels {list(args.task.planning_horizons)}, DiT d_model "
+          f"{args.d_model} x {args.n_heads} heads x depth {args.depth}, batch {args.batch_size}): "
+          f"{seconds:.1f} s with set-up and saves; steps/s per window "
+          f"{[lg['steps_per_sec'] for lg in logs]}; last window "
+          f"{ {k: round(v, 4) for k, v in logs[-1].items() if k.startswith('loss')} }",
+          flush=True)
+
+    pargs, _, _, p_seconds = run_cli(cli, LITE_CLI_PREPARE)
+    pairs = read_jax_pickle(run / "reflow_pairs.pkl")
+    n_pairs = max(pargs.cond_dataset_size // pargs.dataset_prepare_batch_size, 1) * \
+        pargs.dataset_prepare_batch_size
+    for i, (p, h) in enumerate(zip(pairs, args.task.planning_horizons)):
+        if p["x0"].shape != (n_pairs, h, args.task.obs_dim) or set(p) != {"x0", "x1",
+                                                                         "condition"}:
+            raise AssertionError(f"reflow pairs of level {i}: {p['x0'].shape}, {set(p)}")
+        if not all(np.isfinite(v).all() for v in p.values()):
+            raise AssertionError(f"non-finite reflow pairs at level {i}")
+    print(f"prepare_dataset: {n_pairs} pairs per level in batches of "
+          f"{pargs.dataset_prepare_batch_size} ({pargs.dataset_prepare_sampling_steps} Euler "
+          f"steps): {p_seconds:.1f} s", flush=True)
+    rargs, _, _, r_seconds = run_cli(cli, LITE_CLI_REFLOW)
+    reflow_logs = read_jsonl(run / "reflow.jsonl")[-(rargs.reflow_gradient_steps
+                                                     // rargs.log_interval):]
+    if [lg["gradient_steps"] for lg in reflow_logs] != list(range(
+            rargs.log_interval, rargs.reflow_gradient_steps + 1, rargs.log_interval)):
+        raise AssertionError(f"reflow windows {reflow_logs}")
+    if not (run / "reflow_ckpt_latest.invdyn").exists():
+        raise AssertionError("no reflow_ckpt_latest")
+    print(f"reflow: {rargs.reflow_gradient_steps} steps at batch {rargs.batch_size}: "
+          f"{r_seconds:.1f} s; last window "
+          f"{ {k: round(v, 6) for k, v in reflow_logs[-1].items() if k.startswith('loss')} }",
+          flush=True)
+
+    dataset, pipe = cli.build(args, dev)
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset)
+    E = args.num_envs
+    obs = rows_of(dataset.seq_obs, E)
+    for model, prefix, sample_steps in (("R1", "ckpt", 3), ("R2", "reflow_ckpt", 1)):
+        pipe.load(str(run / f"{prefix}_latest"))
+        lat = cli_requests(pipe, obs, N_REQUESTS, sample_steps=sample_steps)
+        prof = profile_request(lambda: pipe.act(obs, sample_steps=sample_steps),
+                               statistics.median(lat[1:]),
+                               [f"diffuserlite.level{i}" for i in range(levels)]
+                               + ["diffuserlite.invdyn"])
+        print(f"{model}: {N_REQUESTS} requests x {E} envs (CFG batch {2 * E}, {sample_steps} "
+              f"Euler step(s) per level) from {prefix}_latest: plan latency ms "
+              f"{[round(v, 3) for v in lat]} (the first one cold); one profiled request: "
+              f"{json.dumps(prof)}", flush=True)
+        noise = lite_noise(pipe, LITE_COMPARE_ENVS, torch.Generator().manual_seed(SEED))
+        card = pipe.act(obs[:LITE_COMPARE_ENVS], sample_steps=sample_steps,
+                        noise=to_device(noise, dev))
+        cpu_pipe.load(str(run / f"{prefix}_latest"))
+        cpu = cpu_pipe.act(obs[:LITE_COMPARE_ENVS], sample_steps=sample_steps, noise=noise)
+        card_against_cpu(f"DiffuserLite mujoco {model}", card, cpu, ("traj",))
+    return no_kernel_launched("the DiffuserLite mujoco CLI phase")
+
+
+def check_diffuserlite_suite_cli(dev, suite: str) -> dict:
+    """DiffuserLite's antmaze or kitchen CLI: `mode=iql_training`, then
+    `mode=training` window by window, then 2 R1 requests (5 Euler steps per
+    level) at 50 envs x the config's candidates, ranked by IQL's V, as the
+    CLI's act function makes them; one held against the CPU. Returns the
+    kernels' launches in the phase (all 0)."""
+    cli, act_fn_name, select_t = LITE_SUITE_CLIS[suite]
+    phase(f"DiffuserLite CLI ({suite}): cli.diffuserlite_d4rl_{suite} mode=iql_training, "
+          "training, then R1 requests")
+    reset_counts()
+    _, run, _, iql_seconds = run_cli(cli, SUITE_LITE_IQL)
+    if not (run / "iql_ckpt_latest.pkl").exists():
+        raise AssertionError("no iql_ckpt_latest.pkl")
+    args, run, logs, seconds = run_cli(cli, SUITE_LITE_TRAIN)
+    steps, levels = args.diffusion_gradient_steps, len(args.task.planning_horizons)
+    if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
+                                                           args.log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    if not all(np.isfinite(lg[f"loss{i}"]) for lg in logs for i in range(levels)):
+        raise AssertionError(f"non-finite window means {logs}")
+    check_checkpoints(run, args, steps, [f"diffusion{i}" for i in range(levels)] + ["invdyn"])
+    print(f"IQL {SUITE_LITE_IQL[1]}: {iql_seconds:.1f} s; {steps} DiffuserLite steps (DiT "
+          f"d_model {args.d_model} x depth {args.depth}, batch {args.batch_size}): {seconds:.1f} "
+          f"s; last window {logs[-1]}", flush=True)
+
+    base, pipe = cli.build(args, dev)
+    pipe.load(str(run / "ckpt_latest"))
+    iql = diffuserlite_d4rl_antmaze.build_iql(args, base, dev)
+    iql.load(str(run / "iql_ckpt_latest.pkl"))
+    E, K, w_cfgs = args.num_envs, args.num_candidates, cli.W_CFGS
+    norm = base.get_normalizer()
+    plan_fn = build_candidate_plan_fn(pipe, iql, E, K, 5, w_cfgs, select_t)
+    act_fn = getattr(cli, act_fn_name)(args, plan_fn, norm,
+                                       torch.Generator(device=dev).manual_seed(SEED))
+    obs = rows_of(base.seq_obs, E)
+    lat = []
+    for _ in range(SUITE_CLI_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        act = act_fn(obs)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if act.shape != (E, pipe.act_dim) or not (np.isfinite(act).all()
+                                                   and np.abs(act).max() <= 1.0):
+            raise AssertionError(f"actions {act.shape} non-finite or outside [-1, 1]")
+    counts = no_kernel_launched(f"the DiffuserLite {suite} CLI phase")
+    print(f"{SUITE_CLI_REQUESTS} R1 requests x {E} envs x {K} candidates: plan latency ms "
+          f"{[round(v, 3) for v in lat]} (the first one cold)", flush=True)
+
+    n = SUITE_COMPARE_ENVS
+    tgt = np.full((n, 1), 0.5, np.float32)
+    noise = lite_noise(pipe, n, torch.Generator().manual_seed(SEED), K)
+    card = build_candidate_plan_fn(pipe, iql, n, K, 5, w_cfgs, select_t)(
+        None, obs[:n], tgt, noise=to_device(noise, dev))
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), base)
+    cpu_pipe.load(str(run / "ckpt_latest"))
+    cpu_iql = diffuserlite_d4rl_antmaze.build_iql(args, base, torch.device("cpu"))
+    cpu_iql.load(str(run / "iql_ckpt_latest.pkl"))
+    cpu = build_candidate_plan_fn(cpu_pipe, cpu_iql, n, K, 5, w_cfgs, select_t)(
+        None, obs[:n], tgt, noise=noise)
+    card_against_cpu(f"DiffuserLite {suite} ({n} envs x {K})", card, cpu,
+                     ("candidates", "scores", "traj"))
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind = check_device()
@@ -2170,13 +2609,20 @@ def main() -> int:
     rl.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
                for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
     check_dql_goal2d(dev)
+    # Diffusion Veteran and DiffuserLite (plain blocks, as the reference
+    # builds them): no kernel launch in these phases
+    planners = {f"veteran_{suite}": check_veteran_cli(dev, suite) for suite in VETERAN_CLIS}
+    planners["diffuserlite_mujoco"] = check_diffuserlite_cli(dev)
+    planners.update({f"diffuserlite_{suite}": check_diffuserlite_suite_cli(dev, suite)
+                     for suite in LITE_SUITE_CLIS})
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,
         # the CLI phases: training through the CLI and serving its checkpoint
-        "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()}},
+        "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()},
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in planners.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         # no single PyTorch call computes any of these blocks or steps

@@ -92,7 +92,11 @@ class BaseClassifier:
 
     def load_jax_checkpoint(self, path):
         """Resume from a checkpoint the JAX classifier's `save` wrote."""
-        ckpt = load_jax_checkpoint(path)
+        self.load_jax_state(load_jax_checkpoint(path))
+
+    def load_jax_state(self, ckpt: dict):
+        """`load_jax_checkpoint` from the fields of a JAX TrainState already
+        read (utils/train_state.py `jax_train_state`)."""
         load_jax_params(self.params, ckpt["params"]["params"])
         load_jax_params(self.ema_params, ckpt["ema_params"]["params"])
         load_adam_moments(self.optimizer.optimizer, self.params, ckpt["mu"]["params"],

@@ -11,6 +11,7 @@ from .d4rl_kitchen import (
     DV_D4RLKitchenSeqDataset,
     MultiHorizonD4RLKitchenDataset,
 )
+from .d4rl_maze2d import D4RLMaze2DTDDataset, DV_D4RLMaze2DSeqDataset
 from .d4rl_mujoco import (
     D4RLMuJoCoDataset,
     D4RLMuJoCoTDDataset,

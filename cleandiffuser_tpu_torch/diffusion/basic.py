@@ -31,6 +31,7 @@ from __future__ import annotations
 import copy
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -143,6 +144,25 @@ class DiffusionModel:
             out = torch.func.functional_call(net, bf16_cast(net), (x, t, emb))
         return out.to(torch.float32)
 
+    def cfg_pred(self, params: nn.ModuleDict, xt, t, emb, w_cfg: float, cfg_mode: str):
+        """The network's prediction under classifier-free guidance: "mix"
+        runs [cond; uncond] in one doubled forward (the unconditional half
+        on a zero embedding) and combines w*cond + (1-w)*uncond, both
+        weights rounded to float32 first as the reference's are; "cond" and
+        "uncond" run one forward with the embedding or without."""
+        if cfg_mode == "mix":
+            b = xt.shape[0]
+            emb2 = None if emb is None else torch.cat([emb, torch.zeros_like(emb)], 0)
+            pred_all = self.apply_diffusion(params, torch.cat([xt, xt], 0),
+                                            torch.cat([t, t], 0), emb2)
+            w = np.float32(w_cfg)
+            return float(w) * pred_all[:b] + float(np.float32(1) - w) * pred_all[b:]
+        if cfg_mode == "cond":
+            return self.apply_diffusion(params, xt, t, emb)
+        if cfg_mode == "uncond":
+            return self.apply_diffusion(params, xt, t, None)
+        raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
+
     def bf16_params(self, params: nn.ModuleDict) -> nn.ModuleDict:
         """`params` (backbone and condition) cast to bf16: the sampler's
         once-per-call cast. The bf16 copy is made at the first call for
@@ -172,12 +192,14 @@ class DiffusionModel:
                 weighted_regression=None):
         raise NotImplementedError
 
-    def update(self, x0, condition=None, noise=None, weighted_regression_tensor=None) -> dict:
+    def update(self, x0, condition=None, noise=None, weighted_regression_tensor=None,
+               **loss_kwargs) -> dict:
         """One gradient step + EMA step. Returns {"loss", "grad_norm"} as
         device scalars. `noise` is the loss's optional explicit draws (see
-        the engine's `loss_fn`)."""
+        the engine's `loss_fn`); `loss_kwargs` go to the engine's `loss_fn`
+        (the rectified flow's reflow source `x1`)."""
         loss = self.loss_fn(self.params, x0, condition, noise=noise, generator=self.generator,
-                            weighted_regression=weighted_regression_tensor)
+                            weighted_regression=weighted_regression_tensor, **loss_kwargs)
         loss.backward()
         grad_norm = self.optimizer.step()
         self.ema_update()

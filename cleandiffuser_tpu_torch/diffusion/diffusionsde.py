@@ -33,7 +33,6 @@ later.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops.solver_update import solver_update_op
@@ -54,12 +53,6 @@ from .vp_solvers import (
 )
 
 __all__ = ["BaseDiffusionSDE", "DiscreteDiffusionSDE", "ContinuousDiffusionSDE"]
-
-
-def _cat_zeros(emb):
-    """Stack [emb; zeros] along batch for the CFG doubled forward: the
-    unconditional half gets a zero embedding."""
-    return None if emb is None else torch.cat([emb, torch.zeros_like(emb)], dim=0)
 
 
 class BaseDiffusionSDE(DiffusionModel):
@@ -146,20 +139,7 @@ class BaseDiffusionSDE(DiffusionModel):
         `bf16_sampling`, `apply_diffusion` casts the network's xt and emb to
         bf16 and brings its prediction back f32; the guidance reads the f32
         xt."""
-        if cfg_mode == "mix":
-            b = xt.shape[0]
-            pred_all = self.apply_diffusion(
-                params, torch.cat([xt, xt], 0), torch.cat([t, t], 0), _cat_zeros(emb))
-            pred, pred_uncond = pred_all[:b], pred_all[b:]
-            # both weights rounded to float32 first, as the reference's are
-            w = np.float32(w_cfg)
-            pred = float(w) * pred + float(np.float32(1) - w) * pred_uncond
-        elif cfg_mode == "cond":
-            pred = self.apply_diffusion(params, xt, t, emb)
-        elif cfg_mode == "uncond":
-            pred = self.apply_diffusion(params, xt, t, None)
-        else:
-            raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
+        pred = self.cfg_pred(params, xt, t, emb, w_cfg, cfg_mode)
         if cg_coef != 0.0:
             _, grad = self.classifier.gradients(cls_params, xt, t, condition_cg)
             pred = pred + cg_coef * grad
@@ -186,6 +166,7 @@ class BaseDiffusionSDE(DiffusionModel):
         use_cg: bool = False,
         final_logp=None,
         fused_update: bool = False,
+        fix_mask=None,
     ):
         """Build the k-step sampler.
 
@@ -194,8 +175,11 @@ class BaseDiffusionSDE(DiffusionModel):
                condition_cg=None, w_cg=0.0) -> (x0, log dict)
 
         `params` is `self.params` or `self.ema_params`, `cls_params` the
-        classifier's. With `bf16_sampling` the sampler casts all of `params`
-        (backbone and condition) to bf16 once per call (`bf16_params`), not
+        classifier's. `fix_mask` (one point's shape) overrides the engine's
+        training mask for this sampler only: inference-time inpainting,
+        such as Veteran's goal pin. With `bf16_sampling` the sampler casts
+        all of `params` (backbone and condition) to bf16 once per call
+        (`bf16_params`), not
         once per step; its solver math stays f32. With `final_logp` (default: whether there is a
         classifier) the log holds "log_p" of the final sample at t = 0.
 
@@ -212,7 +196,8 @@ class BaseDiffusionSDE(DiffusionModel):
             raise ValueError("classifier guidance and final_logp need a classifier")
         if final_logp is None:
             final_logp = self.classifier is not None
-        fix_mask = self.fix_mask
+        fix_mask = (self.fix_mask if fix_mask is None else
+                    torch.as_tensor(fix_mask, dtype=torch.float32, device=self.device)[None])
         ts, alphas, sigmas = self._sample_tables(sample_step_schedule, sample_steps)
         logSNRs = torch.log(alphas / sigmas)
         zero = torch.zeros(1)

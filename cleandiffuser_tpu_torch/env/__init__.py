@@ -8,5 +8,6 @@ from .d4rl_eval import (
     make_maze2d_env,
 )
 from .goal2d import Goal2DEnv, evaluate_policy, normalized_score_fn, optimal_return
+from .maze2d_expert import WaypointController, generate_maze2d_dataset
 from .kitchen import ALL_KITCHEN_TASKS, KitchenLowdimWrapper, make_kitchen_env
 from .wrapper import DuckSyncVectorEnv

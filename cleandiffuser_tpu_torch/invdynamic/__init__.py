@@ -1,1 +1,1 @@
-from .mlp import MlpInvDynamic
+from .mlp import FancyMlpInvDynamic, MlpInvDynamic

@@ -3,6 +3,12 @@
 `MlpInvDynamic` predicts the action that takes o to o_next:
 a = out_activation(MLP([o, o_next])), trained by Adam (optax `adam(lr)`:
 no decay, no clipping) on the mean squared action error.
+`FancyMlpInvDynamic` (DiffuserLite's) is the same harness on a GELU MLP
+(flax's `nn.gelu`, the tanh form) with an optional LayerNorm and an
+optional dropout of 0.1 after its first layer. The dropout runs only in
+`update`, its keep-mask drawn from the agent's own generator (seeded by
+`rng`, on the net's device) or passed explicitly (`keep=`), which is how
+the tests replay the reference's draws.
 """
 
 from __future__ import annotations
@@ -12,13 +18,14 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..utils.blocks import dense, orthogonal_init
+from ..utils.blocks import LayerNorm, dense, orthogonal_init
 from ..utils.jax_params import load_jax_params
 from ..utils.tensors import default_device
 from ..utils.train_state import make_optimizer, read_jax_pickle
 
-__all__ = ["MlpInvDynamic"]
+__all__ = ["MlpInvDynamic", "FancyMlpInvDynamic"]
 
 
 class _InvMlpNet(nn.Module):
@@ -39,24 +46,57 @@ class _InvMlpNet(nn.Module):
         return self.out_activation(self.l3(h))
 
 
+class _FancyInvMlpNet(nn.Module):
+    JAX_NAMES = {"l1": "Dense_0", "l2": "Dense_1", "l3": "Dense_2", "norm": "LayerNorm_0"}
+
+    def __init__(self, in_dim: int, a_dim: int, hidden_dim: int = 256, add_norm: bool = False,
+                 add_dropout: bool = False, out_activation: Callable = torch.tanh,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.l1 = dense(in_dim, hidden_dim, generator=generator)
+        self.norm = LayerNorm(hidden_dim) if add_norm else None
+        self.add_dropout = add_dropout
+        self.l2 = dense(hidden_dim, hidden_dim, generator=generator)
+        self.l3 = dense(hidden_dim, a_dim, generator=generator)
+        self.out_activation = out_activation
+
+    def forward(self, oo, train: bool = False, keep=None,
+                generator: Optional[torch.Generator] = None):
+        h = F.gelu(self.l1(oo), approximate="tanh")
+        if self.norm is not None:
+            h = self.norm(h)
+        if train and self.add_dropout:
+            if keep is None:
+                keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.9
+            h = torch.where(keep, h / 0.9, torch.zeros_like(h))
+        h = F.gelu(self.l2(h), approximate="tanh")
+        return self.out_activation(self.l3(h))
+
+
 class MlpInvDynamic:
     def __init__(self, o_dim: int, a_dim: int, hidden_dim: int = 512,
                  out_activation: Callable = torch.tanh, optim_params: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None, device=None):
-        self.net = _InvMlpNet(2 * o_dim, a_dim, hidden_dim, out_activation,
-                              generator).to(default_device(device))
-        self.optimizer = make_optimizer(self.net.parameters(),
-                                        lr=(optim_params or {}).get("lr", 5e-4),
-                                        weight_decay=0.0, decoupled=False)
+        self._setup(_InvMlpNet(2 * o_dim, a_dim, hidden_dim, out_activation, generator),
+                    (optim_params or {}).get("lr", 5e-4), device)
+
+    def _setup(self, net: nn.Module, lr: float, device):
+        self.net = net.to(default_device(device))
+        self.optimizer = make_optimizer(self.net.parameters(), lr=lr, weight_decay=0.0,
+                                        decoupled=False)
 
     @torch.no_grad()
     def predict(self, o, o_next):
         return self.net(torch.cat([o, o_next], dim=-1))
 
-    def update(self, o, a, o_next) -> dict:
+    def _forward_train(self, oo, keep):
+        return self.net(oo)
+
+    def update(self, o, a, o_next, keep=None) -> dict:
         """One Adam step on mean((net([o, o_next]) - a)^2). Returns
-        {"loss"} as a device scalar."""
-        loss = ((self.net(torch.cat([o, o_next], dim=-1)) - a) ** 2).mean()
+        {"loss"} as a device scalar. `keep` is a net with dropout's
+        explicit keep-mask."""
+        loss = ((self._forward_train(torch.cat([o, o_next], dim=-1), keep) - a) ** 2).mean()
         loss.backward()
         self.optimizer.step()
         return {"loss": loss.detach()}
@@ -78,3 +118,17 @@ class MlpInvDynamic:
         package loads it."""
         load_jax_params(self.net, read_jax_pickle(path)["params"])
         self.optimizer.optimizer.state.clear()
+
+
+class FancyMlpInvDynamic(MlpInvDynamic):
+    def __init__(self, o_dim: int, a_dim: int, hidden_dim: int = 256,
+                 out_activation: Callable = torch.tanh, add_norm: bool = False,
+                 add_dropout: bool = False, optim_params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None, device=None, rng: int = 0):
+        self._setup(_FancyInvMlpNet(2 * o_dim, a_dim, hidden_dim, add_norm, add_dropout,
+                                    out_activation, generator),
+                    (optim_params or {}).get("lr", 3e-4), device)
+        self.generator = torch.Generator(device=default_device(device)).manual_seed(rng)
+
+    def _forward_train(self, oo, keep):
+        return self.net(oo, train=True, keep=keep, generator=self.generator)

@@ -1,6 +1,6 @@
 from .base import timestep_embedding_module
 from .dit import DiT1d, DiTBlock, FinalLayer1d, modulate
-from .mlps import DQLMlp, IDQLMlp, NewIDQLMlp
+from .mlps import DQLMlp, DVInvMlp, IDQLMlp, NewIDQLMlp
 from .jannerunet import (
     Downsample1d,
     JannerUNet1d,

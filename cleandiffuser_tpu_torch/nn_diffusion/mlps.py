@@ -1,6 +1,7 @@
 """MLP diffusion backbones of the diffusion policies (counterpart of
-cleandiffuser_tpu/nn_diffusion/mlps.py): `DQLMlp` (DQL and EDP) and
-`IDQLMlp` / `NewIDQLMlp` (IDQL).
+cleandiffuser_tpu/nn_diffusion/mlps.py): `DQLMlp` (DQL and EDP),
+`IDQLMlp` / `NewIDQLMlp` (IDQL) and `DVInvMlp` (Diffusion Veteran's
+inverse-dynamics policy, conditioned on (s, s')).
 
     pred = net(x, t, emb=None)                      # (b, act_dim)
     pred = net(x, t, emb, train=True, generator=g)  # IDQLMlp: dropout on
@@ -13,8 +14,7 @@ trees onto them. `IDQLMlp`'s dropout runs only with `train=True`, its keep
 mask drawn from the explicit generator (flax's `Dropout`: keep with
 probability 1 - p, kept entries scaled by 1 / (1 - p)).
 
-`MlpNNDiffusion` and `DVInvMlp` come with SynthER and Veteran (ROADMAP
-queue 1, items 5 and 6).
+`MlpNNDiffusion` comes with SynthER (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from ..utils.blocks import LayerNorm, dense
 from ..utils.embeddings import mish
 from .base import timestep_embedding_module
 
-__all__ = ["DQLMlp", "IDQLMlp", "NewIDQLMlp"]
+__all__ = ["DQLMlp", "IDQLMlp", "NewIDQLMlp", "DVInvMlp"]
 
 
 def _time_emb_names(module: nn.Module) -> dict:
@@ -132,3 +132,28 @@ class IDQLMlp(nn.Module):
 
 def NewIDQLMlp(**kwargs) -> IDQLMlp:
     return IDQLMlp(final_mish=True, **kwargs)
+
+
+class DVInvMlp(nn.Module):
+    """(b, act) x (b, 2 obs) -> (b, act): [x, time, (s, s')] through three
+    Mish Dense layers of `hidden_dim`. The condition is required."""
+
+    def __init__(self, obs_dim: int, act_dim: int, emb_dim: int = 16, hidden_dim: int = 256,
+                 timestep_emb_type: str = "positional", timestep_emb_params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.time_emb = timestep_embedding_module(emb_dim, timestep_emb_type, timestep_emb_params,
+                                                  generator)
+        self.time_mlp = _TimeMlp(emb_dim, generator)
+        dims = (act_dim + emb_dim + 2 * obs_dim, hidden_dim, hidden_dim, hidden_dim, act_dim)
+        self.layers = nn.ModuleList(
+            dense(i, o, generator=generator) for i, o in zip(dims[:-1], dims[1:]))
+        self.JAX_NAMES = {**_time_emb_names(self), "layers": "Dense_{}"}
+
+    def forward(self, x, t, emb=None):
+        if emb is None:
+            raise ValueError("DVInvMlp requires the (s, s') condition")
+        h = torch.cat([x, self.time_mlp(self.time_emb(t)), emb], dim=-1)
+        for layer in self.layers[:-1]:
+            h = mish(layer(h))
+        return self.layers[-1](h)

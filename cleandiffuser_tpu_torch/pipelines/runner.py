@@ -38,26 +38,33 @@ import torch
 from ..utils.logger import Logger
 from ..utils.tensors import default_device
 
-__all__ = ["train_loop", "train_window", "planner_window_fn", "make_rl_train_scan",
+__all__ = ["train_loop", "step_window", "train_window", "planner_window_fn", "make_rl_train_scan",
            "rl_window_fn", "d4rl_eval_loop", "step_generator"]
 
 
-def train_window(step_fn: Callable, dataset, batch_size: int, n_steps: int,
-                 keys: Sequence[str], device) -> Callable:
-    """`run(generator) -> log`: `n_steps` x `step_fn(dataset.sample_batch(
-    generator, batch_size))`, the logs' `keys` summed on the device (a key a
-    step does not log, such as a budget-gated second model's loss past its
-    budget, enters as 0) and returned as window means, device scalars. No
-    host sync inside the window."""
+def step_window(step_fn: Callable[[torch.Generator], Dict[str, torch.Tensor]], n_steps: int,
+                keys: Sequence[str], device) -> Callable:
+    """`run(generator) -> log`: `n_steps` x `step_fn(generator)`, the logs'
+    `keys` summed on the device (a key a step does not log, such as a
+    budget-gated second model's loss past its budget, enters as 0) and
+    returned as window means, device scalars. No host sync inside the
+    window."""
     def run(generator: torch.Generator) -> Dict[str, torch.Tensor]:
         acc = {k: torch.zeros((), device=device) for k in keys}
         for _ in range(n_steps):
-            log = step_fn(dataset.sample_batch(generator, batch_size))
-            for k, v in log.items():
+            for k, v in step_fn(generator).items():
                 acc[k] = acc[k] + v
         return {k: v / n_steps for k, v in acc.items()}
 
     return run
+
+
+def train_window(step_fn: Callable, dataset, batch_size: int, n_steps: int,
+                 keys: Sequence[str], device) -> Callable:
+    """`step_window` of `step_fn(dataset.sample_batch(generator,
+    batch_size))`: a step on one batch gathered on the device."""
+    return step_window(lambda g: step_fn(dataset.sample_batch(g, batch_size)), n_steps, keys,
+                       device)
 
 
 def _mesh_window_ok(args, mesh) -> bool:

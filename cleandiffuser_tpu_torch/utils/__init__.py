@@ -1,4 +1,4 @@
-from .blocks import dense, xavier_uniform_init
+from .blocks import DVHorizonCritic, DVTransformerBlock, IDQLVNet, dense, xavier_uniform_init
 from .embeddings import (
     SUPPORTED_TIMESTEP_EMBEDDING,
     FourierEmbedding,

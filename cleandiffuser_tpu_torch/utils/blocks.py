@@ -16,7 +16,10 @@ kernel reads the conv weights as they are stored.
 The MLPs and critics of the RL pipelines (`Mlp`, `DQLCritic`, `TwinQ`,
 `V`) name their children as flax does (`q1_model` / `q2_model`, `Q1` /
 `Q2`, `Dense_i`, `LayerNorm_i`), so the converter maps them onto the JAX
-param trees.
+param trees. So do Diffusion Veteran's critic transformer
+(`DVHorizonCritic` of `DVTransformerBlock`s) and its attention, whose
+`DenseGeneral` projections load flax's `MultiHeadDotProductAttention`
+kernels, (D, heads, head_dim) and (heads, head_dim, D).
 
 Type promotion. PyTorch does not promote inside a product (`f32 @ bf16`
 raises), while `jnp` and flax's `Dense` cast the operands to their common
@@ -53,6 +56,10 @@ __all__ = [
     "DQLCritic",
     "TwinQ",
     "V",
+    "IDQLVNet",
+    "DenseGeneral",
+    "DVTransformerBlock",
+    "DVHorizonCritic",
 ]
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
@@ -275,3 +282,118 @@ class V(_QHead):
     def __init__(self, obs_dim: int, hidden_dim: int = 256,
                  generator: Optional[torch.Generator] = None):
         super().__init__(obs_dim, hidden_dim, (F.mish, F.mish), generator)
+
+
+IDQLVNet = V
+
+
+# ---------------------------------------------------------------------------
+# Diffusion Veteran's critic transformer
+class DenseGeneral(Dense):
+    """flax `nn.DenseGeneral` over flattened features: a `Dense` whose flax
+    kernel and bias have the shapes `jax_shapes` gives ("weight": the
+    kernel's, "bias": the bias'), e.g. (D, heads, head_dim) for an
+    attention query. utils/jax_params.py reshapes between the two."""
+
+    def __init__(self, in_features: int, out_features: int, kernel_shape, bias_shape,
+                 device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.jax_shapes = {"weight": tuple(kernel_shape), "bias": tuple(bias_shape)}
+
+
+@torch.no_grad()
+def _dense_general(in_dim: int, out_dim: int, kernel_shape, bias_shape,
+                   generator: Optional[torch.Generator] = None) -> DenseGeneral:
+    """flax's default init of a DenseGeneral: lecun normal on the kernel's
+    fan-in (`in_dim`), zero bias."""
+    layer = nn.utils.skip_init(DenseGeneral, in_dim, out_dim, kernel_shape, bias_shape)
+    lecun_normal_init(layer.weight, generator, fan_in=in_dim)
+    zeros_init(layer.bias)
+    return layer
+
+
+class _MultiHeadAttention(nn.Module):
+    """flax `nn.MultiHeadDotProductAttention(num_heads, qkv_features=D)` on
+    (b, L, D), no mask and no dropout: softmax(q k^T / sqrt(head_dim)) v per
+    head, heads concatenated, then the output projection."""
+
+    def __init__(self, d_model: int, n_heads: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hd = d_model // n_heads
+        self.n_heads = n_heads
+        for name in ("query", "key", "value"):
+            setattr(self, name, _dense_general(d_model, d_model, (d_model, n_heads, hd),
+                                               (n_heads, hd), generator))
+        self.out = _dense_general(d_model, d_model, (n_heads, hd, d_model), (d_model,),
+                                  generator)
+
+    def forward(self, x):
+        b, L, D = x.shape
+        heads = lambda h: h.view(b, L, self.n_heads, D // self.n_heads)
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        q = q / math.sqrt(D // self.n_heads)
+        attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, L, D))
+
+
+def _plain_layer_norm(x):
+    """flax `nn.LayerNorm(use_bias=False, use_scale=False, epsilon=1e-6)`."""
+    return F.layer_norm(x, x.shape[-1:], eps=1e-6)
+
+
+class DVTransformerBlock(nn.Module):
+    """Diffusion Veteran's critic block. "post": x = LN(x + attn(x)),
+    x = LN(x + mlp(x)); "pre": x = LN(x), x = x + attn(x), x = x +
+    mlp(LN(x)) (the residual is the normed x, as in the reference). The MLP
+    is Dense(4D), tanh-GELU, Dense(D); the norms have no scale or bias."""
+
+    JAX_NAMES = {"attn": "MultiHeadDotProductAttention_0", "mlp1": "Dense_0",
+                 "mlp2": "Dense_1"}
+
+    def __init__(self, hidden_size: int, n_heads: int, norm_type: str = "post",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if norm_type not in ("post", "pre"):
+            raise NotImplementedError(norm_type)
+        self.norm_type = norm_type
+        self.attn = _MultiHeadAttention(hidden_size, n_heads, generator)
+        self.mlp1 = dense(hidden_size, 4 * hidden_size, generator=generator)
+        self.mlp2 = dense(4 * hidden_size, hidden_size, generator=generator)
+
+    def mlp(self, x):
+        return self.mlp2(F.gelu(self.mlp1(x), approximate="tanh"))
+
+    def forward(self, x):
+        if self.norm_type == "post":
+            x = _plain_layer_norm(x + self.attn(x))
+            return _plain_layer_norm(x + self.mlp(x))
+        x = _plain_layer_norm(x)
+        x = x + self.attn(x)
+        return x + self.mlp(_plain_layer_norm(x))
+
+
+class DVHorizonCritic(nn.Module):
+    """(b, H, in_dim) trajectory -> (b, 1) value: Dense(d_model) plus the
+    sinusoidal position, `depth` DVTransformerBlocks, Dense(1), token 0."""
+
+    JAX_NAMES = {"proj": "Dense_0", "blocks": "DVTransformerBlock_{}", "head": "Dense_1"}
+
+    def __init__(self, in_dim: int, emb_dim: int, d_model: int = 384, n_heads: int = 6,
+                 depth: int = 12, norm_type: str = "post",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        del emb_dim  # the reference's signature; unused there too
+        self.d_model = d_model
+        self.proj = dense(in_dim, d_model, xavier_uniform_init, generator=generator)
+        self.blocks = nn.ModuleList(
+            DVTransformerBlock(d_model, n_heads, norm_type, generator) for _ in range(depth))
+        self.head = dense(d_model, 1, xavier_uniform_init, generator=generator)
+
+    def forward(self, x):
+        from .embeddings import sinusoidal_features
+
+        pos = sinusoidal_features(torch.arange(x.shape[1], device=x.device), self.d_model)
+        x = self.proj(x) + pos[None]
+        for block in self.blocks:
+            x = block(x)
+        return self.head(x)[:, 0, :]

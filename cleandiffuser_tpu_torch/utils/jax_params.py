@@ -18,6 +18,12 @@ Leaves keep their names, except for two torch layers:
   where torch convolves, so torch's `(Cin, Cout, K)` weight is the kernel
   flipped along K: `w = kernel[::-1].transpose(1, 2, 0)`.
 
+- a `DenseGeneral` (utils/blocks.py; flax's `MultiHeadDotProductAttention`
+  projections) keeps its flax kernel and bias shapes in `jax_shapes`: the
+  query, key and value kernels are (D, heads, head_dim), the output's
+  (heads, head_dim, D), both row-major flattenings of the torch `(in, out)`
+  matrix's transpose, and the biases (heads, head_dim) or (D,).
+
 flax `Conv`, `GroupNorm` and `LayerNorm` map onto the port's channels-last
 `Conv1d`, `GroupNorm` and `LayerNorm` (utils/blocks.py), which keep flax's
 names and layouts (`kernel` (K, Cin, Cout), `bias`, `scale`), so their
@@ -44,6 +50,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from .blocks import DenseGeneral
 
 __all__ = [
     "flat_from_nested",
@@ -104,7 +112,12 @@ def _leaves(tree: dict, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def _to_torch(arr: np.ndarray, layout: str) -> np.ndarray:
+def _to_torch(arr: np.ndarray, layout, shape=None) -> np.ndarray:
+    if isinstance(layout, tuple):  # DenseGeneral: (flax shape, torch shape)
+        torch_shape = layout[1]
+        if len(torch_shape) == 2:  # weight (out, in) from a kernel (..in.., ..out..)
+            return arr.reshape(torch_shape[1], torch_shape[0]).T
+        return arr.reshape(torch_shape)
     if layout == "dense":
         return arr.T
     if layout == "conv_transpose":
@@ -112,7 +125,9 @@ def _to_torch(arr: np.ndarray, layout: str) -> np.ndarray:
     return arr
 
 
-def _to_jax(arr: np.ndarray, layout: str) -> np.ndarray:
+def _to_jax(arr: np.ndarray, layout) -> np.ndarray:
+    if isinstance(layout, tuple):
+        return (arr.T if arr.ndim == 2 else arr).reshape(layout[0])
     if layout == "dense":
         return arr.T
     if layout == "conv_transpose":
@@ -123,7 +138,8 @@ def _to_jax(arr: np.ndarray, layout: str) -> np.ndarray:
 def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
     """flax path of the port's state_dict entry `key`, and how the array's
     layout differs between the two: "dense" (an nn.Linear weight),
-    "conv_transpose" (an nn.ConvTranspose1d weight) or "" (the same)."""
+    "conv_transpose" (an nn.ConvTranspose1d weight), a (flax shape, torch
+    shape) pair (a DenseGeneral's weight or bias) or "" (the same)."""
     *names, leaf = key.split(".")
     path, m, i = [], model, 0
     while i < len(names):
@@ -137,6 +153,9 @@ def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
             path.append(table.get(names[i], names[i]))
             m = child
             i += 1
+    if isinstance(m, DenseGeneral):
+        layout = (m.jax_shapes[leaf], tuple(getattr(m, leaf).shape))
+        return tuple(path) + ("kernel" if leaf == "weight" else leaf,), layout
     layout = ("dense" if isinstance(m, nn.Linear) else
               "conv_transpose" if isinstance(m, nn.ConvTranspose1d) else "")
     if layout and leaf == "weight":

@@ -183,12 +183,19 @@ def train_state_dict(params: nn.Module, ema_params: nn.Module, optimizer: TrainO
 def load_train_state_dict(state: dict, params: nn.Module, ema_params: nn.Module,
                           optimizer: TrainOptimizer,
                           generator: Optional[torch.Generator] = None) -> int:
-    """Restore a `train_state_dict` in place; returns the step."""
+    """Restore a `train_state_dict` in place; returns the step. The
+    generator's state is restored when the checkpoint's comes from a
+    generator of the same kind (a CUDA generator's state is its seed and
+    offset, a CPU generator's the whole Mersenne state): a checkpoint
+    written on the card and read on the CPU, or the other way round, keeps
+    the reading generator's stream."""
     params.load_state_dict(state["params"])
     ema_params.load_state_dict(state["ema_params"])
     optimizer.load_state_dict(state["optimizer"])
-    if generator is not None and state["generator"] is not None:
-        generator.set_state(state["generator"])
+    saved = state["generator"]
+    if (generator is not None and saved is not None
+            and saved.numel() == generator.get_state().numel()):
+        generator.set_state(saved)
     return state["step"]
 
 
@@ -224,8 +231,8 @@ _OPTAX_FIELDS = {
 }
 _JAX_MODULES = ("cleandiffuser_tpu", "optax", "flax", "jax")
 # the flax.struct dataclasses of the JAX package's checkpoints: the engines'
-# TrainState and the RL pipelines' critic states
-_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState")
+# TrainState, the RL pipelines' critic states and Veteran's EV state
+_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState", "EVState")
 
 
 class _StandIn:
