@@ -3,7 +3,8 @@ planning and Diffuser planning at the shipped widths, through the
 hand-written Hopper kernels, and the DQL, IDQL and EDP diffusion policies
 (MLPs, no kernel) through their CLIs; the CLIs of the D4RL antmaze and
 kitchen suites, AdaptDiffuser's, and Diffusion Veteran's and DiffuserLite's
-(plain blocks, no kernel).
+(plain blocks, no kernel); SfBC's, QGPO's and SynthER's CLIs and the
+staged consistency policy (MLPs, no kernel).
 
     python3 chip_smoke.py
 
@@ -217,6 +218,39 @@ Phases, each of which raises on failure (exit code != 0):
                candidates ranked by IQL's V through the CLI's act function,
                one request against the CPU at 2 envs. No kernel launch in
                phases 20-21 (every count reads 0).
+22. SfBC CLI - `cli.sfbc_d4rl_mujoco` on configs/sfbc/mujoco
+               (SfBCUNet (512, 256, 128), critic 256): `mode=bc_training`
+               (500 steps in windows of 125 at 32 x 32 rows; the save grid),
+               `mode=critic_training` (2 iterations of 200 steps: one
+               Monte-Carlo re-evaluation of every path of the data, 16
+               samples per cell, timed), then `ckpt_critic` served at 50
+               envs x 32 candidates (top-4 mean), one request profiled and
+               one at 10 envs held against the CPU (candidates and critic
+               scores within PLAN_ATOL, the same top-4 where apart).
+23. QGPO CLI - `cli.qgpo_d4rl_mujoco` on configs/qgpo/mujoco: every stage:
+               500 BC steps, the support of all 100,000 next states in
+               batches of 5,000 states (80,000 rows x 10 ddpm steps, timed),
+               500 Q and 500 CEP steps in windows on the shared store, then
+               guided requests (the task's `w_cg`, final log p) at 50 envs,
+               one profiled and one held against the CPU.
+24. SynthER CLIs - `cli.synther_d4rl_{mujoco,antmaze,kitchen}`: every
+               mode: `train_diffusion` (MuJoCo 500 steps, the others 100),
+               `transition_generation` (MuJoCo one 100,000-row batch of 128
+               ddpm steps: its seconds and TFLOP/s; the others 10,000),
+               `train_td3bc` (1,000 / 200 steps; the actor's and targets'
+               updates read against `policy_freq`), then TD3+BC requests at
+               50 envs held against the CPU, and an 8-row generation chunk
+               held to a float64 run of it (the card's error within
+               GEN_ERR_FACTOR of the CPU's float32 error).
+25. consistency policy - `cli.sp_consistency_policy` (the tutorial's
+               sizes), then the hermetic gate of
+               tests/test_hermetic_parity.py:160 on the card (IQL 2000, EDM
+               3000 and distillation 2000 steps at batch 128; the EDM
+               teacher at 5 Euler steps >= 0.85, the 2-NFE student >= 0.80
+               over 128 episodes with 32 candidates), then 5 requests at 50
+               envs x 32 candidates with the CD model at 2 NFE and the EDM
+               at 5 Euler and 5 Heun steps, each profiled and held against
+               the CPU. No kernel launch in phases 22-25.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
@@ -225,8 +259,8 @@ Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
-phases by CLI and part (`cli_launches`: the Veteran and DiffuserLite
-phases' read 0), error and times
+phases by CLI and part (`cli_launches`: the Veteran, DiffuserLite, SfBC,
+QGPO, SynthER and consistency-policy phases' read 0), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -279,6 +313,12 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     idql_d4rl_antmaze,
     idql_d4rl_kitchen,
     idql_d4rl_mujoco,
+    qgpo_d4rl_mujoco,
+    sfbc_d4rl_mujoco,
+    sp_consistency_policy,
+    synther_d4rl_antmaze,
+    synther_d4rl_kitchen,
+    synther_d4rl_mujoco,
     veteran_d4rl_antmaze,
     veteran_d4rl_kitchen,
     veteran_d4rl_maze2d,
@@ -311,7 +351,14 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
     solver_update_reference,
 )
 from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
-from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline, DQLPipeline  # noqa: E402
+from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
+    ConsistencyPolicyPipeline,
+    DDPipeline,
+    DiffuserPipeline,
+    DQLPipeline,
+    SfBCPipeline,
+    SynthERPipeline,
+)
 from cleandiffuser_tpu_torch.pipelines.diffuserlite_value import (  # noqa: E402
     build_candidate_plan_fn,
 )
@@ -450,6 +497,44 @@ SUITE_LITE_IQL = ("mode=iql_training", "iql_gradient_steps=100", "log_interval=5
 SUITE_LITE_TRAIN = ("mode=training", "diffusion_gradient_steps=20", "invdyn_gradient_steps=10",
                     "log_interval=10", "save_interval=20")
 LITE_COMPARE_ENVS = 50
+# SfBC, QGPO and SynthER (configs/{sfbc,qgpo,synther}/*) and the consistency
+# policy through their entry points, no kernel on their path (MLPs). SfBC:
+# 500 BC steps in 4 windows at 32 x 32 rows, then two in-sample-planning
+# iterations of 200 critic steps (one Monte-Carlo re-evaluation of every
+# path); QGPO: 500 BC steps, the support of every next state (batches of
+# 5,000 states x K 16), 500 Q and 500 CEP steps in windows; SynthER MuJoCo:
+# 500 diffusion steps, one 100,000-row generation batch of 128 ddpm steps,
+# 1,000 TD3+BC steps; SynthER antmaze and kitchen: 100 steps, one 10,000-row
+# batch, 200 TD3+BC steps, 2 requests. A request is held against the same
+# request on the port's CPU path with the same explicit noise at
+# RL2_COMPARE_ENVS envs (SynthER's also one generation chunk).
+SFBC_CLI_BC = ("mode=bc_training", "bc_gradient_steps=500", "log_interval=125",
+               "save_interval=250")
+SFBC_CLI_CRITIC = ("mode=critic_training", "q_training_iters=2", "critic_gradient_steps=200",
+                   "log_interval=100")
+QGPO_CLI_BC = ("mode=bc_training", "bc_gradient_steps=500", "log_interval=125",
+               "save_interval=250")
+QGPO_CLI_STAGE = ("q_gradient_steps=500", "cep_gradient_steps=500", "log_interval=125")
+SYNTHER_CLI = {"mujoco": (("diffusion_gradient_steps=500", "log_interval=125",
+                           "save_interval=250"), 100_000,
+                          ("td3bc_gradient_steps=1000", "log_interval=250",
+                           "save_interval=1000"), N_REQUESTS),
+               "suite": (("diffusion_gradient_steps=100", "log_interval=50",
+                          "save_interval=100"), 10_000,
+                         ("td3bc_gradient_steps=200", "log_interval=100",
+                          "save_interval=200"), SUITE_CLI_REQUESTS)}
+RL2_COMPARE_ENVS, SYNTHER_COMPARE_ROWS = 10, 8
+# SynthER's generation runs 128 ddpm steps of a 1024-wide net with no
+# clipping: float32 rounding grows along the chain (the card's and the CPU's
+# float32 runs of a 16-row chunk differed by 4.2e-3 on the H100), so it is
+# held to a float64 run of it: the card's error within this factor of the
+# CPU's own float32 error
+GEN_ERR_FACTOR = 4.0
+# the hermetic consistency-policy gate (tests/test_hermetic_parity.py:160):
+# IQL, EDM and distillation steps at batch 128, the teacher's and the 2-NFE
+# student's bars; then requests at 50 envs x 32 candidates
+CP_STEPS, CP_BATCH, CP_TEACHER_BAR, CP_STUDENT_BAR = (2000, 3000, 2000), 128, 0.85, 0.80
+CP_REQUESTS = (("cd", 2), ("edm", 5), ("edm_heun", 5))
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
@@ -1642,20 +1727,25 @@ def check_checkpoints(run: Path, args, steps: int, parts) -> list:
 
 
 def cli_requests(pipe, obs: np.ndarray, n: int, **kw) -> list:
-    """n `act` requests as the CLIs' evaluation makes them (normalised numpy
-    observations in, numpy actions out: the planners' `act` returns
-    (actions, info), the policies' the actions), each checked; per-request
-    ms."""
+    """n `pipe.act` requests as the CLIs' evaluation makes them, each
+    checked (`act_requests`); per-request ms."""
+    return act_requests(lambda o: pipe.act(o, **kw), obs, n, pipe.act_dim)
+
+
+def act_requests(act, obs: np.ndarray, n: int, act_dim: int) -> list:
+    """n requests of an act function (normalised numpy observations in,
+    actions out: the planners' `act` returns (actions, info), the policies'
+    the actions), each checked; per-request ms."""
     lat = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe.act(obs, **kw)
-        act = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
+        out = act(obs)
+        a = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
         lat.append((time.perf_counter() - t0) * 1e3)
-        if act.shape != (obs.shape[0], pipe.act_dim):
-            raise AssertionError(f"actions {act.shape}")
-        if not (np.isfinite(act).all() and np.abs(act).max() <= 1.0):
+        if a.shape != (obs.shape[0], act_dim):
+            raise AssertionError(f"actions {a.shape}")
+        if not (np.isfinite(a).all() and np.abs(a).max() <= 1.0):
             raise AssertionError("actions non-finite or outside [-1, 1]")
     return lat
 
@@ -2572,6 +2662,389 @@ def check_diffuserlite_suite_cli(dev, suite: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# SfBC, QGPO, SynthER and the consistency policy: the entry points, no kernel
+class timed_calls:
+    """Patch the method `owner.name` for the block so that each call is
+    timed (seconds, the device synchronised around it) and kept with its
+    arguments (self first) and return: the phases read what a CLI's
+    pipeline did inside `pipeline(args)`."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        self.orig = fn = self.owner.__dict__[self.name]
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0, a, out))
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def check_window_logs(logs: list, steps: int, log_interval: int, keys) -> None:
+    if [lg["gradient_steps"] for lg in logs] != list(range(log_interval, steps + 1,
+                                                           log_interval)):
+        raise AssertionError(f"log windows at {[lg['gradient_steps'] for lg in logs]}")
+    if not all(np.isfinite(lg[k]) for lg in logs for k in keys):
+        raise AssertionError(f"non-finite window means {logs}")
+
+
+def served(act, obs, n: int, label: str, act_dim: int, reps: int = 1) -> dict:
+    """One cold request, then `n` timed; each checked; then `reps` more
+    profiled together (a request of under a millisecond is profiled 20 at
+    a time), device busy per request. Returns the latencies, their median
+    and the profile."""
+    cold = act_requests(act, obs, 1, act_dim)
+    lat = act_requests(act, obs, n, act_dim)
+    median = statistics.median(lat)
+    prof = profile_request(lambda: [act(obs) for _ in range(reps)], median * reps, ())
+    prof["device_busy_ms"] /= reps
+    prof["median_latency_ms"] = median
+    print(f"{label}: {n} requests x {obs.shape[0]} envs: latency ms "
+          f"{[round(v, 3) for v in lat]} (median {median:.3f}; cold {cold[0]:.3f}); one "
+          f"profiled request: {json.dumps(prof)}", flush=True)
+    return {"latency_ms": lat, "median_ms": median, "profile": prof}
+
+
+def sampler_noise(rows: int, dim: int, steps: int, gen: torch.Generator) -> tuple:
+    """An SDE sampler's explicit draws for `rows` x `dim`: (initial,
+    per_step)."""
+    return (torch.randn((rows, dim), generator=gen),
+            torch.randn((steps, rows, dim), generator=gen))
+
+
+def check_sfbc_cli(dev) -> dict:
+    """SfBC's CLI as users run it: `mode=bc_training` window by window,
+    `mode=critic_training` (two in-sample-planning iterations: one
+    Monte-Carlo re-evaluation of every path of the data), then
+    `ckpt_critic` served at 50 envs x 32 candidates, one request profiled and
+    one held against the CPU. Returns the kernels' launches (all 0)."""
+    cli = sfbc_d4rl_mujoco
+    phase("SfBC CLI: cli.sfbc_d4rl_mujoco mode=bc_training, critic_training, then act")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, SFBC_CLI_BC)
+    steps = args.bc_gradient_steps
+    check_window_logs(logs, steps, args.log_interval, ("loss", "grad_norm"))
+    check_checkpoints(run, args, steps, ("actor", "critic"))
+    print(f"bc_training: {steps} steps in {len(logs)} windows at batch {args.batch_size} x "
+          f"horizon 32 = {args.batch_size * 32} rows (SfBCUNet (512, 256, 128), emb 64): "
+          f"{seconds:.1f} s with set-up and saves; steps/s per window "
+          f"{[lg['steps_per_sec'] for lg in logs]}; last loss {logs[-1]['loss']:.4f}", flush=True)
+    with timed_calls(SfBCPipeline, "monte_carlo_reevaluate") as mc:
+        cargs, _, _, c_seconds = run_cli(cli, SFBC_CLI_CRITIC)
+    crit = read_jsonl(run / "critic_training.jsonl")[-2 * (cargs.critic_gradient_steps
+                                                             // cargs.log_interval):]
+    if [(lg["iter"], lg["gradient_steps"]) for lg in crit] != [
+            (i, s) for i in range(cargs.q_training_iters)
+            for s in range(cargs.log_interval, cargs.critic_gradient_steps + 1,
+                           cargs.log_interval)] or not all(np.isfinite(lg["critic_loss"])
+                                                           for lg in crit):
+        raise AssertionError(f"critic windows {crit}")
+    if len(mc.calls) != cargs.q_training_iters - 1 or not (run / "ckpt_critic.critic").exists():
+        raise AssertionError(f"{len(mc.calls)} re-evaluations; ckpt_critic missing?")
+    mc_s, (_, seq_obs, *_), (target, _) = mc.calls[0]
+    rows = seq_obs.shape[0] * seq_obs.shape[1] * cargs.monte_carlo_samples
+    if target.shape != (seq_obs.shape[0], seq_obs.shape[1], 1) or not np.isfinite(target).all():
+        raise AssertionError(f"re-evaluated targets {target.shape} non-finite?")
+    print(f"critic_training: {cargs.q_training_iters} iterations x "
+          f"{cargs.critic_gradient_steps} steps: {c_seconds:.1f} s; the re-evaluation of "
+          f"{seq_obs.shape[0]} paths x {seq_obs.shape[1]} steps x {cargs.monte_carlo_samples} "
+          f"samples ({rows} rows, {cargs.eval_actor_sampling_steps} ddpm steps, 8 paths per "
+          f"call): {mc_s:.2f} s; critic loss per window "
+          f"{[round(lg['critic_loss'], 4) for lg in crit]}", flush=True)
+
+    dataset, pipe = cli.build(args, dev)
+    pipe.load(str(run / "ckpt_critic"))
+    obs = rows_of(dataset.seq_obs, args.num_envs)
+    serve = served(cli.act_fn(pipe, args), obs, N_REQUESTS,
+                   f"SfBC ({args.num_candidates} candidates, top {args.top_k_average}, "
+                   f"{args.sampling_steps} ddpm steps)", pipe.act_dim)
+    counts = no_kernel_launched("the SfBC CLI phase")
+
+    n, K, k = RL2_COMPARE_ENVS, args.num_candidates, args.top_k_average
+    noise = sampler_noise(n * K, pipe.act_dim, args.sampling_steps,
+                          torch.Generator().manual_seed(SEED))
+    kw = dict(num_candidates=K, top_k_average=k, sampling_steps=args.sampling_steps,
+              temperature=args.temperature, return_info=True)
+    act_c, info_c = pipe.act(obs[:n], noise=to_device(noise, dev), **kw)
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset)
+    cpu_pipe.load(str(run / "ckpt_critic"))
+    act_p, info_p = cpu_pipe.act(obs[:n], noise=noise, **kw)
+    gaps = {key: (info_c[key].cpu() - info_p[key]).abs().max().item()
+            for key in ("candidates", "scores")}
+    # the top-k set is the same wherever the k-th and the (k+1)-th scores are apart
+    srt = info_p["scores"].sort(dim=-1, descending=True).values
+    clear = (srt[:, k - 1] - srt[:, k]) > 2 * PLAN_ATOL
+    same = (info_c["idx"].cpu().sort(-1).values == info_p["idx"].sort(-1).values).all(-1)
+    if not same[clear].all():
+        raise AssertionError("SfBC: the card's top-k differs from the CPU's where apart")
+    gaps["act"] = (act_c.cpu()[same] - act_p[same]).abs().max().item()
+    print(f"SfBC ({n} envs x {K}): card against CPU, same noise (TF32 off): max |diff| "
+          f"{gaps} (limit {PLAN_ATOL}); top-k sets equal {int(same.sum())}/{n}", flush=True)
+    if not all(v <= PLAN_ATOL for v in gaps.values()):
+        raise AssertionError(f"SfBC: card and CPU differ: {gaps}")
+    return counts
+
+
+def check_qgpo_cli(dev) -> dict:
+    """QGPO's CLI, every stage: `bc_training` window by window, the support
+    of every next state (5,000 states x K per sampler call), the Q and CEP
+    stages in windows on the shared store, then guided requests at 50 envs
+    (`w_cg` from the task), one profiled and one held against the CPU.
+    Returns the kernels' launches (all 0)."""
+    cli = qgpo_d4rl_mujoco
+    phase("QGPO CLI: cli.qgpo_d4rl_mujoco bc_training, supported_action_collecting, "
+          "q_training, cep_training, then act")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, QGPO_CLI_BC)
+    steps = args.bc_gradient_steps
+    check_window_logs(logs, steps, args.log_interval, ("loss", "grad_norm"))
+    if not (run / "diffusion_ckpt_latest").exists():
+        raise AssertionError("no diffusion_ckpt_latest")
+    print(f"bc_training: {steps} steps at batch {cli.BATCH}: {seconds:.1f} s; steps/s per "
+          f"window {[lg['steps_per_sec'] for lg in logs]}", flush=True)
+    with timed_calls(qgpo_d4rl_mujoco.QGPOPipeline, "collect_supported_actions") as col:
+        _, _, _, s_seconds = run_cli(cli, ("mode=supported_action_collecting",))
+    sup = np.load(run / "supported_act.npy")
+    N = sup.shape[0]
+    if sup.shape != (N, args.K, 6) or not (np.isfinite(sup).all() and np.abs(sup).max() <= 1):
+        raise AssertionError(f"support {sup.shape} non-finite or outside [-1, 1]")
+    batches = -(-N // cli.COLLECT_BATCH)
+    print(f"supported_action_collecting: {N} states x K {args.K} in {batches} batches of "
+          f"{cli.COLLECT_BATCH} states ({cli.COLLECT_BATCH * args.K} rows x 10 ddpm steps each): "
+          f"{col.calls[0][0]:.2f} s ({s_seconds:.1f} s with set-up)", flush=True)
+    for stage, keys in (("q_training", ("q_loss",)),
+                        ("cep_training", ("loss", "f_max", "f_mean", "f_min"))):
+        sargs, _, _, st_seconds = run_cli(cli, (f"mode={stage}", *QGPO_CLI_STAGE))
+        n_steps = sargs.q_gradient_steps if stage == "q_training" else sargs.cep_gradient_steps
+        st_logs = read_jsonl(run / f"{stage}.jsonl")[-(n_steps // sargs.log_interval):]
+        check_window_logs(st_logs, n_steps, sargs.log_interval, keys)
+        print(f"{stage}: {n_steps} steps at batch {cli.BATCH} in windows of "
+              f"{sargs.log_interval}: {st_seconds:.1f} s; steps/s per window "
+              f"{[lg['steps_per_sec'] for lg in st_logs]}; last window "
+              f"{ {k: round(st_logs[-1][k], 4) for k in keys} }", flush=True)
+    if not ((run / "q_state.pt").exists() and (run / "clf_ckpt_latest").exists()):
+        raise AssertionError("q_state.pt or clf_ckpt_latest missing")
+
+    dataset, pipe = cli.build(args, dev)
+    pipe.actor.load(str(run / "diffusion_ckpt_latest"))
+    pipe.classifier.load(str(run / "clf_ckpt_latest"))
+    obs = dataset.obs[:args.num_envs]
+    served(cli.act_fn(pipe, args), obs, N_REQUESTS,
+           f"QGPO (w_cg {args.task.w_cg}, {args.sampling_steps} ddpm steps, final log p)",
+           pipe.act_dim)
+    counts = no_kernel_launched("the QGPO CLI phase")
+
+    n = RL2_COMPARE_ENVS
+    gen = torch.Generator().manual_seed(SEED)
+    noise = (sampler_noise(n, pipe.act_dim, args.sampling_steps, gen),
+             -torch.log(-torch.log(torch.rand((n, 1), generator=gen))))
+    kw = dict(w_cg=args.task.w_cg, sampling_steps=args.sampling_steps, return_info=True)
+    act_c, info_c = pipe.act(obs[:n], noise=to_device(noise, dev), **kw)
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset)
+    cpu_pipe.actor.load(str(run / "diffusion_ckpt_latest"))
+    cpu_pipe.classifier.load(str(run / "clf_ckpt_latest"))
+    act_p, info_p = cpu_pipe.act(obs[:n], noise=noise, **kw)
+    drop = lambda info: {k: info[k] for k in ("candidates", "log_p")}  # one candidate per env
+    card_against_cpu(f"QGPO ({n} envs)", (act_c, drop(info_c)), (act_p, drop(info_p)),
+                     ("candidates", "log_p"))
+    return counts
+
+
+def check_synther_cli(dev, suite: str) -> dict:
+    """SynthER's CLI of a suite, every mode: `train_diffusion` window by
+    window, `transition_generation` (MuJoCo: one 100,000-row batch of 128
+    ddpm steps, its seconds and TFLOP/s), `train_td3bc` on the real and
+    synthetic mix (the actor's and targets' updates against `policy_freq`),
+    then TD3+BC requests at 50 envs; a request and a generation chunk
+    held against the CPU. Returns the kernels' launches (all 0)."""
+    cli = {"mujoco": synther_d4rl_mujoco, "antmaze": synther_d4rl_antmaze,
+           "kitchen": synther_d4rl_kitchen}[suite]
+    train, n_trans, td3, n_req = SYNTHER_CLI["mujoco" if suite == "mujoco" else "suite"]
+    phase(f"SynthER CLI ({suite}): cli.synther_d4rl_{suite} train_diffusion, "
+          "transition_generation, train_td3bc, then act")
+    reset_counts()
+    args, run, logs, seconds = run_cli(cli, ("mode=train_diffusion", *train))
+    steps = args.diffusion_gradient_steps
+    check_window_logs(logs, steps, args.log_interval, ("loss", "grad_norm"))
+    tags = [str(t) for t in range(args.save_interval, steps + 1, args.save_interval)]
+    missing = [t for t in tags + ["latest"] if not (run / f"diff_ckpt_{t}").exists()]
+    if missing:
+        raise AssertionError(f"missing diff_ckpt_{missing} in {run}")
+    print(f"train_diffusion: {steps} steps at batch {args.batch_size} (IDQLMlp "
+          f"{args.get('hidden_dim', 1024)} x {args.get('n_blocks', 6)} blocks, "
+          f"{args.diffusion_steps} diffusion steps): {seconds:.1f} s with set-up and "
+          f"saves; steps/s per window {[lg['steps_per_sec'] for lg in logs]}", flush=True)
+    with timed_calls(SynthERPipeline, "generate_transitions") as gen_calls:
+        _, _, _, g_seconds = run_cli(cli, ("mode=transition_generation",
+                                           f"num_transitions={n_trans}"))
+    extra = np.load(run / "extra_transitions.npy")
+    g_s, (synther, *_), _ = gen_calls.calls[0]
+    if extra.shape != (n_trans, synther.x_dim) or not np.isfinite(extra).all():
+        raise AssertionError(f"synthetic transitions {extra.shape} non-finite?")
+    net = synther.diffusion.params["diffusion"]
+    macs = sum(m.weight.numel() for m in net.modules() if isinstance(m, torch.nn.Linear))
+    tflop = 2 * macs * n_trans * 128 / 1e12
+    print(f"transition_generation: {n_trans} rows x 128 ddpm steps in one sampler call: "
+          f"{g_s:.2f} s ({g_seconds:.1f} s with set-up), {tflop:.1f} TFLOP of f32 products "
+          f"({macs} multiply-adds per row per step), {tflop / g_s:.2f} TFLOP/s", flush=True)
+    targs, _, t_logs, t_seconds = run_cli(cli, ("mode=train_td3bc", *td3))
+    t_steps = targs.td3bc_gradient_steps
+    check_window_logs(t_logs, t_steps, targs.log_interval,
+                      ("critic_loss", "policy_loss", "bc_loss", "policy_q"))
+    state = torch.load(run / "td3bc.pt", map_location="cpu", weights_only=True)
+    freq = 2  # TD3BC's policy_freq
+    if (state["step"], state["actor_updates"], state["actor_optimizer"]["count"],
+            state["critic_optimizer"]["count"]) != (t_steps, -(-t_steps // freq),
+                                                     -(-t_steps // freq), t_steps):
+        raise AssertionError(f"TD3+BC counts {state['step']}, {state['actor_updates']}, "
+                             f"{state['actor_optimizer']['count']}")
+    print(f"train_td3bc: {t_steps} steps at batch {targs.batch_size} on the real transitions "
+          f"and {extra.shape[0]} synthetic ones: "
+          f"{t_seconds:.1f} s; actor and target updates {state['actor_updates']} (policy_freq "
+          f"{freq}); steps/s per window {[lg['steps_per_sec'] for lg in t_logs]}", flush=True)
+
+    _, dataset, _ = cli.build(args, dev)
+    agent = synther_d4rl_mujoco.build_agent(args, dataset, dev)
+    agent.load(str(run / "td3bc.pt"))
+    obs = dataset.obs[:args.num_envs]
+    served(agent.act, obs, n_req, f"SynthER {suite} TD3+BC actor", agent.act_dim, reps=20)
+    counts = no_kernel_launched(f"the SynthER {suite} CLI phase")
+
+    cpu_agent = synther_d4rl_mujoco.build_agent(args, dataset, torch.device("cpu"))
+    cpu_agent.load(str(run / "td3bc.pt"))
+    n = RL2_COMPARE_ENVS
+    gaps = {"act": (agent.act(obs[:n]).cpu() - cpu_agent.act(obs[:n])).abs().max().item()}
+    print(f"SynthER {suite} TD3+BC ({n} envs): card against CPU: max |diff| {gaps} (limit "
+          f"{PLAN_ATOL})", flush=True)
+    if not gaps["act"] <= PLAN_ATOL:
+        raise AssertionError(f"SynthER {suite}: card and CPU differ: {gaps}")
+    # a generation chunk (128 ddpm steps, no clipping) against a float64
+    # run of it on the CPU, beside the CPU's own float32 run
+    _, _, cpu_syn = cli.build(args, torch.device("cpu"))
+    cpu_syn.diffusion.load(str(run / "diff_ckpt_latest"))
+    rows = SYNTHER_COMPARE_ROWS
+    noise = [sampler_noise(rows, synther.x_dim, 128, torch.Generator().manual_seed(SEED))]
+    card_x = synther.generate_transitions(rows, sampling_steps=128, noise=to_device(noise, dev))
+    cpu_x = cpu_syn.generate_transitions(rows, sampling_steps=128, noise=noise)
+    cpu_syn.diffusion.ema_params.double()
+    cpu_syn._gen_fns.clear()
+    ref = cpu_syn.generate_transitions(rows, sampling_steps=128,
+                                       noise=[tuple(t.double() for t in noise[0])])
+    err = {"card": float(np.abs(card_x - ref).max()), "cpu_f32": float(np.abs(cpu_x - ref).max()),
+           "card_vs_cpu": float(np.abs(card_x - cpu_x).max()), "scale": float(np.abs(ref).max())}
+    print(f"SynthER {suite} generation ({rows} rows x 128 steps): max |diff| against float64 "
+          f"{err} (limit: the card's within {GEN_ERR_FACTOR}x the CPU float32's)", flush=True)
+    if not err["card"] <= GEN_ERR_FACTOR * max(err["cpu_f32"], 1e-6):
+        raise AssertionError(f"SynthER {suite}: the card's generation is further from float64 "
+                             f"than {GEN_ERR_FACTOR}x the CPU's: {err}")
+    return counts
+
+
+def cp_noise(pipe, model: str, E: int, K: int, steps: int, gen: torch.Generator) -> tuple:
+    """Explicit draws of one consistency-policy request: the sampler's (the
+    EDM's initial draw; the consistency sampler's initial and per-step) and
+    the pick's Gumbel noise (E, K)."""
+    shape = (E * K, pipe.act_dim)
+    if model.startswith("edm"):
+        sample = torch.randn(shape, generator=gen)
+    else:
+        sample = (torch.randn(shape, generator=gen),
+                  torch.randn((max(steps - 1, 1), *shape), generator=gen))
+    return sample, -torch.log(-torch.log(torch.rand((E, K), generator=gen)))
+
+
+def check_consistency_policy(dev) -> dict:
+    """`cli/sp_consistency_policy.py` at the tutorial's sizes, then the
+    hermetic gate on the card (IQL, EDM, distillation at batch 128 on the
+    Goal2D behavior data; the EDM teacher at 5 Euler steps and the 2-NFE
+    student over 128 episodes with 32 candidates per env), then requests
+    at 50 envs x 32 candidates with each actor, one of each profiled and
+    held against the CPU. Returns the kernels' launches (all 0)."""
+    phase("consistency policy: cli.sp_consistency_policy, then the Goal2D gate and requests")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sp_consistency_policy.main([])
+    torch.cuda.synchronize()
+    a = res["actions"]
+    if a.shape != (res["args"].num_envs, res["dataset"].a_dim) or not (
+            torch.isfinite(a).all() and a.abs().max() <= 1.0):
+        raise AssertionError(f"the entry point's actions {a.shape} non-finite or outside")
+    if not all(np.isfinite(v) for log in res["logs"].values() for v in log.values()):
+        raise AssertionError(f"non-finite stage logs {res['logs']}")
+    print(f"cli.sp_consistency_policy (the tutorial's sizes): {time.perf_counter() - t0:.1f} s;"
+          f" last logs {res['logs']}", flush=True)
+
+    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=dev)
+    pipe = ConsistencyPolicyPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
+                                     curriculum_cycle=2000, s0=10, s1=160, rng=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_iql, n_edm, n_cd = CP_STEPS
+    times = {}
+    for name, step, n in (("iql", pipe.iql_train_step, n_iql),
+                          ("edm", pipe.edm_train_step, n_edm)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            log = step(ds.sample_batch(gen, CP_BATCH))
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3 / n
+    norm = ds.get_normalizer()
+    score = normalized_score_fn(device=dev)
+
+    def policy(model, steps):
+        return lambda g, o: pipe.act(norm.normalize(o), model=model, num_candidates=32,
+                                     sampling_steps=steps, generator=g)
+
+    teacher = score(evaluate_policy(policy("edm", 5), num_envs=128, seed=1, device=dev))
+    pipe.prepare_distillation(distillation_N=18)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_cd):
+        log = pipe.cd_train_step(ds.sample_batch(gen, CP_BATCH))
+    torch.cuda.synchronize()
+    times["cd"] = (time.perf_counter() - t0) * 1e3 / n_cd
+    student = score(evaluate_policy(policy("cd", 2), num_envs=128, seed=1, device=dev))
+    print(f"Goal2D: IQL {n_iql}, EDM {n_edm}, distillation {n_cd} steps at batch {CP_BATCH} "
+          f"(ms per step { {k: round(v, 3) for k, v in times.items()} }; last CD loss "
+          f"{float(log['loss']):.5f}); normalized score teacher (EDM, 5 Euler) {teacher:.4f} "
+          f"(bar {CP_TEACHER_BAR}), student (CD, 2 NFE) {student:.4f} (bar {CP_STUDENT_BAR})",
+          flush=True)
+    if not (teacher >= CP_TEACHER_BAR and student >= CP_STUDENT_BAR):
+        raise AssertionError(f"consistency policy Goal2D scores {teacher:.4f} / {student:.4f}")
+
+    E, K = 50, 32
+    obs = ds.obs[:E]  # normalised dataset observations
+    ckpt = CLI_DIR / "consistency_policy" / "goal2d"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    pipe.save(str(ckpt))
+    cpu_pipe = ConsistencyPolicyPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
+                                         curriculum_cycle=2000, s0=10, s1=160, rng=0,
+                                         device="cpu")
+    cpu_pipe.load(str(ckpt))
+    for model, steps in CP_REQUESTS:
+        act = lambda o: pipe.act(o, model=model, num_candidates=K, sampling_steps=steps)
+        served(act, obs, N_REQUESTS, f"consistency policy {model} ({K} candidates, {steps} "
+               "steps)", 2)
+        noise = cp_noise(pipe, model, E, K, steps, torch.Generator().manual_seed(SEED))
+        kw = dict(model=model, num_candidates=K, sampling_steps=steps, return_info=True)
+        card = pipe.act(obs, noise=to_device(noise, dev), **kw)
+        cpu = cpu_pipe.act(obs, noise=noise, **kw)
+        card_against_cpu(f"consistency policy {model} ({E} envs x {K})", card, cpu,
+                         ("candidates", "adv"))
+    return no_kernel_launched("the consistency-policy phase")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     kind = check_device()
@@ -2615,6 +3088,12 @@ def main() -> int:
     planners["diffuserlite_mujoco"] = check_diffuserlite_cli(dev)
     planners.update({f"diffuserlite_{suite}": check_diffuserlite_suite_cli(dev, suite)
                      for suite in LITE_SUITE_CLIS})
+    # SfBC, QGPO, SynthER and the consistency policy (MLPs): no kernel launch
+    # in these phases
+    rl2 = {"sfbc_mujoco": check_sfbc_cli(dev), "qgpo_mujoco": check_qgpo_cli(dev)}
+    rl2.update({f"synther_{suite}": check_synther_cli(dev, suite)
+                for suite in ("mujoco", "antmaze", "kitchen")})
+    rl2["consistency_policy"] = check_consistency_policy(dev)
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
@@ -2622,7 +3101,8 @@ def main() -> int:
         "launches": launches, "train_launches": train_launches,
         # the CLI phases: training through the CLI and serving its checkpoint
         "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()},
-                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in planners.items()}},
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in planners.items()},
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in rl2.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         # no single PyTorch call computes any of these blocks or steps

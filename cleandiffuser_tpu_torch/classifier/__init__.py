@@ -1,1 +1,1 @@
-from .base import BaseClassifier, CumRewClassifier, MSEClassifier
+from .base import BaseClassifier, CumRewClassifier, MSEClassifier, QGPOClassifier

@@ -11,6 +11,12 @@ reference's optimizer, which is coupled L2 (optax
 `chain(clip_by_global_norm?, add_decayed_weights(wd)?, adam(lr))`, i.e.
 `torch.optim.Adam(weight_decay=wd)`, not AdamW; wd 0 unless
 `optim_params` names it), then the EMA step (rate 0.995 by default).
+
+`QGPOClassifier` is QGPO's contrastive energy prediction (CEP): `update(x,
+t, y)` takes the noised support actions x (b, K, act_dim), their levels t
+(b,) and y = {"soft_label": (b, K, 1), "obs": (b, obs_dim)}; the loss is
+the cross-entropy of the soft labels against softmax over K of the energy
+f(x_k, t, obs), and it logs f's max, mean and min.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..utils.train_state import (
     save_state,
 )
 
-__all__ = ["BaseClassifier", "MSEClassifier", "CumRewClassifier"]
+__all__ = ["BaseClassifier", "MSEClassifier", "CumRewClassifier", "QGPOClassifier"]
 
 
 class BaseClassifier:
@@ -75,14 +81,16 @@ class BaseClassifier:
         raise NotImplementedError
 
     def update(self, x, t, y) -> dict:
-        """One optimizer step and one EMA step on `loss`. Returns {"loss"}
-        as a device scalar."""
-        loss = self.loss(self.params, x, t, y)
+        """One optimizer step and one EMA step on `loss` (a scalar, or
+        (scalar, dict of logged scalars)). Returns {"loss", ...} as device
+        scalars."""
+        out = self.loss(self.params, x, t, y)
+        loss, aux = out if isinstance(out, tuple) else (out, {})
         loss.backward()
         self.optimizer.step()
         ema_update(self.ema_params, self.params, self.ema_rate)
         self.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
     def save(self, path):
         save_state(path, self.params, self.ema_params, self.optimizer, self.step)
@@ -129,3 +137,21 @@ class CumRewClassifier(BaseClassifier):
 
     def logp(self, params, x, t, c=None):
         return self.apply_nn(params, x, t)
+
+
+class QGPOClassifier(BaseClassifier):
+    """In-support contrastive energy prediction; logp is the energy."""
+
+    def loss(self, params, x, t, y):
+        b, k = x.shape[:2]
+        soft_label, obs = y["soft_label"], y["obs"]
+        t_k = t[:, None].expand(b, k)
+        obs_k = obs[:, None, :].expand(b, k, obs.shape[-1])
+        f = self.apply_nn(params, x, t_k, obs_k)
+        loss = -(soft_label * torch.log_softmax(f, dim=1)).sum(1).mean()
+        f_ = f.detach()
+        return loss, {"f_max": f_.max(1).values.mean(), "f_mean": f_.mean(),
+                      "f_min": f_.min(1).values.mean()}
+
+    def logp(self, params, x, t, c=None):
+        return self.apply_nn(params, x, t, c)

@@ -47,7 +47,17 @@ from ..utils.train_state import (
     save_state,
 )
 
-__all__ = ["DiffusionModel", "bf16_cast"]
+__all__ = ["DiffusionModel", "bf16_cast", "pick_cfg_mode"]
+
+
+def pick_cfg_mode(w_cfg: float, condition_cfg) -> str:
+    """The CFG mode the reference's `sample` picks: "mix" for a weight other
+    than 0 and 1, "uncond" for 0 or no condition, else "cond"."""
+    if w_cfg != 0.0 and w_cfg != 1.0 and condition_cfg is not None:
+        return "mix"
+    if w_cfg == 0.0 or condition_cfg is None:
+        return "uncond"
+    return "cond"
 
 
 def bf16_cast(module: nn.Module) -> dict:
@@ -144,23 +154,26 @@ class DiffusionModel:
             out = torch.func.functional_call(net, bf16_cast(net), (x, t, emb))
         return out.to(torch.float32)
 
-    def cfg_pred(self, params: nn.ModuleDict, xt, t, emb, w_cfg: float, cfg_mode: str):
+    def cfg_pred(self, params: nn.ModuleDict, xt, t, emb, w_cfg: float, cfg_mode: str,
+                 net=None):
         """The network's prediction under classifier-free guidance: "mix"
         runs [cond; uncond] in one doubled forward (the unconditional half
         on a zero embedding) and combines w*cond + (1-w)*uncond, both
         weights rounded to float32 first as the reference's are; "cond" and
-        "uncond" run one forward with the embedding or without."""
+        "uncond" run one forward with the embedding or without. `net(params,
+        x, t, emb)` is the prediction guided (`apply_diffusion` by default;
+        the EDM-family engines pass their preconditioned denoiser)."""
+        net = net or self.apply_diffusion
         if cfg_mode == "mix":
             b = xt.shape[0]
             emb2 = None if emb is None else torch.cat([emb, torch.zeros_like(emb)], 0)
-            pred_all = self.apply_diffusion(params, torch.cat([xt, xt], 0),
-                                            torch.cat([t, t], 0), emb2)
+            pred_all = net(params, torch.cat([xt, xt], 0), torch.cat([t, t], 0), emb2)
             w = np.float32(w_cfg)
             return float(w) * pred_all[:b] + float(np.float32(1) - w) * pred_all[b:]
         if cfg_mode == "cond":
-            return self.apply_diffusion(params, xt, t, emb)
+            return net(params, xt, t, emb)
         if cfg_mode == "uncond":
-            return self.apply_diffusion(params, xt, t, None)
+            return net(params, xt, t, None)
         raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
 
     def bf16_params(self, params: nn.ModuleDict) -> nn.ModuleDict:

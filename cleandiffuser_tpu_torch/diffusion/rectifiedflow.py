@@ -36,7 +36,7 @@ import torch
 
 from ..utils.schedules import SUPPORTED_DISCRETIZATIONS, SUPPORTED_SAMPLING_STEP_SCHEDULE
 from ..utils.tensors import at_least_ndim
-from .basic import DiffusionModel
+from .basic import DiffusionModel, pick_cfg_mode
 
 __all__ = ["DiscreteRectifiedFlow", "ContinuousRectifiedFlow"]
 
@@ -204,17 +204,11 @@ class _BaseRectifiedFlow(DiffusionModel):
         noise=None,
     ):
         """One sample: the CFG mode from `w_cfg` and the condition, as the
-        reference picks it ("mix" for a weight other than 0 and 1, "uncond"
-        for 0 or no condition, else "cond"); `solver` is dropped (Euler
+        reference picks it (`pick_cfg_mode`); `solver` is dropped (Euler
         only). Samplers are cached per setting. Returns (x0, log) with
         "sample_history" (or None) and "log_p" None."""
         del solver
-        if w_cfg != 0.0 and w_cfg != 1.0 and condition_cfg is not None:
-            cfg_mode = "mix"
-        elif w_cfg == 0.0 or condition_cfg is None:
-            cfg_mode = "uncond"
-        else:
-            cfg_mode = "cond"
+        cfg_mode = pick_cfg_mode(w_cfg, condition_cfg)
         warm = warm_start_reference is not None
         key = ("sample", sample_steps, sample_step_schedule, cfg_mode,
                diffusion_x_sampling_steps, warm, warm_start_forward_level if warm else None,

@@ -1,2 +1,2 @@
 from .half_nets import HalfJannerUNet1d
-from .mlp import BaseNNClassifier
+from .mlp import BaseNNClassifier, QGPONNClassifier

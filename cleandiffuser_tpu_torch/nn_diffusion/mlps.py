@@ -14,7 +14,9 @@ trees onto them. `IDQLMlp`'s dropout runs only with `train=True`, its keep
 mask drawn from the explicit generator (flax's `Dropout`: keep with
 probability 1 - p, kept entries scaled by 1 / (1 - p)).
 
-`MlpNNDiffusion` comes with SynthER (ROADMAP queue 1, item 6).
+`IDQLMlp` is also SynthER's backbone, over flat transitions with
+`obs_dim=0`. `MlpNNDiffusion` belongs to ROADMAP queue 1, item 9 (modules no
+pipeline uses).
 """
 
 from __future__ import annotations

@@ -67,16 +67,19 @@ __all__ = ["DQLPipeline", "categorical_pick", "sample_candidates"]
 
 
 def categorical_pick(candidates, logits, generator: Optional[torch.Generator] = None,
-                     gumbel=None):
+                     gumbel=None, return_index: bool = False):
     """One of K candidates per row, drawn from softmax(logits) (E, K) by the
     Gumbel-max draw `jax.random.categorical` makes: argmax(logits + g), g
     standard Gumbel noise (E, K) drawn from `generator` unless given.
-    candidates: (E, K, d) -> (E, d)."""
+    candidates: (E, K, d) -> (E, d); with `return_index`, also the picks
+    (E,) and the perturbed logits (E, K) they are the argmax of."""
     if gumbel is None:
         u = torch.rand(logits.shape, generator=generator, device=logits.device)
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    idx = (logits + gumbel).argmax(dim=-1)
-    return candidates[torch.arange(candidates.shape[0], device=idx.device), idx]
+    perturbed = logits + gumbel.to(logits.device)
+    idx = perturbed.argmax(dim=-1)
+    out = candidates[torch.arange(candidates.shape[0], device=idx.device), idx]
+    return (out, idx, perturbed) if return_index else out
 
 
 def sample_candidates(pipe, obs_normed, num_candidates: int, use_ema: bool,

@@ -2,7 +2,8 @@
 
 All embeddings accept a (b,) or (...,) timestep tensor and return (..., dim)
 features. Ported so far: the positional embedding (DiT1d's default), the
-Fourier embedding DD's DiT1d uses, and the sinusoidal features of DiT1d's
+Fourier embedding DD's DiT1d uses, the untrainable Fourier features of
+SfBC's U-Net and QGPO's energy net, and the sinusoidal features of DiT1d's
 token positions.
 """
 
@@ -20,6 +21,7 @@ from .blocks import dense
 __all__ = [
     "PositionalEmbedding",
     "FourierEmbedding",
+    "UntrainableFourierEmbedding",
     "SUPPORTED_TIMESTEP_EMBEDDING",
     "mish",
     "positional_features",
@@ -89,7 +91,24 @@ class FourierEmbedding(nn.Module):
         return self.dense2(mish(self.dense1(emb)))
 
 
+class UntrainableFourierEmbedding(nn.Module):
+    """Random-Fourier features with no MLP: freqs ~ N(0, scale^2) of size
+    dim//2, [cos | sin] of 2 pi freqs x. `freqs` is a parameter read
+    through `.detach()`, as `FourierEmbedding`'s: the optimizer's decay and
+    the EMA move it as they move the reference's."""
+
+    def __init__(self, dim: int, scale: float = 16.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.freqs = nn.Parameter(torch.randn(dim // 2, generator=generator) * scale)
+
+    def forward(self, x):
+        ang = x[..., None].to(torch.float32) * (2 * math.pi * self.freqs.detach())
+        return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
 SUPPORTED_TIMESTEP_EMBEDDING = {
     "positional": PositionalEmbedding,
     "fourier": FourierEmbedding,
+    "untrainable_fourier": UntrainableFourierEmbedding,
 }

@@ -31,9 +31,13 @@ the optimizer is a `torch.optim` one, and every step is a handful of
   `train_state_dict`, which the RL pipelines store beside their critics');
   a resumed run continues exactly.
 - `load_jax_checkpoint`: reads a pickle written by the JAX `save_state`
-  without JAX, flax, optax or the JAX package installed; `read_jax_pickle`
-  reads the RL pipelines' pickles ({"actor": TrainState, "critic": ...}),
-  `jax_train_state` and `jax_adam_state` take their fields apart.
+  (an engine's or a classifier's: SfBC's `.actor`, QGPO's
+  `clf_ckpt_latest`, SynthER's `diff_ckpt_*`) without JAX, flax, optax or
+  the JAX package installed; `read_jax_pickle` reads the pipelines' other
+  pickles (the RL pipelines' {"actor": TrainState, "critic": ...}, SfBC's
+  `.critic` and QGPO's `q_state.pkl` param trees, SynthER's `td3bc.pkl`
+  `TD3BCState`), `jax_train_state` and `jax_adam_state` take their fields
+  apart.
 """
 
 from __future__ import annotations
@@ -231,8 +235,9 @@ _OPTAX_FIELDS = {
 }
 _JAX_MODULES = ("cleandiffuser_tpu", "optax", "flax", "jax")
 # the flax.struct dataclasses of the JAX package's checkpoints: the engines'
-# TrainState, the RL pipelines' critic states and Veteran's EV state
-_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState", "EVState")
+# TrainState, the RL pipelines' critic states, Veteran's EV state and
+# SynthER's TD3+BC state
+_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState", "EVState", "TD3BCState")
 
 
 class _StandIn:

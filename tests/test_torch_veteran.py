@@ -109,15 +109,45 @@ def _seed_jax(jp, seed=0):
                                       target_params=_seeded(jp.ev_state.params, seed + 10))
 
 
-def _pair(case, tmp_path, **extra):
-    cfg = {**BASE, **CASES[case], **extra}
-    jp = JaxVeteran(**cfg, rng=0)
-    _seed_jax(jp)
-    path = str(tmp_path / f"{case}.pkl")
-    jp.save(path)
-    tp = VeteranPipeline(**cfg, rng=0, device="cpu")
-    tp.load_jax_checkpoint(path)
-    return jp, tp
+_KEYS = ("_rng", "_sample_rng", "_root_rng")
+
+
+def _parts(jp):
+    return [p for p in (jp, jp.planner, jp.planner.classifier, jp.policy, jp.invdyn)
+            if p is not None]
+
+
+def _sample_keys(jp):
+    """The JAX pipeline's keys that its checkpoint does not hold."""
+    return [{k: getattr(p, k) for k in _KEYS if hasattr(p, k)} for p in _parts(jp)]
+
+
+@pytest.fixture(scope="module")
+def pairs(tmp_path_factory):
+    """`pair(case)`: the case's seeded JAX pipeline and a port pipeline that
+    loaded the JAX checkpoint. Each JAX pipeline is built and seeded once for
+    the module (its build compiles its init, the file's largest cost) and
+    handed out restored from its checkpoint and its keys, so every test
+    starts from the same state as a fresh build."""
+    tmp, built = tmp_path_factory.mktemp("veteran_pairs"), {}
+
+    def pair(case):
+        cfg = {**BASE, **CASES[case]}
+        if case not in built:
+            jp = JaxVeteran(**cfg, rng=0)
+            _seed_jax(jp)
+            path = str(tmp / f"{case}.pkl")
+            jp.save(path)
+            built[case] = (jp, path, _sample_keys(jp))
+        jp, path, keys = built[case]
+        jp.load(path)
+        for part, saved in zip(_parts(jp), keys):
+            part.__dict__.update(saved)
+        tp = VeteranPipeline(**cfg, rng=0, device="cpu")
+        tp.load_jax_checkpoint(path)
+        return jp, tp
+
+    return pair
 
 
 def _t(a):
@@ -159,8 +189,10 @@ def _jax_candidates(jp, key, obs, goal=None):
     if goal is not None:
         prior = prior.at[:, pin, :2].set(jnp.repeat(jnp.asarray(goal), K, 0))
     cls = jp.planner.classifier.inference_params if gt == "cg" else None
-    traj, log = fn(jp.planner.state.ema_params, cls, k_plan, prior,
-                   w_cg=jp.w_cfg if gt == "cg" else 0.0, temperature=jp.temperature)
+    # jitted: one compile of the whole sampler, not one per op
+    traj, log = jax.jit(lambda p, c, k, x: fn(p, c, k, x, w_cg=jp.w_cfg if gt == "cg" else 0.0,
+                                               temperature=jp.temperature))(
+        jp.planner.state.ema_params, cls, k_plan, prior)
     if gt == "cg":
         score = log["log_p"]
     elif jp.mcss_selector == "critic":
@@ -171,8 +203,8 @@ def _jax_candidates(jp, key, obs, goal=None):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_plans_and_actions_match_jax(case, tmp_path):
-    jp, tp = _pair(case, tmp_path)
+def test_plans_and_actions_match_jax(case, pairs):
+    jp, tp = pairs(case)
     rng = np.random.default_rng(11)
     obs = rng.standard_normal((E, O)).astype(np.float32)
     goal = rng.standard_normal((E, 2)).astype(np.float32) if jp.goal_inpaint else None
@@ -265,8 +297,8 @@ def _sync_critic(jp, tp):
 
 
 @pytest.mark.parametrize("case", ["mcss-ev", "cfg", "cg", "joint", "mlp-invdyn"])
-def test_three_train_steps_match_jax(case, tmp_path):
-    jp, tp = _pair(case, tmp_path)
+def test_three_train_steps_match_jax(case, pairs):
+    jp, tp = pairs(case)
     rng = np.random.default_rng(21)
     for _ in range(3):
         pb, qb = _batch(rng), _batch(rng)
@@ -294,8 +326,8 @@ def test_three_train_steps_match_jax(case, tmp_path):
         _assert_module_close(tp.invdyn.net, jp.invdyn.params["params"])
 
 
-def test_three_ev_steps_match_jax(tmp_path):
-    jp, tp = _pair("mcss-ev", tmp_path)
+def test_three_ev_steps_match_jax(pairs):
+    jp, tp = pairs("mcss-ev")
     rng = np.random.default_rng(31)
     for _ in range(3):
         batch = {"obs": {"state": rng.standard_normal((B, O)).astype(np.float32)},
