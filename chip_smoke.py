@@ -358,6 +358,7 @@ from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
     DQLPipeline,
     SfBCPipeline,
     SynthERPipeline,
+    goal2d_gate,
 )
 from cleandiffuser_tpu_torch.pipelines.diffuserlite_value import (  # noqa: E402
     build_candidate_plan_fn,
@@ -506,8 +507,9 @@ LITE_COMPARE_ENVS = 50
 # 500 diffusion steps, one 100,000-row generation batch of 128 ddpm steps,
 # 1,000 TD3+BC steps; SynthER antmaze and kitchen: 100 steps, one 10,000-row
 # batch, 200 TD3+BC steps, 2 requests. A request is held against the same
-# request on the port's CPU path with the same explicit noise at
-# RL2_COMPARE_ENVS envs (SynthER's also one generation chunk).
+# request on the port's CPU path with the same explicit noise at the
+# served 50 envs (SynthER's also one generation chunk of
+# SYNTHER_COMPARE_ROWS rows).
 SFBC_CLI_BC = ("mode=bc_training", "bc_gradient_steps=500", "log_interval=125",
                "save_interval=250")
 SFBC_CLI_CRITIC = ("mode=critic_training", "q_training_iters=2", "critic_gradient_steps=200",
@@ -523,12 +525,15 @@ SYNTHER_CLI = {"mujoco": (("diffusion_gradient_steps=500", "log_interval=125",
                           "save_interval=100"), 10_000,
                          ("td3bc_gradient_steps=200", "log_interval=100",
                           "save_interval=200"), SUITE_CLI_REQUESTS)}
-RL2_COMPARE_ENVS, SYNTHER_COMPARE_ROWS = 10, 8
+SYNTHER_COMPARE_ROWS = 16
 # SynthER's generation runs 128 ddpm steps of a 1024-wide net with no
-# clipping: float32 rounding grows along the chain (the card's and the CPU's
-# float32 runs of a 16-row chunk differed by 4.2e-3 on the H100), so it is
-# held to a float64 run of it: the card's error within this factor of the
-# CPU's own float32 error
+# clipping, and at the chain's sample scale (|x| up to 1e4-1e5 after 500
+# training steps; the JAX package's chain reaches the same scale on the
+# same weights and draws, tests/test_torch_synther.py) float32 rounding
+# alone is above 1e-3 (the card's and the CPU's float32 runs of a 16-row
+# chunk differed by 4.2e-3 on the H100). So the chunk is held to a float64
+# run of it: the card's error within this factor of the CPU's own float32
+# error
 GEN_ERR_FACTOR = 4.0
 # the hermetic consistency-policy gate (tests/test_hermetic_parity.py:160):
 # IQL, EDM and distillation steps at batch 128, the teacher's and the 2-NFE
@@ -2771,7 +2776,7 @@ def check_sfbc_cli(dev) -> dict:
                    f"{args.sampling_steps} ddpm steps)", pipe.act_dim)
     counts = no_kernel_launched("the SfBC CLI phase")
 
-    n, K, k = RL2_COMPARE_ENVS, args.num_candidates, args.top_k_average
+    n, K, k = args.num_envs, args.num_candidates, args.top_k_average
     noise = sampler_noise(n * K, pipe.act_dim, args.sampling_steps,
                           torch.Generator().manual_seed(SEED))
     kw = dict(num_candidates=K, top_k_average=k, sampling_steps=args.sampling_steps,
@@ -2845,7 +2850,7 @@ def check_qgpo_cli(dev) -> dict:
            pipe.act_dim)
     counts = no_kernel_launched("the QGPO CLI phase")
 
-    n = RL2_COMPARE_ENVS
+    n = args.num_envs
     gen = torch.Generator().manual_seed(SEED)
     noise = (sampler_noise(n, pipe.act_dim, args.sampling_steps, gen),
              -torch.log(-torch.log(torch.rand((n, 1), generator=gen))))
@@ -2923,7 +2928,7 @@ def check_synther_cli(dev, suite: str) -> dict:
 
     cpu_agent = synther_d4rl_mujoco.build_agent(args, dataset, torch.device("cpu"))
     cpu_agent.load(str(run / "td3bc.pt"))
-    n = RL2_COMPARE_ENVS
+    n = args.num_envs
     gaps = {"act": (agent.act(obs[:n]).cpu() - cpu_agent.act(obs[:n])).abs().max().item()}
     print(f"SynthER {suite} TD3+BC ({n} envs): card against CPU: max |diff| {gaps} (limit "
           f"{PLAN_ATOL})", flush=True)
@@ -2977,7 +2982,7 @@ def check_consistency_policy(dev) -> dict:
     res = sp_consistency_policy.main([])
     torch.cuda.synchronize()
     a = res["actions"]
-    if a.shape != (res["args"].num_envs, res["dataset"].a_dim) or not (
+    if a.shape != (sp_consistency_policy.NUM_ENVS, res["dataset"].a_dim) or not (
             torch.isfinite(a).all() and a.abs().max() <= 1.0):
         raise AssertionError(f"the entry point's actions {a.shape} non-finite or outside")
     if not all(np.isfinite(v) for log in res["logs"].values() for v in log.values()):
@@ -2985,39 +2990,11 @@ def check_consistency_policy(dev) -> dict:
     print(f"cli.sp_consistency_policy (the tutorial's sizes): {time.perf_counter() - t0:.1f} s;"
           f" last logs {res['logs']}", flush=True)
 
-    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=dev)
-    pipe = ConsistencyPolicyPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
-                                     curriculum_cycle=2000, s0=10, s1=160, rng=0, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_iql, n_edm, n_cd = CP_STEPS
-    times = {}
-    for name, step, n in (("iql", pipe.iql_train_step, n_iql),
-                          ("edm", pipe.edm_train_step, n_edm)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            log = step(ds.sample_batch(gen, CP_BATCH))
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t0) * 1e3 / n
-    norm = ds.get_normalizer()
-    score = normalized_score_fn(device=dev)
-
-    def policy(model, steps):
-        return lambda g, o: pipe.act(norm.normalize(o), model=model, num_candidates=32,
-                                     sampling_steps=steps, generator=g)
-
-    teacher = score(evaluate_policy(policy("edm", 5), num_envs=128, seed=1, device=dev))
-    pipe.prepare_distillation(distillation_N=18)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_cd):
-        log = pipe.cd_train_step(ds.sample_batch(gen, CP_BATCH))
-    torch.cuda.synchronize()
-    times["cd"] = (time.perf_counter() - t0) * 1e3 / n_cd
-    student = score(evaluate_policy(policy("cd", 2), num_envs=128, seed=1, device=dev))
-    print(f"Goal2D: IQL {n_iql}, EDM {n_edm}, distillation {n_cd} steps at batch {CP_BATCH} "
-          f"(ms per step { {k: round(v, 3) for k, v in times.items()} }; last CD loss "
-          f"{float(log['loss']):.5f}); normalized score teacher (EDM, 5 Euler) {teacher:.4f} "
+    gate = goal2d_gate(dev, CP_STEPS, CP_BATCH, SEED)
+    pipe, ds, teacher, student = gate["pipe"], gate["dataset"], gate["teacher"], gate["student"]
+    print(f"Goal2D: IQL, EDM, distillation {CP_STEPS} steps at batch {CP_BATCH} (ms per step "
+          f"{ {k: round(v, 3) for k, v in gate['ms'].items()} }; last CD loss "
+          f"{gate['cd_loss']:.5f}); normalized score teacher (EDM, 5 Euler) {teacher:.4f} "
           f"(bar {CP_TEACHER_BAR}), student (CD, 2 NFE) {student:.4f} (bar {CP_STUDENT_BAR})",
           flush=True)
     if not (teacher >= CP_TEACHER_BAR and student >= CP_STUDENT_BAR):

@@ -70,8 +70,8 @@ def build(args, device, td=td_dataset):
     raw = load_d4rl_qlearning_dataset(args.task.env_name)
     dataset = td(args, raw, device)
     # the shipped configs name no width: the pipeline's (hidden 1024 x 6
-    # blocks, emb 128) unless `+hidden_dim=...` etc. add one
-    widths = {k: args[k] for k in ("hidden_dim", "n_blocks", "emb_dim") if k in args}
+    # blocks) unless `+hidden_dim=...` / `+n_blocks=...` add one
+    widths = {k: args[k] for k in ("hidden_dim", "n_blocks") if k in args}
     synther = SynthERPipeline(
         obs_dim=dataset.o_dim, act_dim=dataset.a_dim, diffusion_steps=args.diffusion_steps,
         lr=args.diffusion_learning_rate, gradient_steps=args.diffusion_gradient_steps,

@@ -1,5 +1,5 @@
 from .adaptdiffuser import AdaptDiffuserPipeline
-from .consistency_policy import ConsistencyPolicyPipeline
+from .consistency_policy import ConsistencyPolicyPipeline, goal2d_gate
 from .dd import DDPipeline
 from .diffuser import DiffuserPipeline
 from .diffuserlite import DiffuserLitePipeline, compute_temporal_horizons

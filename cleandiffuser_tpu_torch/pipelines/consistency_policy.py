@@ -12,23 +12,31 @@ eps)); the backbones' dropout masks come from the engines' generators.
 `act(noise=(sampler_noise, gumbel))`: the EDM sampler's initial draw, or
 the consistency sampler's (initial, per_step), and the pick's Gumbel noise
 (E, K). No kernel runs on this path: the nets are MLPs.
+
+`goal2d_gate` is the hermetic score gate's recipe on the Goal2D behavior
+data; the slow tests and the card's smoke run both call it.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import time
+
 import numpy as np
 import torch
 
+from ..dataset.d4rl_mujoco import D4RLMuJoCoTDDataset
+from ..dataset.hermetic import goal2d_qlearning_dataset
 from ..diffusion import ContinuousConsistencyModel, ContinuousEDM
 from ..nn_condition import IdentityCondition
 from ..nn_diffusion import IDQLMlp
+from ..env.goal2d import evaluate_policy, normalized_score_fn
 from ..utils.iql import IQL
 from ..utils.tensors import default_device
-from .dql import categorical_pick
+from .dql import gumbel_pick
 
-__all__ = ["ConsistencyPolicyPipeline"]
+__all__ = ["ConsistencyPolicyPipeline", "goal2d_gate"]
 
 
 class ConsistencyPolicyPipeline:
@@ -133,8 +141,7 @@ class ConsistencyPolicyPipeline:
         a = torch.clamp(a, -1.0, 1.0)
         adv = (self.iql.q_target(obs_rep, a) - self.iql.v(obs_rep)).reshape(E, K)
         cand = a.reshape(E, K, -1)
-        out, idx, perturbed = categorical_pick(cand, adv * weight_temperature, gen, gumbel,
-                                               return_index=True)
+        out, idx, perturbed = gumbel_pick(cand, adv * weight_temperature, gen, gumbel)
         if return_info:
             return out, {"candidates": cand, "adv": adv, "scores": perturbed, "idx": idx}
         return out
@@ -149,3 +156,47 @@ class ConsistencyPolicyPipeline:
         self.iql.load(path + ".iql")
         self.edm.load(path + ".edm")
         self.cm.load(path + ".cm")
+
+
+def goal2d_gate(device=None, steps=(2000, 3000, 2000), batch_size: int = 128,
+                seed: int = 0) -> dict:
+    """The hermetic gate's recipe (JAX tests/test_hermetic_parity.py:160):
+    IQL, EDM and distillation (18 levels) for `steps` at `batch_size` on
+    the Goal2D behavior data (1000 episodes), then 128 episodes with 32
+    candidates per env from the EDM teacher at 5 Euler steps and from the
+    distilled student at 2 NFE. Returns {"pipe", "dataset", "teacher",
+    "student" (normalized scores), "ms" (per step of each stage, the device
+    synchronized), "cd_loss"}."""
+    device = default_device(device)
+    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=device)
+    pipe = ConsistencyPolicyPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
+                                     curriculum_cycle=2000, s0=10, s1=160, rng=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    norm = ds.get_normalizer()
+    score = normalized_score_fn(device=device)
+    ms = {}
+
+    def stage(name, step, n):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            log = step(ds.sample_batch(gen, batch_size))
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+        return log
+
+    def policy_score(model, sampling_steps):
+        return score(evaluate_policy(
+            lambda g, obs: pipe.act(norm.normalize(obs), model=model, num_candidates=32,
+                                    sampling_steps=sampling_steps, generator=g),
+            num_envs=128, seed=1, device=device))
+
+    n_iql, n_edm, n_cd = steps
+    stage("iql", pipe.iql_train_step, n_iql)
+    stage("edm", pipe.edm_train_step, n_edm)
+    teacher = policy_score("edm", 5)
+    pipe.prepare_distillation(distillation_N=18)
+    log = stage("cd", pipe.cd_train_step, n_cd)
+    return {"pipe": pipe, "dataset": ds, "teacher": teacher,
+            "student": policy_score("cd", 2), "ms": ms, "cd_loss": float(log["loss"])}

@@ -63,23 +63,28 @@ from ..utils.train_state import (
     train_state_dict,
 )
 
-__all__ = ["DQLPipeline", "categorical_pick", "sample_candidates"]
+__all__ = ["DQLPipeline", "categorical_pick", "gumbel_pick", "sample_candidates"]
 
 
-def categorical_pick(candidates, logits, generator: Optional[torch.Generator] = None,
-                     gumbel=None, return_index: bool = False):
+def gumbel_pick(candidates, logits, generator: Optional[torch.Generator] = None,
+                gumbel=None):
     """One of K candidates per row, drawn from softmax(logits) (E, K) by the
     Gumbel-max draw `jax.random.categorical` makes: argmax(logits + g), g
     standard Gumbel noise (E, K) drawn from `generator` unless given.
-    candidates: (E, K, d) -> (E, d); with `return_index`, also the picks
-    (E,) and the perturbed logits (E, K) they are the argmax of."""
+    candidates: (E, K, d) -> (picked (E, d), picks (E,), the perturbed
+    logits (E, K) they are the argmax of)."""
     if gumbel is None:
         u = torch.rand(logits.shape, generator=generator, device=logits.device)
         gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
     perturbed = logits + gumbel.to(logits.device)
     idx = perturbed.argmax(dim=-1)
-    out = candidates[torch.arange(candidates.shape[0], device=idx.device), idx]
-    return (out, idx, perturbed) if return_index else out
+    return candidates[torch.arange(candidates.shape[0], device=idx.device), idx], idx, perturbed
+
+
+def categorical_pick(candidates, logits, generator: Optional[torch.Generator] = None,
+                     gumbel=None):
+    """`gumbel_pick`'s picked candidates alone: (E, K, d) -> (E, d)."""
+    return gumbel_pick(candidates, logits, generator, gumbel)[0]
 
 
 def sample_candidates(pipe, obs_normed, num_candidates: int, use_ema: bool,

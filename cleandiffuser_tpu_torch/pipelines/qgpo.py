@@ -17,7 +17,7 @@ four stages and an evaluation:
    `QGPOClassifier` step (Adam 1e-3);
 5. `act`: classifier-guided sampling (`w_cg`), the final log p of each
    candidate, and a categorical pick over them (pipelines/dql.py
-   `categorical_pick`).
+   `gumbel_pick`).
 
 The two trainers of stages 3 and 4 share one device store
 (`support_store`): the dataset's device transitions and the support set,
@@ -44,7 +44,7 @@ from ..utils.blocks import TwinQ
 from ..utils.jax_params import load_jax_params
 from ..utils.tensors import default_device
 from ..utils.train_state import ema_update, make_adam, read_jax_pickle
-from .dql import categorical_pick
+from .dql import gumbel_pick
 from .runner import step_window, train_window
 
 __all__ = ["QGPOPipeline"]
@@ -239,7 +239,7 @@ class QGPOPipeline:
             condition_cg=obs_rep, w_cg=w_cg)
         logp = log["log_p"].reshape(E, K)
         cand = act.reshape(E, K, -1)
-        out, idx, perturbed = categorical_pick(cand, logp, gen, gumbel, return_index=True)
+        out, idx, perturbed = gumbel_pick(cand, logp, gen, gumbel)
         if return_info:
             return out, {"candidates": cand, "log_p": logp, "scores": perturbed, "idx": idx}
         return out

@@ -32,12 +32,12 @@ from cleandiffuser_tpu_torch.dataset.hermetic import (
 )
 from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn
 from cleandiffuser_tpu_torch.pipelines import (
-    ConsistencyPolicyPipeline,
     DDPipeline,
     DiffuserPipeline,
     DQLPipeline,
     EDPPipeline,
     IDQLPipeline,
+    goal2d_gate,
 )
 
 pytestmark = pytest.mark.slow
@@ -150,27 +150,11 @@ def test_rl_policy_reaches_near_optimum(device, family):
 
 def test_consistency_policy_teacher_and_student_near_optimum(device):
     """IQL 2000, EDM 3000 and distillation 2000 steps at batch 128 (the JAX
-    recipe), then 128 episodes with 32 candidates per env: the EDM teacher
-    at 5 Euler steps >= 0.85, the student at 2 NFE >= 0.80."""
-    ds = D4RLMuJoCoTDDataset(goal2d_qlearning_dataset(n_episodes=1000, seed=0), device=device)
-    pipe = ConsistencyPolicyPipeline(obs_dim=2, act_dim=2, emb_dim=32, hidden_dim=128,
-                                     curriculum_cycle=2000, s0=10, s1=160, rng=0, device=device)
-    gen = torch.Generator(device=pipe.device).manual_seed(0)
-    for step, n in ((pipe.iql_train_step, 2000), (pipe.edm_train_step, 3000)):
-        for _ in range(n):
-            step(ds.sample_batch(gen, 128))
-    norm = ds.get_normalizer()
-    score = normalized_score_fn(device=device)
-
-    def policy(model, steps):
-        return lambda g, obs: pipe.act(norm.normalize(obs), model=model, num_candidates=32,
-                                       sampling_steps=steps, generator=g)
-
-    teacher = score(evaluate_policy(policy("edm", 5), num_envs=128, seed=1, device=device))
-    pipe.prepare_distillation(distillation_N=18)
-    for _ in range(2000):
-        pipe.cd_train_step(ds.sample_batch(gen, 128))
-    student = score(evaluate_policy(policy("cd", 2), num_envs=128, seed=1, device=device))
+    recipe, pipelines/consistency_policy.py `goal2d_gate`), then 128
+    episodes with 32 candidates per env: the EDM teacher at 5 Euler steps
+    >= 0.85, the student at 2 NFE >= 0.80."""
+    gate = goal2d_gate(device)
+    teacher, student = gate["teacher"], gate["student"]
     print(f"consistency policy Goal2D on {device}: teacher {teacher:.4f}, student "
           f"{student:.4f}")
     assert teacher >= 0.85, f"EDM teacher score {teacher:.3f} < 0.85"

@@ -14,7 +14,9 @@ and the backbone's dropout masks injected on both sides (one mask per
 residual block, taken in block order by a stand-in for flax's Bernoulli
 draw and for the port's block); a JAX `diff_ckpt` read without JAX; and
 `generate_transitions` with JAX's draws, its chunk clamp and its cache
-keys.
+keys; and at the shipped width (1024 x 6, 128 steps) the port's weights
+after two steps converted into JAX, 16 rows generated in both, held
+relative to the sample scale the unclipped chain reaches in both.
 
 Tolerance 1e-5 absolute / 1e-4 relative for logs, critics, targets and
 moments; the trained actor and the diffusion net's params after their steps
@@ -274,6 +276,39 @@ def test_generate_transitions_matches_jax(synther):
     got = tp.generate_transitions(n, batch_size=bs, sampling_steps=steps, noise=noise)
     assert got.shape == (n, X_DIM)
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+# relative to the sample scale: a 128-step chain at |x| ~ 1e4 rounds by
+# ~1e-2 in float32 in either package (measured 1.3e-6 / 1.6e-6 of the scale)
+FULL_WIDTH_RTOL_OF_SCALE = 1e-5
+
+
+def test_full_width_generation_reaches_the_jax_scale():
+    """The shipped SynthER (IDQLMlp 1024 x 6, emb 128, 128 ddpm steps, no
+    clipping) at halfcheetah's widths: the port's weights after two
+    training steps at batch 256, converted into the JAX pipeline, generate
+    16 rows in both with JAX's draws. The EMA model is still near its
+    initial weights (as after the card's smoke run's 500 steps at EMA
+    0.999), and its unclipped chain leaves the data's range in both
+    packages alike (|x| > 1e3): the same rows within
+    FULL_WIDTH_RTOL_OF_SCALE of that scale."""
+    ds = D4RLMuJoCoTDDataset(fake_d4rl_qlearning_dataset(n_steps=2000), device="cpu")
+    tp = SynthERPipeline(obs_dim=ds.o_dim, act_dim=ds.a_dim, gradient_steps=2, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        assert np.isfinite(float(tp.train_step(ds.sample_batch(g, 256))["loss"]))
+    jp = JaxSynthER(obs_dim=ds.o_dim, act_dim=ds.a_dim, rng=0)
+    jp.diffusion.state = jp.diffusion.state.replace(
+        ema_params=_jt(agent_params_of(tp.diffusion.ema_params)))
+    rows = 16
+    _, k = jax.random.split(jp._rng)
+    noise = _sampler_noise(k, (rows, tp.x_dim), 128)
+    want = jp.generate_transitions(rows, sampling_steps=128)
+    got = tp.generate_transitions(rows, sampling_steps=128, noise=[noise])
+    scale = float(np.abs(want).max())
+    assert got.shape == want.shape == (rows, 2 * ds.o_dim + ds.a_dim + 2)
+    assert scale > 1e3 and np.abs(got).max() > 1e3
+    np.testing.assert_allclose(got, want, rtol=0, atol=FULL_WIDTH_RTOL_OF_SCALE * scale)
 
 
 # ---------------------------------------------------------------------------
