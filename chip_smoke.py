@@ -4,7 +4,9 @@ hand-written Hopper kernels, and the DQL, IDQL and EDP diffusion policies
 (MLPs, no kernel) through their CLIs; the CLIs of the D4RL antmaze and
 kitchen suites, AdaptDiffuser's, and Diffusion Veteran's and DiffuserLite's
 (plain blocks, no kernel); SfBC's, QGPO's and SynthER's CLIs and the
-staged consistency policy (MLPs, no kernel).
+staged consistency policy (MLPs, no kernel); the PushT env and its MPC
+expert on the card, and the Diffusion Policy and DiffusionBC CLIs on PushT
+and Kitchen (no kernel).
 
     python3 chip_smoke.py
 
@@ -148,7 +150,7 @@ Phases, each of which raises on failure (exit code != 0):
                ckpt_1000 equals the initial weights bit for bit (the EMA gate
                opens at step 1000) and in ckpt_latest it does not; IDQL: the
                Q and V optimizers' counts in ckpt_latest are 625 (the critic
-               moves on even steps). Then 200 steps off the window grid
+               moves on even steps). Then 100 steps off the window grid
                (the per-step path), its steps/s beside the windows'; then
                ckpt_latest in a fresh pipeline serving 5 `act` requests at
                50 envs with the config's candidates (DQL 2,500 rows x 5
@@ -235,7 +237,7 @@ Phases, each of which raises on failure (exit code != 0):
                one profiled and one held against the CPU.
 24. SynthER CLIs - `cli.synther_d4rl_{mujoco,antmaze,kitchen}`: every
                mode: `train_diffusion` (MuJoCo 500 steps, the others 100),
-               `transition_generation` (MuJoCo one 100,000-row batch of 128
+               `transition_generation` (MuJoCo one 50,000-row batch of 128
                ddpm steps: its seconds and TFLOP/s; the others 10,000),
                `train_td3bc` (1,000 / 200 steps; the actor's and targets'
                updates read against `policy_freq`), then TD3+BC requests at
@@ -251,6 +253,36 @@ Phases, each of which raises on failure (exit code != 0):
                envs x 32 candidates with the CD model at 2 NFE and the EDM
                at 5 Euler and 5 Heun steps, each profiled and held against
                the CPU. No kernel launch in phases 22-25.
+26. PushT env and expert - one `step` of env/pusht.py from 1,024 seeded
+               states and targets (agents around the block) on the card
+               against the CPU: positions within 1e-3 px, coverage counts
+               within 2 of the 2,048 grid points; the expert's control step
+               captured as one CUDA graph against its plain loop (8 envs, 3
+               steps, the same draws), both step times; then the configs'
+               128 demos (episodes cut from 300 to 100 control steps,
+               EXPERT_MAX_STEPS) from the expert at its shipped budget (K
+               160, 4 iterations, horizon 8) in one rollout: the seconds,
+               the kept share (at least 0.5), written to dev/pusht/ in
+               CLI_DIR for the CLIs.
+27. DP PushT CLIs - `cli.dp_pusht` with `nn=chi_unet` (state and keypoint
+               configs), `chi_transformer` and `dit` at the shipped widths:
+               `mode=train` 100 steps in two windows at batch 256 (ckpt_100,
+               ckpt_latest), the on-device evaluation at the config's 10
+               envs (48 env steps of the config's 300, PUSHT_EVAL_STEPS:
+               seconds, ms per sampler call, reward and success), then 5 `act_chunk` requests from ckpt_latest at 10
+               envs (one profiled: device busy, idle share) and one held
+               against the CPU with the same noise within 1e-4.
+28. DBC PushT CLIs - `cli.dbc_pusht` with `nn=pearce_mlp` and `dit`: the same,
+               with `act` (50 ddpm steps per action, one sampler call per env
+               step: the evaluation 48 env steps, the DiT's 20), and one
+               Diffusion-X request (8 extra steps at the last level) held
+               against the CPU.
+29. Kitchen CLIs - `cli.dp_kitchen` (chi_unet) and `cli.dbc_kitchen`
+               (pearce_mlp, Diffusion-X on) on their synthetic demos: 100
+               steps in two windows, requests from ckpt_latest at the
+               config's envs held against the CPU; the FrankaKitchen
+               evaluation needs gymnasium_robotics, which the card's machine
+               lacks (the phase says so). No kernel launch in phases 26-29.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
@@ -260,7 +292,7 @@ steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
 phases by CLI and part (`cli_launches`: the Veteran, DiffuserLite, SfBC,
-QGPO, SynthER and consistency-policy phases' read 0), error and times
+QGPO, SynthER, consistency-policy, PushT and imitation phases' read 0), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -295,6 +327,8 @@ sys.path.insert(0, str(ROOT))
 from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     adaptdiffuser_d4rl_antmaze,
     adaptdiffuser_d4rl_mujoco,
+    dbc_kitchen,
+    dbc_pusht,
     dd_d4rl_antmaze,
     dd_d4rl_kitchen,
     dd_d4rl_mujoco,
@@ -306,6 +340,8 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     diffuserlite_d4rl_mujoco,
     dql_d4rl_antmaze,
     dql_d4rl_kitchen,
+    dp_kitchen,
+    dp_pusht,
     dql_d4rl_mujoco,
     edp_d4rl_antmaze,
     edp_d4rl_kitchen,
@@ -331,7 +367,14 @@ from cleandiffuser_tpu_torch.dataset.hermetic import (  # noqa: E402
 )
 from cleandiffuser_tpu_torch.diffusion.basic import DiffusionModel  # noqa: E402
 from cleandiffuser_tpu_torch.diffusion.vp_solvers import ddpm_coefficients  # noqa: E402
+from cleandiffuser_tpu_torch.cli.imitation import save_dir as imitation_save_dir  # noqa: E402
+from cleandiffuser_tpu_torch.dataset import ReplayBuffer  # noqa: E402
 from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn  # noqa: E402
+from cleandiffuser_tpu_torch.env.pusht import PushTEnv  # noqa: E402
+from cleandiffuser_tpu_torch.env.pusht_expert import (  # noqa: E402
+    PushTExpertMPC,
+    generate_pusht_expert_trajectories,
+)
 from cleandiffuser_tpu_torch.ops import build  # noqa: E402
 from cleandiffuser_tpu_torch.ops.dit_block import (  # noqa: E402
     dit_block_op,
@@ -353,8 +396,10 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
 from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
     ConsistencyPolicyPipeline,
+    DBCPipeline,
     DDPipeline,
     DiffuserPipeline,
+    DPPipeline,
     DQLPipeline,
     SfBCPipeline,
     SynthERPipeline,
@@ -363,7 +408,7 @@ from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines.diffuserlite_value import (  # noqa: E402
     build_candidate_plan_fn,
 )
-from cleandiffuser_tpu_torch.utils.config import load_config  # noqa: E402
+from cleandiffuser_tpu_torch.utils.config import load_config, resolve_config_cli  # noqa: E402
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of  # noqa: E402
 from cleandiffuser_tpu_torch.utils.train_state import read_jax_pickle  # noqa: E402
 
@@ -427,10 +472,11 @@ CLI_DIR = ROOT / "results" / "chip_smoke_cli"
 # the RL CLI phases: 5 windows of 250, a save after each, so that ckpt_1000
 # holds the last step before the actor EMA's gate opens and ckpt_latest the
 # 1250th (the loop saves on the save grid only: with save_interval=500 the
-# last save would be step 1000); then 200 steps with the save interval off
-# the log grid (the per-step path; no save, so ckpt_latest stays)
+# last save would be step 1000); then 100 steps with the save interval off
+# the log grid (the per-step path; no save, so ckpt_latest stays; cut from
+# 200 to keep the script within its time)
 RL_CLI_TRAIN = ("mode=train", "gradient_steps=1250", "log_interval=250", "save_interval=250")
-RL_CLI_PER_STEP = ("mode=train", "gradient_steps=200", "log_interval=100", "save_interval=250")
+RL_CLI_PER_STEP = ("mode=train", "gradient_steps=100", "log_interval=100", "save_interval=250")
 RL_CLI_REQUESTS = 5
 # the hermetic DQL gate (tests/test_hermetic_parity.py:101-108)
 DQL_GOAL2D_STEPS, DQL_GOAL2D_BATCH = 3000, 128
@@ -504,7 +550,8 @@ LITE_COMPARE_ENVS = 50
 # iterations of 200 critic steps (one Monte-Carlo re-evaluation of every
 # path); QGPO: 500 BC steps, the support of every next state (batches of
 # 5,000 states x K 16), 500 Q and 500 CEP steps in windows; SynthER MuJoCo:
-# 500 diffusion steps, one 100,000-row generation batch of 128 ddpm steps,
+# 500 diffusion steps, one 50,000-row generation batch of 128 ddpm steps
+# (cut from 100,000 to keep the script within its time),
 # 1,000 TD3+BC steps; SynthER antmaze and kitchen: 100 steps, one 10,000-row
 # batch, 200 TD3+BC steps, 2 requests. A request is held against the same
 # request on the port's CPU path with the same explicit noise at the
@@ -518,7 +565,7 @@ QGPO_CLI_BC = ("mode=bc_training", "bc_gradient_steps=500", "log_interval=125",
                "save_interval=250")
 QGPO_CLI_STAGE = ("q_gradient_steps=500", "cep_gradient_steps=500", "log_interval=125")
 SYNTHER_CLI = {"mujoco": (("diffusion_gradient_steps=500", "log_interval=125",
-                           "save_interval=250"), 100_000,
+                           "save_interval=250"), 50_000,
                           ("td3bc_gradient_steps=1000", "log_interval=250",
                            "save_interval=1000"), N_REQUESTS),
                "suite": (("diffusion_gradient_steps=100", "log_interval=50",
@@ -540,6 +587,35 @@ GEN_ERR_FACTOR = 4.0
 # student's bars; then requests at 50 envs x 32 candidates
 CP_STEPS, CP_BATCH, CP_TEACHER_BAR, CP_STUDENT_BAR = (2000, 3000, 2000), 128, 0.85, 0.80
 CP_REQUESTS = (("cd", 2), ("edm", 5), ("edm_heun", 5))
+# Diffusion Policy and DiffusionBC (configs/{dp,dbc}/{pusht,kitchen}/*, no kernel:
+# the Chi U-Net builds its own block, the DiTs are built without the fused one):
+# one PushT step from PUSHT_STEP_STATES seeded states on the card against the
+# CPU (positions within PUSHT_POS_TOL px, coverage counts within
+# PUSHT_COV_POINTS of 2,048); the MPC expert at its shipped budget makes the
+# configs' demos (128 episodes of at most 300 steps) in one rollout, and at
+# least EXPERT_KEEP_BAR of them must reach the threshold (the JAX expert
+# test's bar, tests/test_pusht_expert.py:29-34); then each CLI trains 100
+# steps in two windows at the config's batch, evaluates on the device at
+# the config's envs and episode length, and serves N_REQUESTS requests from
+# ckpt_latest, one held against the CPU with the same noise within
+# IMITATION_ATOL (TF32 off). FrankaKitchen needs gymnasium_robotics, which
+# the card's machine lacks: the Kitchen phases train and serve without it.
+PUSHT_STEP_STATES, PUSHT_POS_TOL, PUSHT_COV_POINTS = 1024, 1e-3, 2
+EXPERT_KEEP_BAR = 0.5
+IMITATION_TRAIN = ("mode=train", "gradient_steps=100", "log_freq=50", "save_freq=100")
+IMITATION_ATOL = 1e-4
+DP_PUSHT_CASES = (("chi_unet", "pusht"), ("chi_unet", "pusht_keypoint"),
+                  ("chi_transformer", "pusht"), ("dit", "pusht"))
+DBC_PUSHT_CASES = (("pearce_mlp", "pusht"), ("dit", "pusht"))
+# Cuts that keep the script within its time (on an H100 at 700 W the whole
+# script took 922.5 and 1023.4 s before them, the earlier phases 849 s of
+# the second): the on-device evaluations run 48 env steps of the configs' 300,
+# DBC's DiT 20 (DBC makes one host-bound sampler call of 50 ddpm steps per
+# env step: 90-112 ms with the PearceMlp, 270-524 ms with the depth-6 DiT;
+# DP one per 8 steps, 9-14 s for 300); the expert's episodes 100 control
+# steps of the configs' 300 (their median length was 39)
+PUSHT_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 20, 100
+DBC_X_STEPS = 8  # the Diffusion-X request: the Kitchen configs' extra_sample_steps
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
@@ -551,8 +627,11 @@ F32_TFLOPS, TF32_TFLOPS, BF16_TFLOPS, HBM_TBPS = 67.0, 495.0, 989.0, 3.35
 TF32X3_TFLOPS = TF32_TFLOPS / 3
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"[chip_smoke] --- {name}", flush=True)
+    print(f"[chip_smoke] --- {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1695,17 +1774,25 @@ def run_cli(cli, overrides, save_dir=None) -> tuple:
     name = save_dir(args) if save_dir is not None else args.pipeline_name
     run = CLI_DIR / "results/torch" / name / args.task.env_name
     before = len(read_jsonl(run / "train.jsonl"))
-    cwd = os.getcwd()
-    CLI_DIR.mkdir(parents=True, exist_ok=True)
-    os.chdir(CLI_DIR)
-    try:
+    with in_cli_dir():
         t0 = time.perf_counter()
         cli.pipeline(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
     return args, run, read_jsonl(run / "train.jsonl")[before:], seconds
+
+
+class in_cli_dir:
+    """Run the block in CLI_DIR, where the CLIs read their data (dev/) and
+    write their results."""
+
+    def __enter__(self):
+        self.cwd = os.getcwd()
+        CLI_DIR.mkdir(parents=True, exist_ok=True)
+        os.chdir(CLI_DIR)
+
+    def __exit__(self, *exc):
+        os.chdir(self.cwd)
 
 
 def check_windows(logs: list, steps: int, log_interval: int, second: str, budget: int):
@@ -2868,7 +2955,7 @@ def check_qgpo_cli(dev) -> dict:
 
 def check_synther_cli(dev, suite: str) -> dict:
     """SynthER's CLI of a suite, every mode: `train_diffusion` window by
-    window, `transition_generation` (MuJoCo: one 100,000-row batch of 128
+    window, `transition_generation` (MuJoCo: one 50,000-row batch of 128
     ddpm steps, its seconds and TFLOP/s), `train_td3bc` on the real and
     synthetic mix (the actor's and targets' updates against `policy_freq`),
     then TD3+BC requests at 50 envs; a request and a generation chunk
@@ -3022,8 +3109,211 @@ def check_consistency_policy(dev) -> dict:
     return no_kernel_launched("the consistency-policy phase")
 
 
+# ---------------------------------------------------------------------------
+# Diffusion Policy and DiffusionBC on PushT and Kitchen: the env, the expert
+# and the CLIs, no kernel on the path
+def pusht_states(n: int, seed: int = SEED) -> tuple:
+    """n seeded states with the agent within 80 px of the block (most push
+    it) and a target 30-80 px from the agent."""
+    rng = np.random.default_rng(seed)
+    block = rng.uniform(150, 360, (n, 2))
+    agent = block + rng.uniform(-80, 80, (n, 2))
+    states = np.concatenate([agent, block, rng.uniform(-np.pi, np.pi, (n, 1))], -1)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    actions = agent + np.stack([np.cos(ang), np.sin(ang)], -1) * rng.uniform(30, 80, (n, 1))
+    return torch.from_numpy(states.astype(np.float32)), torch.from_numpy(
+        actions.astype(np.float32))
+
+
+def check_pusht_env_and_expert(dev) -> dict:
+    """One PushT step from seeded states on the card against the CPU; the
+    expert's graphed control step against its plain loop; then the
+    configs' demos from the expert at its shipped budget in one rollout,
+    written where the PushT CLIs read them. Returns the kernels' launches
+    (all 0)."""
+    phase("PushT env and MPC expert on the card")
+    reset_counts()
+    states, actions = pusht_states(PUSHT_STEP_STATES)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        env = PushTEnv(device=d)
+        state, _ = env.reset(batch=PUSHT_STEP_STATES, reset_to_state=states)
+        new, _, _, _ = env.step(state, actions.to(d))
+        out.append((type(new)(*(x.cpu() for x in new)), env.coverage_count(new).cpu()))
+    (card, cov_c), (cpu, cov_p) = out
+    moved = int(((cpu.block_pos - states[:, 2:4]).abs().max(-1).values > 0).sum())
+    gaps = {"agent_pos": (card.agent_pos - cpu.agent_pos).abs().max().item(),
+            "block_pos": (card.block_pos - cpu.block_pos).abs().max().item(),
+            "block_angle": (card.block_angle - cpu.block_angle).abs().max().item(),
+            "coverage_points": int((cov_c - cov_p).abs().max())}
+    print(f"one step from {PUSHT_STEP_STATES} seeded states ({moved} push the block): card "
+          f"against CPU max |diff| {gaps} (limits {PUSHT_POS_TOL} px, {PUSHT_COV_POINTS} of "
+          f"2048 grid points); coverage points card / CPU, first 8: {cov_c[:8].tolist()} / "
+          f"{cov_p[:8].tolist()}", flush=True)
+    if not (gaps["agent_pos"] <= PUSHT_POS_TOL and gaps["block_pos"] <= PUSHT_POS_TOL
+            and gaps["coverage_points"] <= PUSHT_COV_POINTS):
+        raise AssertionError(f"PushT step: card and CPU differ: {gaps}")
+
+    args = resolve_config_cli(dp_pusht.CONFIG_DIR, "pusht", [], nn_key="nn")
+    g = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    graphed, plain = PushTExpertMPC(device=dev), PushTExpertMPC(device=dev, graph=False)
+    t0 = time.perf_counter()
+    a = graphed.rollout(g(), 8, 3)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    b = plain.rollout(g(), 8, 3)
+    step_gap = max((a[k] - b[k]).abs().max().item() for k in ("obs", "action"))
+    print(f"expert control step as one CUDA graph against the plain loop (8 envs, 3 steps, "
+          f"the same draws): max |diff| {step_gap:.3g} px (limit {PUSHT_POS_TOL}); capture and "
+          f"3 steps {t_capture:.2f} s", flush=True)
+    if not step_gap <= PUSHT_POS_TOL:
+        raise AssertionError(f"the graphed expert step differs from the plain one: {step_gap}")
+    for name, mpc in (("graph", graphed), ("plain", plain)):
+        mpc.rollout(g(), 8, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mpc.rollout(g(), 8, 2)
+        torch.cuda.synchronize()
+        print(f"expert control step ({name}, 8 envs x {mpc.K} candidates): "
+              f"{(time.perf_counter() - t0) / 2 * 1e3:.1f} ms", flush=True)
+
+    n_eps, max_steps = int(args.demo_episodes), EXPERT_MAX_STEPS
+    t0 = time.perf_counter()
+    episodes, max_covs = generate_pusht_expert_trajectories(
+        n_episodes=n_eps, max_steps=max_steps, seed=SEED, device=dev)
+    seconds = time.perf_counter() - t0
+    kept = len(episodes) / n_eps
+    lengths = [len(ep["state"]) for ep in episodes]
+    print(f"expert demos (K {graphed.K}, {graphed.iters} iterations, horizon {graphed.H}): "
+          f"{n_eps} episodes of at most {max_steps} control steps in one rollout: "
+          f"{seconds:.1f} s; kept {len(episodes)} ({kept:.3f}, bar {EXPERT_KEEP_BAR}); "
+          f"episode length median {statistics.median(lengths) if lengths else 0}; best "
+          f"reward median {statistics.median(max_covs):.3f}", flush=True)
+    if not kept >= EXPERT_KEEP_BAR:
+        raise AssertionError(f"the expert kept {kept:.3f} of its episodes")
+    rb = ReplayBuffer.create_empty_numpy()
+    for ep in episodes:
+        rb.add_episode({k: np.asarray(v, np.float32) for k, v in ep.items()})
+    for rel in ("dev/pusht/pusht_demos.npz", "dev/pusht/pusht_demos_keypoint.npz"):
+        (CLI_DIR / rel).parent.mkdir(parents=True, exist_ok=True)
+        rb.save_npz(str(CLI_DIR / rel))
+    return no_kernel_launched("the PushT env and expert phase")
+
+
+def run_imitation(cli, config: str, overrides) -> tuple:
+    """`cli.pipeline(args)` of the config `config` (with `nn=` among the
+    overrides picking its directory) in CLI_DIR. Returns (args, the run's
+    directory, the train.jsonl lines this run wrote, seconds)."""
+    args = resolve_config_cli(cli.CONFIG_DIR, config, list(overrides), nn_key="nn")
+    run = CLI_DIR / imitation_save_dir(args)
+    before = len(read_jsonl(run / "train.jsonl"))
+    with in_cli_dir():
+        t0 = time.perf_counter()
+        cli.pipeline(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return args, run, read_jsonl(run / "train.jsonl")[before:], seconds
+
+
+def imitation_card_vs_cpu(label: str, card_pipe, cpu_pipe, nobs: np.ndarray, act: str,
+                          dev) -> float:
+    """One request (`act` is "act_chunk" or "act") on the card and on the
+    CPU with the same explicit noise, within IMITATION_ATOL. Returns the
+    gap."""
+    gen = torch.Generator().manual_seed(SEED)
+    shape = card_pipe.prior_shape(nobs.shape[0])
+    kw = card_pipe.sample_kw
+    noise = torch.randn(shape, generator=gen)  # EDM: the initial draw only
+    if card_pipe.diffusion_kind != "edm":
+        steps = kw["sample_steps"] + kw.get("diffusion_x_sampling_steps", 0)
+        noise = (noise, torch.randn((steps, *shape), generator=gen))
+    card = getattr(card_pipe, act)(nobs, noise=to_device(noise, dev)).cpu()
+    gap = (card - getattr(cpu_pipe, act)(nobs, noise=noise)).abs().max().item()
+    print(f"{label} ({nobs.shape[0]} envs): card against CPU, same noise (TF32 off): max "
+          f"|diff| {gap:.3g} (limit {IMITATION_ATOL})", flush=True)
+    if not gap <= IMITATION_ATOL:
+        raise AssertionError(f"{label}: card and CPU differ by {gap}")
+    return gap
+
+
+def check_imitation_cli(dev, cli, nn: str, config: str, act: str) -> dict:
+    """An imitation CLI as users run it: `mode=train` (two windows, then
+    the on-device evaluation at the config's envs; Kitchen: no evaluation
+    without gymnasium_robotics), then `ckpt_latest` served and held
+    against the CPU. Returns the kernels' launches (all 0)."""
+    name = cli.__name__.rsplit(".", 1)[-1]
+    label = f"{name} {nn} ({config})"
+    phase(f"{label}: cli.{name} mode=train, then requests from ckpt_latest")
+    reset_counts()
+    pipe_cls = DPPipeline if name.startswith("dp") else DBCPipeline
+    # PushT evaluates on the device after the last step; Kitchen keeps the
+    # config's eval_freq (beyond these steps)
+    evals = ("+eval_freq=100",) if "pusht" in name else ()
+    if "pusht" in name:
+        eval_steps = (DBC_DIT_EVAL_STEPS if (name, nn) == ("dbc_pusht", "dit") else
+                      PUSHT_EVAL_STEPS)
+        evals += (f"max_episode_steps={eval_steps}",)
+    with timed_calls(pipe_cls, "evaluate_on_device") as ev:
+        args, run, logs, seconds = run_imitation(cli, config,
+                                                 (*IMITATION_TRAIN, *evals, f"nn={nn}"))
+    loss_key = "avg_diffusion_loss" if name == "dp_pusht" else "avg_loss"
+    steps = args.gradient_steps
+    if [lg["step"] for lg in logs] != list(range(args.log_freq, steps + 1, args.log_freq)) or \
+            not all(np.isfinite(lg[loss_key]) for lg in logs):
+        raise AssertionError(f"{label}: windows {logs}")
+    if not (run / "ckpt_latest").exists() or (name == "dp_pusht") != (
+            run / f"ckpt_{steps}").exists():
+        raise AssertionError(f"{label}: checkpoints in {run}")
+    print(f"{label}: {steps} steps in {len(logs)} windows at batch {args.batch_size}: "
+          f"{seconds:.1f} s with "
+          f"set-up, saves and evaluation; steps/s per window "
+          f"{[lg['steps_per_sec'] for lg in logs]}; losses {[round(lg[loss_key], 4) for lg in logs]}",
+          flush=True)
+    if "pusht" in name:
+        if len(ev.calls) != 1:
+            raise AssertionError(f"{label}: {len(ev.calls)} evaluations")
+        ev_s, _, (rew, success) = ev.calls[0]
+        steps = args.max_episode_steps
+        calls = steps // args.action_steps if name == "dp_pusht" else steps
+        print(f"{label}: evaluate_on_device, {args.num_envs} envs x {steps} env steps "
+              f"({calls} sampler calls of {args.sample_steps} steps): {ev_s:.2f} s "
+              f"({ev_s / calls * 1e3:.2f} ms per sampler call and its env steps); mean reward "
+              f"{rew:.4f}, mean success {success:.4f}", flush=True)
+    else:
+        try:
+            import gymnasium_robotics  # noqa: F401
+            note = "installed: run `mode=inference` for the FrankaKitchen evaluation"
+        except ImportError:
+            note = "not installed on this machine: no FrankaKitchen evaluation"
+        print(f"{label}: gymnasium_robotics {note}", flush=True)
+
+    with in_cli_dir():  # the demos the CLI trained on
+        dataset, pipe = cli.build(args, dev)
+    pipe.load(str(run / "ckpt_latest"))
+    n = args.num_envs
+    k = torch.arange(n) % len(dataset)
+    nobs = dataset.gather(k)["obs"]["state"][:, :args.obs_steps].cpu().numpy()
+    # a DP chunk (B, Ta, act) flattened per env, as `served` checks (B, dim)
+    served(lambda o: getattr(pipe, act)(o).reshape(o.shape[0], -1), nobs, N_REQUESTS, label,
+           args.action_dim * (args.action_steps if act == "act_chunk" else 1))
+    counts = no_kernel_launched(f"the {label} phase")
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset=dataset)
+    cpu_pipe.load(str(run / "ckpt_latest"))
+    imitation_card_vs_cpu(label, pipe, cpu_pipe, nobs, act, dev)
+    if name == "dbc_pusht" and nn == "pearce_mlp":  # one Diffusion-X request
+        xargs = resolve_config_cli(cli.CONFIG_DIR, config, [
+            f"nn={nn}", f"diffusion_x_sampling_steps={DBC_X_STEPS}"], nn_key="nn")
+        _, x_pipe = cli.build(xargs, dev, dataset=dataset)
+        _, x_cpu = cli.build(xargs, torch.device("cpu"), dataset=dataset)
+        for p in (x_pipe, x_cpu):
+            p.load(str(run / "ckpt_latest"))
+        imitation_card_vs_cpu(f"{label} with {DBC_X_STEPS} Diffusion-X steps", x_pipe, x_cpu,
+                              nobs, act, dev)
+    no_kernel_launched(f"the {label} phase's comparisons")
+    return counts
+
+
 def main() -> int:
-    t_start = time.perf_counter()
     kind = check_device()
     dev = torch.device("cuda", 0)
     build_kernels(dev)
@@ -3071,7 +3361,19 @@ def main() -> int:
     rl2.update({f"synther_{suite}": check_synther_cli(dev, suite)
                 for suite in ("mujoco", "antmaze", "kitchen")})
     rl2["consistency_policy"] = check_consistency_policy(dev)
-    print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s ({cuda_ms.longer_spins} "
+    # Diffusion Policy and DiffusionBC on PushT and Kitchen (no kernel on
+    # their path): the env and the expert, then the four CLIs
+    imitation = {"pusht_env_expert": check_pusht_env_and_expert(dev)}
+    for nn, config in DP_PUSHT_CASES:
+        imitation[f"dp_pusht_{nn}_{config}"] = check_imitation_cli(dev, dp_pusht, nn, config,
+                                                                   "act_chunk")
+    for nn, config in DBC_PUSHT_CASES:
+        imitation[f"dbc_pusht_{nn}"] = check_imitation_cli(dev, dbc_pusht, nn, config, "act")
+    imitation["dp_kitchen"] = check_imitation_cli(dev, dp_kitchen, "chi_unet", "kitchen",
+                                                  "act_chunk")
+    imitation["dbc_kitchen"] = check_imitation_cli(dev, dbc_kitchen, "pearce_mlp", "kitchen",
+                                                   "act")
+    print(f"[chip_smoke] total {time.perf_counter() - T_START:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
@@ -3079,7 +3381,8 @@ def main() -> int:
         # the CLI phases: training through the CLI and serving its checkpoint
         "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()},
                          **{f"{p}_cli": c[f"fused_{name}"] for p, c in planners.items()},
-                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in rl2.items()}},
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in rl2.items()},
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in imitation.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         # no single PyTorch call computes any of these blocks or steps

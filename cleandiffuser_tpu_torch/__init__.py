@@ -17,6 +17,9 @@ Ported so far:
 - The training of both, the D4RL-MuJoCo datasets and the Goal2D task, and
   their command-line entry points (`cli/`): the windowed trainer and the
   training and evaluation loops of `pipelines/runner.py`.
+- Then the diffusion policies, the planners of the D4RL suites and their
+  CLIs (ROADMAP.md lists them), and Diffusion Policy and DiffusionBC on
+  PushT (the env and its MPC expert batched on the device) and Kitchen.
 """
 
 __version__ = "0.1.0"

@@ -21,3 +21,6 @@ from .d4rl_mujoco import (
 from .dataset_utils import SequenceSampler, create_indices
 from .fake import FAKE_ENV_SPECS, fake_d4rl_dataset, fake_d4rl_qlearning_dataset
 from .hermetic import goal2d_qlearning_dataset, goal2d_sequence_dataset
+from .kitchen import KitchenDataset, KitchenDatasetV2, KitchenMjlDataset
+from .pusht import PushTKeypointDataset, PushTStateDataset, generate_pusht_demos
+from .replay_buffer import ReplayBuffer

@@ -25,10 +25,16 @@ Training: `add_noise` and `loss_fn` (diffusion/basic.py runs the update);
 the draws come from a generator on the engine's device, or explicitly as
 `noise=(t, eps, keep_mask)`.
 
+`diffusion_x_sampling_steps` adds that many steps at the last noise level
+after the schedule's (Diffusion-X, DiffusionBC's option): each one is the
+solver's step from level 1, and each takes its row of `per_step` noise, so
+`per_step` then has sample_steps + diffusion_x_sampling_steps rows.
+
 Ported so far: the solvers, CFG in mix / cond / uncond modes, classifier
-guidance, final log p, clipping, inpainting and the training loss. Warm
-start, diffusion-x steps, history and the parallel-in-time sampler come
-later.
+guidance, final log p, clipping, inpainting, the diffusion-x steps and the
+training loss. Warm start and history (which no pipeline calls on these
+engines) and the parallel-in-time sampler come later (ROADMAP queue 1,
+items 9 and 10).
 """
 
 from __future__ import annotations
@@ -167,6 +173,7 @@ class BaseDiffusionSDE(DiffusionModel):
         final_logp=None,
         fused_update: bool = False,
         fix_mask=None,
+        diffusion_x_sampling_steps: int = 0,
     ):
         """Build the k-step sampler.
 
@@ -182,6 +189,9 @@ class BaseDiffusionSDE(DiffusionModel):
         (`bf16_params`), not
         once per step; its solver math stays f32. With `final_logp` (default: whether there is a
         classifier) the log holds "log_p" of the final sample at t = 0.
+
+        `diffusion_x_sampling_steps` extra steps run at the last level
+        (module note).
 
         `fn` follows the caller's grad mode, as the reference's sampler is a
         plain differentiable function: DQL's policy loss backpropagates
@@ -204,6 +214,8 @@ class BaseDiffusionSDE(DiffusionModel):
         hs = torch.cat([zero, logSNRs[:-1] - logSNRs[1:]])
         stds = torch.cat([
             zero, sigmas[:-1] / sigmas[1:] * torch.sqrt(1 - (alphas[1:] / alphas[:-1]) ** 2)])
+        # the levels stepped from: steps, ..., 1, then the diffusion-x steps at 1
+        idxs = list(range(sample_steps, 0, -1)) + [1] * diffusion_x_sampling_steps
 
         def fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None, cls_params=None,
@@ -223,7 +235,7 @@ class BaseDiffusionSDE(DiffusionModel):
                     raise ValueError("fused_update draws its noise in the kernel: it takes "
                                      "no explicit noise")
                 # one seed per step, drawn at once: a single device-to-host copy
-                seeds = torch.randint(2**31 - 1, (sample_steps,), generator=generator,
+                seeds = torch.randint(2**31 - 1, (len(idxs),), generator=generator,
                                       device=generator.device).tolist()
             if self.bf16_sampling:
                 params = self.bf16_params(params)
@@ -233,7 +245,7 @@ class BaseDiffusionSDE(DiffusionModel):
             emb = self.apply_condition(params, condition_cfg, mask=mask_cfg)
             prev_x_theta = torch.zeros_like(xt)
             B = prior.shape[0]
-            for n, i in enumerate(range(sample_steps, 0, -1)):
+            for n, i in enumerate(idxs):
                 t = torch.full((B,), ts[i].item(), dtype=ts.dtype, device=prior.device)
                 a_i, s_i = float(alphas[i]), float(sigmas[i])
                 cg_coef = self._cg_coef(w_cg, alphas[i], sigmas[i]) if use_cg else 0.0

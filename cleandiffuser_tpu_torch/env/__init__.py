@@ -10,4 +10,6 @@ from .d4rl_eval import (
 from .goal2d import Goal2DEnv, evaluate_policy, normalized_score_fn, optimal_return
 from .maze2d_expert import WaypointController, generate_maze2d_dataset
 from .kitchen import ALL_KITCHEN_TASKS, KitchenLowdimWrapper, make_kitchen_env
-from .wrapper import DuckSyncVectorEnv
+from .pusht import PushTEnv, PushTKeypointEnv, PushTState
+from .pusht_expert import PushTExpertMPC, generate_pusht_expert_trajectories
+from .wrapper import DuckSyncVectorEnv, MultiStepWrapper, repeated_space, stack_last_n_obs

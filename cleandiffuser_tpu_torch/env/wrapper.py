@@ -1,15 +1,114 @@
-"""Vector env over duck-typed envs (counterpart of
-cleandiffuser_tpu/env/wrapper.py `DuckSyncVectorEnv`; the reference's
-`MultiStepWrapper` and video wrappers come with the imitation slice, ROADMAP
-queue 1, item 7). numpy only: the envs step on the host."""
+"""Host env wrappers (counterpart of cleandiffuser_tpu/env/wrapper.py):
+`DuckSyncVectorEnv` and the imitation pipelines' `MultiStepWrapper`, with
+`repeated_space` and `stack_last_n_obs`. numpy only: the envs step on the
+host, and gymnasium is imported only to build a space. The video wrappers
+come with the visual slice (ROADMAP queue 1, item 7b).
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from collections import defaultdict, deque
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["DuckSyncVectorEnv"]
+__all__ = ["DuckSyncVectorEnv", "MultiStepWrapper", "repeated_space", "stack_last_n_obs"]
+
+
+def repeated_space(space, n: int):
+    """A Box space stacked n times along a new leading axis."""
+    from gymnasium import spaces
+
+    if isinstance(space, spaces.Box):
+        return spaces.Box(low=np.repeat(space.low[None], n, axis=0),
+                          high=np.repeat(space.high[None], n, axis=0), dtype=space.dtype)
+    raise NotImplementedError(type(space))
+
+
+def stack_last_n_obs(all_obs: Sequence[np.ndarray], n_steps: int) -> np.ndarray:
+    """The last n observations stacked, front-padded by repeating the
+    oldest one."""
+    all_obs = list(all_obs)
+    result = np.zeros((n_steps,) + np.shape(all_obs[-1]), dtype=np.asarray(all_obs[-1]).dtype)
+    start_idx = -min(n_steps, len(all_obs))
+    result[start_idx:] = np.asarray(all_obs[start_idx:])
+    if n_steps > len(all_obs):
+        result[:start_idx] = result[start_idx]
+    return result
+
+
+class MultiStepWrapper:
+    """The receding-horizon interface of the imitation pipelines over any
+    env with reset / step / close: the observation is the last
+    `n_obs_steps` observations stacked; `step(action_chunk)` runs up to
+    `n_action_steps` low-level steps (stopping at a done), with the rewards
+    aggregated ("max" by default, or "sum", "mean"). `max_episode_steps`
+    ends the episode as truncated. Its spaces are the wrapped env's
+    repeated (built on first access)."""
+
+    def __init__(self, env, n_obs_steps: int = 2, n_action_steps: int = 8,
+                 max_episode_steps: Optional[int] = None, reward_agg_method: str = "max"):
+        self.env = env
+        self.max_episode_steps = max_episode_steps
+        self.n_obs_steps, self.n_action_steps = n_obs_steps, n_action_steps
+        self.reward_agg_method = reward_agg_method
+        self.obs: deque = deque(maxlen=n_obs_steps + 1)
+        self.reward: List[float] = []
+        self.done: List[bool] = []
+        self.info = defaultdict(lambda: deque(maxlen=n_obs_steps + 1))
+
+    @property
+    def action_space(self):
+        return repeated_space(self.env.action_space, self.n_action_steps)
+
+    @property
+    def observation_space(self):
+        return repeated_space(self.env.observation_space, self.n_obs_steps)
+
+    def reset(self, **kwargs):
+        out = self.env.reset(**kwargs)
+        obs = out[0] if isinstance(out, tuple) else out
+        self.obs = deque([obs], maxlen=self.n_obs_steps + 1)
+        self.reward, self.done = [], []
+        self.info = defaultdict(lambda: deque(maxlen=self.n_obs_steps + 1))
+        return self._get_obs(), {}
+
+    def step(self, action_chunk):
+        """action_chunk: (n_action_steps, act_dim)."""
+        truncated = False
+        for act in action_chunk:
+            if self.done and self.done[-1]:
+                break
+            out = self.env.step(act)
+            if len(out) == 5:
+                observation, reward, terminated, trunc, info = out
+                done = terminated or trunc
+            else:
+                observation, reward, done, info = out
+            self.obs.append(observation)
+            self.reward.append(float(reward))
+            if self.max_episode_steps is not None and len(self.reward) >= self.max_episode_steps:
+                done = truncated = True
+            self.done.append(bool(done))
+            for k, v in (info or {}).items():
+                self.info[k].append(v)
+        reward = self._aggregate(self.reward[-len(action_chunk):])
+        done = bool(np.any(self.done[-len(action_chunk):])) if self.done else False
+        return self._get_obs(), reward, done, truncated, dict(self.info)
+
+    def _get_obs(self):
+        return stack_last_n_obs(self.obs, self.n_obs_steps)
+
+    def _aggregate(self, rewards):
+        if not rewards:
+            return 0.0
+        agg = {"max": np.max, "sum": np.sum, "mean": np.mean}.get(self.reward_agg_method)
+        if agg is None:
+            raise NotImplementedError(self.reward_agg_method)
+        return float(agg(rewards))
+
+    def close(self):
+        self.env.close()
 
 
 class DuckSyncVectorEnv:

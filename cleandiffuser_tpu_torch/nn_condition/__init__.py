@@ -1,1 +1,1 @@
-from .base import BaseNNCondition, IdentityCondition, MLPCondition
+from .base import BaseNNCondition, IdentityCondition, MLPCondition, PearceObsCondition

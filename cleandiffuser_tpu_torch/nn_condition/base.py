@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..utils.blocks import dense
 from ..utils.tensors import at_least_ndim
 
-__all__ = ["BaseNNCondition", "IdentityCondition", "MLPCondition"]
+__all__ = ["BaseNNCondition", "IdentityCondition", "MLPCondition", "PearceObsCondition"]
 
 
 class BaseNNCondition(nn.Module):
@@ -77,3 +77,25 @@ class MLPCondition(BaseNNCondition):
         for layer in self.layers[:-1]:
             h = self.act(layer(h))
         return self._apply_mask(self.layers[-1](h), m)
+
+
+class PearceObsCondition(BaseNNCondition):
+    """Per-frame observation MLP (Dense, leaky ReLU, Dense) of (b, To,
+    obs_dim) -> (b, To, emb_dim), or (b, To * emb_dim) with `flatten`, with
+    condition dropout."""
+
+    JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def __init__(self, obs_dim: int, emb_dim: int = 128, flatten: bool = False,
+                 dropout: float = 0.25, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense1 = dense(obs_dim, emb_dim, generator=generator)
+        self.dense2 = dense(emb_dim, emb_dim, generator=generator)
+        self.flatten, self.dropout = flatten, dropout
+
+    def forward(self, obs, mask=None, train: bool = False, generator=None):
+        m = self.get_mask(obs, mask, train, generator)
+        h = self.dense2(F.leaky_relu(self.dense1(obs), 0.01))
+        if self.flatten:
+            h = h.reshape(h.shape[0], -1)
+        return self._apply_mask(h, m)

@@ -1,6 +1,9 @@
 from .base import timestep_embedding_module
+from .chitransformer import ChiTransformer
+from .chiunet import ChiResidualBlock, ChiUNet1d
 from .dit import DiT1d, DiTBlock, FinalLayer1d, modulate
 from .mlps import DQLMlp, DVInvMlp, IDQLMlp, NewIDQLMlp
+from .pearce import PearceMlp, PearceTransformer
 from .sfbc_unet import SfBCUNet
 from .jannerunet import (
     Downsample1d,

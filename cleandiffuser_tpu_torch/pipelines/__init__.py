@@ -1,8 +1,10 @@
 from .adaptdiffuser import AdaptDiffuserPipeline
 from .consistency_policy import ConsistencyPolicyPipeline, goal2d_gate
+from .dbc import DBCPipeline
 from .dd import DDPipeline
 from .diffuser import DiffuserPipeline
 from .diffuserlite import DiffuserLitePipeline, compute_temporal_horizons
+from .dp import DPPipeline
 from .dql import DQLPipeline
 from .edp import EDPPipeline
 from .idql import IDQLPipeline

@@ -1,12 +1,17 @@
 """Dataset acquisition for the pipelines (counterpart of
-cleandiffuser_tpu/pipelines/data_loading.py; the PushT demos come with the
-imitation slice).
+cleandiffuser_tpu/pipelines/data_loading.py).
 
 Nothing is downloaded. The resolution order is:
 
 1. a local .npz snapshot at `$CLEANDIFFUSER_DATA/<env_name>[.qlearning].npz`
    (default directory `dev/d4rl`) with the d4rl key schema;
 2. the synthetic generator (dataset/fake.py), with a printed warning.
+
+`resolve_pusht_demos(args, device)` gives the PushT imitation CLIs their
+demos: the file at `args.dataset_path` when it exists, else demos made by
+the on-device MPC expert (or, with `demo_expert=false`, the scripted
+pusher), cached to that path when it ends in .npz; a cache written by the
+JAX package loads here, and the other way round.
 
 `get_normalized_score_fn(env_name)` is d4rl's normalized score, and
 `make_eval_env_fns(env_name, n)` the gymnasium eval envs of a d4rl task:
@@ -27,7 +32,7 @@ import numpy as np
 
 from ..dataset.fake import fake_d4rl_dataset, fake_d4rl_qlearning_dataset
 
-__all__ = ["load_d4rl_dataset", "load_d4rl_qlearning_dataset", "data_dir",
+__all__ = ["load_d4rl_dataset", "load_d4rl_qlearning_dataset", "data_dir", "resolve_pusht_demos",
            "D4RL_SCORE_RANGES", "get_normalized_score_fn", "make_eval_env_fns"]
 
 # d4rl's (random, expert) returns per task prefix; the sparse-reward suites
@@ -122,3 +127,37 @@ def make_eval_env_fns(env_name: str, num_envs: int):
         if env_name.startswith(prefix):
             return [lambda: gym.make(gid) for _ in range(num_envs)]
     raise ValueError(f"no gymnasium mapping for {env_name}")
+
+
+def resolve_pusht_demos(args, device=None):
+    """The PushT demos of a dp / dbc CLI: the path `args.dataset_path` if it
+    exists (a reference zarr store or an .npz export of one: drop in
+    pusht_cchi_v7_replay to train on the human demos), else a fresh
+    ReplayBuffer of `demo_episodes` episodes of at most `demo_max_steps`
+    steps from the MPC expert on `device` (`demo_expert`, the default; all
+    episodes in one rollout unless `demo_batch` is set; `demo_noise` > 0 adds
+    DART execution noise) or from the scripted pusher, saved to the path
+    when it ends in .npz."""
+    path = Path(args.dataset_path)
+    if path.exists():
+        return str(path)
+    from ..dataset.pusht import generate_pusht_demos
+
+    expert = bool(args.get("demo_expert", True))
+    n_episodes = int(args.get("demo_episodes", 64))
+    max_steps = int(args.get("demo_max_steps", 300 if expert else 200))
+    kind = "MPC-expert" if expert else "scripted"
+    cache_note = (f"cached to {path}" if path.suffix == ".npz" else
+                  f"NOT cached: {path} is not .npz, regenerated every run")
+    print(f"[data] no dataset at {path}; generating {n_episodes} {kind} demos ({cache_note})",
+          flush=True)
+    noise = float(args.get("demo_noise", 0.0))
+    batch = args.get("demo_batch")
+    rb = generate_pusht_demos(n_episodes=n_episodes, max_steps=max_steps, seed=args.seed,
+                              expert=expert,
+                              mpc_kwargs={"exec_noise_prob": noise} if noise > 0.0 else None,
+                              batch=None if batch is None else int(batch), device=device)
+    if path.suffix == ".npz":
+        path.parent.mkdir(parents=True, exist_ok=True)
+        rb.save_npz(str(path))
+    return rb

@@ -19,7 +19,9 @@ The MLPs and critics of the RL pipelines (`Mlp`, `DQLCritic`, `TwinQ`,
 param trees. So do Diffusion Veteran's critic transformer
 (`DVHorizonCritic` of `DVTransformerBlock`s) and its attention, whose
 `DenseGeneral` projections load flax's `MultiHeadDotProductAttention`
-kernels, (D, heads, head_dim) and (heads, head_dim, D).
+kernels, (D, heads, head_dim) and (heads, head_dim, D); the Chi
+transformer's attention is the same module with keys and values from a
+memory, a mask and an attention-weight dropout mask.
 
 Type promotion. PyTorch does not promote inside a product (`f32 @ bf16`
 raises), while `jnp` and flax's `Dense` cast the operands to their common
@@ -303,36 +305,53 @@ class DenseGeneral(Dense):
 
 @torch.no_grad()
 def _dense_general(in_dim: int, out_dim: int, kernel_shape, bias_shape,
-                   generator: Optional[torch.Generator] = None) -> DenseGeneral:
-    """flax's default init of a DenseGeneral: lecun normal on the kernel's
-    fan-in (`in_dim`), zero bias."""
+                   generator: Optional[torch.Generator] = None,
+                   kernel_init: Optional[Init] = None) -> DenseGeneral:
+    """flax's default init of a DenseGeneral (lecun normal on the kernel's
+    fan-in, `in_dim`), or `kernel_init`; zero bias."""
     layer = nn.utils.skip_init(DenseGeneral, in_dim, out_dim, kernel_shape, bias_shape)
-    lecun_normal_init(layer.weight, generator, fan_in=in_dim)
+    if kernel_init is None:
+        lecun_normal_init(layer.weight, generator, fan_in=in_dim)
+    else:
+        kernel_init(layer.weight, generator)
     zeros_init(layer.bias)
     return layer
 
 
 class _MultiHeadAttention(nn.Module):
     """flax `nn.MultiHeadDotProductAttention(num_heads, qkv_features=D)` on
-    (b, L, D), no mask and no dropout: softmax(q k^T / sqrt(head_dim)) v per
-    head, heads concatenated, then the output projection."""
+    (b, L, D): softmax(q k^T / sqrt(head_dim)) v per head, heads
+    concatenated, then the output projection. Keys and values come from
+    `kv` (b, S, D) when given, else from x. `mask` (L, S) bool keeps the
+    True entries (flax fills the others with the dtype's minimum before the
+    softmax); `keep` (L, S) bool is the attention-weight dropout mask, one
+    for the whole batch and every head as flax's `broadcast_dropout` draws
+    it, applied with `rate` (kept weights scaled by 1 / (1 - rate)).
+    `kernel_init` draws the four kernels (flax's default: lecun normal)."""
 
-    def __init__(self, d_model: int, n_heads: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, d_model: int, n_heads: int, generator: Optional[torch.Generator] = None,
+                 kernel_init: Optional[Init] = None):
         super().__init__()
         hd = d_model // n_heads
         self.n_heads = n_heads
         for name in ("query", "key", "value"):
             setattr(self, name, _dense_general(d_model, d_model, (d_model, n_heads, hd),
-                                               (n_heads, hd), generator))
+                                               (n_heads, hd), generator, kernel_init))
         self.out = _dense_general(d_model, d_model, (n_heads, hd, d_model), (d_model,),
-                                  generator)
+                                  generator, kernel_init)
 
-    def forward(self, x):
+    def forward(self, x, kv=None, mask=None, keep=None, rate: float = 0.0):
         b, L, D = x.shape
-        heads = lambda h: h.view(b, L, self.n_heads, D // self.n_heads)
-        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        kv = x if kv is None else kv
+        heads = lambda h: h.view(b, h.shape[1], self.n_heads, D // self.n_heads)
+        q, k, v = heads(self.query(x)), heads(self.key(kv)), heads(self.value(kv))
         q = q / math.sqrt(D // self.n_heads)
-        attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        attn = torch.softmax(logits, dim=-1)
+        if keep is not None:
+            attn = attn * (keep.to(attn.dtype) / (1.0 - rate))
         return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, L, D))
 
 

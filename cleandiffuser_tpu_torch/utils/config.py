@@ -12,6 +12,11 @@ cleandiffuser_tpu/utils/config.py), reading the same `configs/` tree.
 - An override of a key the yaml lacks is applied with a warning, except for
   the keys `parallel/integrate.py` `setup_mesh` reads, which no config
   file needs to carry (`RUNTIME_KEYS`).
+- `resolve_config_cli(dir, name, argv, nn_key="nn")`: the hydra-style CLI
+  spelling the imitation CLIs take: `--config-path=<dir>` /
+  `--config-dir=<dir>` (relative to the current directory),
+  `--config-name=<name>`, and `nn=<backbone>`, which switches to the
+  sibling directory `<dir>/../<backbone>/` when it holds the config.
 """
 
 from __future__ import annotations
@@ -21,10 +26,10 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import yaml
 
-__all__ = ["Config", "load_config", "parse_cli", "RUNTIME_KEYS"]
+__all__ = ["Config", "load_config", "parse_cli", "resolve_config_cli", "RUNTIME_KEYS"]
 
 # read by `setup_mesh` with a default: overrides of them add them silently
-RUNTIME_KEYS = frozenset({"bf16_sampling", "bf16_training", "n_devices"})
+RUNTIME_KEYS = frozenset({"bf16_sampling", "bf16_training", "n_devices", "platform"})
 
 
 class Config:
@@ -141,3 +146,24 @@ def load_config(
 def parse_cli(argv: Sequence[str]) -> List[str]:
     """Filter argv down to key=value override tokens."""
     return [a for a in argv if "=" in a and not a.startswith("-")]
+
+
+def resolve_config_cli(default_dir: Union[str, Path], default_name: str, argv: Sequence[str],
+                       nn_key: Optional[str] = None) -> Config:
+    """The config a CLI's argv names (module note): the directory and file
+    from `--config-path` / `--config-name`, the backbone's sibling
+    directory for `<nn_key>=<backbone>`, the other `key=value` tokens as
+    overrides."""
+    cfg_dir, cfg_name, overrides = Path(default_dir), default_name, []
+    for a in argv:
+        if a.startswith(("--config-path=", "--config-dir=")):
+            cfg_dir = Path(a.split("=", 1)[1])
+        elif a.startswith("--config-name="):
+            cfg_name = a.split("=", 1)[1].removesuffix(".yaml")
+        elif "=" in a and not a.startswith("-"):
+            overrides.append(a)
+    if nn_key:
+        nn = next((o.split("=", 1)[1] for o in overrides if o.startswith(f"{nn_key}=")), None)
+        if nn is not None and (cfg_dir.parent / nn / f"{cfg_name}.yaml").exists():
+            cfg_dir = cfg_dir.parent / nn
+    return load_config(cfg_dir, cfg_name, overrides)

@@ -28,7 +28,14 @@ flax `Conv`, `GroupNorm` and `LayerNorm` map onto the port's channels-last
 `Conv1d`, `GroupNorm` and `LayerNorm` (utils/blocks.py), which keep flax's
 names and layouts (`kernel` (K, Cin, Cout), `bias`, `scale`), so their
 leaves copy unchanged, as do the fused DiT block's flat weights, kept in
-the flax `(in, out)` orientation.
+the flax `(in, out)` orientation, and a module's own flax params (the Chi
+transformer's `pos_emb`, the Pearce token BatchNorm's `scale` / `bias`).
+The imitation backbones name their children as flax numbers them: the Chi
+U-Net's `ChiResidualBlock_i` (`Conv_*`, `GroupNorm_*`, `Dense_0`),
+`Downsample1d_i`, `Upsample1d_i`; the Chi transformer's
+`_PreNormDecoderLayer_i` with their `MultiHeadDotProductAttention_*`
+(DenseGeneral kernels (D, heads, head_dim)); the Pearce nets' `FCBlock_i`,
+`TimeSiren_0` (its first Dense without bias) and `_PearceEncoderBlock_i`.
 
 Block layouts. A DiT1d built with `use_pallas_block=True` stores each block
 flat (`PallasDiTBlock_i`: wmod, bmod, wqkv, ...); one built without stores
