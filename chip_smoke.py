@@ -268,13 +268,14 @@ Phases, each of which raises on failure (exit code != 0):
                configs), `chi_transformer` and `dit` at the shipped widths:
                `mode=train` 100 steps in two windows at batch 256 (ckpt_100,
                ckpt_latest), the on-device evaluation at the config's 10
-               envs (48 env steps of the config's 300, PUSHT_EVAL_STEPS:
-               seconds, ms per sampler call, reward and success), then 5 `act_chunk` requests from ckpt_latest at 10
-               envs (one profiled: device busy, idle share) and one held
-               against the CPU with the same noise within 1e-4.
+               envs and 300 env steps (seconds, ms per sampler call, reward
+               and success), then 5 `act_chunk` requests from ckpt_latest
+               at 10 envs (one profiled: device busy, idle share) and one
+               held against the CPU with the same noise within 1e-4.
 28. DBC PushT CLIs - `cli.dbc_pusht` with `nn=pearce_mlp` and `dit`: the same,
                with `act` (50 ddpm steps per action, one sampler call per env
-               step: the evaluation 48 env steps, the DiT's 20), and one
+               step: the evaluation cut to 48 env steps, the DiT's to 20,
+               DBC_EVAL_STEPS), and one
                Diffusion-X request (8 extra steps at the last level) held
                against the CPU.
 29. Kitchen CLIs - `cli.dp_kitchen` (chi_unet) and `cli.dbc_kitchen`
@@ -609,12 +610,14 @@ DP_PUSHT_CASES = (("chi_unet", "pusht"), ("chi_unet", "pusht_keypoint"),
 DBC_PUSHT_CASES = (("pearce_mlp", "pusht"), ("dit", "pusht"))
 # Cuts that keep the script within its time (on an H100 at 700 W the whole
 # script took 922.5 and 1023.4 s before them, the earlier phases 849 s of
-# the second): the on-device evaluations run 48 env steps of the configs' 300,
-# DBC's DiT 20 (DBC makes one host-bound sampler call of 50 ddpm steps per
-# env step: 90-112 ms with the PearceMlp, 270-524 ms with the depth-6 DiT;
-# DP one per 8 steps, 9-14 s for 300); the expert's episodes 100 control
-# steps of the configs' 300 (their median length was 39)
-PUSHT_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 20, 100
+# the second): DBC's on-device evaluations run 48 env steps of the configs'
+# 300, its DiT's 20 (DBC makes one host-bound sampler call of 50 ddpm steps
+# per env step: 90-112 ms with the PearceMlp, 270-524 ms with the depth-6
+# DiT, so 300 steps would take 27-34 s and 81-157 s); the expert's episodes
+# 100 control steps of the configs' 300 (their median length was 39). DP's
+# evaluations keep the configs' 300 env steps (one sampler call per 8 env
+# steps: 8.6-13.7 s for 300)
+DBC_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 20, 100
 DBC_X_STEPS = 8  # the Diffusion-X request: the Kitchen configs' extra_sample_steps
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
@@ -1764,15 +1767,22 @@ def read_jsonl(path: Path) -> list:
     return [json.loads(s) for s in path.read_text().splitlines()] if path.exists() else []
 
 
-def run_cli(cli, overrides, save_dir=None) -> tuple:
-    """`cli.pipeline(args)` of the shipped config with `overrides`, run in
-    CLI_DIR (the CLI writes its results/torch/<save_dir>/<env>/ tree there;
-    `save_dir(args)` names it, the pipeline's name by default). Returns
-    (args, the run's directory, the train.jsonl lines this run wrote,
-    seconds)."""
-    args = load_config(cli.CONFIG_DIR, cli.CONFIG_DIR.name, list(overrides))
-    name = save_dir(args) if save_dir is not None else args.pipeline_name
-    run = CLI_DIR / "results/torch" / name / args.task.env_name
+def cli_run_dir(args) -> Path:
+    """Where a D4RL CLI writes its results, under CLI_DIR."""
+    return Path("results/torch") / args.pipeline_name / args.task.env_name
+
+
+def shipped_config(cli, overrides):
+    return load_config(cli.CONFIG_DIR, cli.CONFIG_DIR.name, overrides)
+
+
+def run_cli(cli, overrides, run_dir=cli_run_dir, config=shipped_config) -> tuple:
+    """`cli.pipeline(args)` of `config(cli, overrides)` (the CLI's shipped
+    config by default), run in CLI_DIR (the CLI reads its data there and
+    writes its results to `run_dir(args)`). Returns (args, the run's
+    directory, the train.jsonl lines this run wrote, seconds)."""
+    args = config(cli, list(overrides))
+    run = CLI_DIR / run_dir(args)
     before = len(read_jsonl(run / "train.jsonl"))
     with in_cli_dir():
         t0 = time.perf_counter()
@@ -2514,11 +2524,12 @@ def check_veteran_cli(dev, suite: str) -> dict:
     train, ev_steps, ev_train = ((VETERAN_CLI_TRAIN, VETERAN_EV_STEPS, VETERAN_EV_TRAIN) if full
                                  else (SUITE_VETERAN_CLI_TRAIN, SUITE_VETERAN_EV_STEPS,
                                        SUITE_VETERAN_EV_TRAIN))
-    save_dir = ((lambda a: f"{a.pipeline_name}_{a.guidance_type}") if full else None)
+    run_dir = ((lambda a: Path("results/torch") / f"{a.pipeline_name}_{a.guidance_type}"
+                / a.task.env_name) if full else cli_run_dir)
     phase(f"Veteran CLI ({suite}): cli.veteran_d4rl_{suite} mode=train, "
           "mode=train_expected_value, then act from veteran_latest.pkl")
     reset_counts()
-    args, run, logs, seconds = run_cli(cli, train, save_dir)
+    args, run, logs, seconds = run_cli(cli, train, run_dir)
     steps = args.planner_diffusion_gradient_steps
     keys = ("planner_loss", "val_loss", "val_pred", "policy_bc_loss")
     if [lg["gradient_steps"] for lg in logs] != list(range(args.log_interval, steps + 1,
@@ -2540,7 +2551,7 @@ def check_veteran_cli(dev, suite: str) -> dict:
     old = veteran_d4rl_mujoco.EV_GRADIENT_STEPS
     veteran_d4rl_mujoco.EV_GRADIENT_STEPS = ev_steps
     try:
-        ev_args, _, ev_logs, ev_seconds = run_cli(cli, ev_train, save_dir)
+        ev_args, _, ev_logs, ev_seconds = run_cli(cli, ev_train, run_dir)
     finally:
         veteran_d4rl_mujoco.EV_GRADIENT_STEPS = old
     if [lg["gradient_steps"] for lg in ev_logs] != list(range(ev_args.log_interval,
@@ -3200,21 +3211,6 @@ def check_pusht_env_and_expert(dev) -> dict:
     return no_kernel_launched("the PushT env and expert phase")
 
 
-def run_imitation(cli, config: str, overrides) -> tuple:
-    """`cli.pipeline(args)` of the config `config` (with `nn=` among the
-    overrides picking its directory) in CLI_DIR. Returns (args, the run's
-    directory, the train.jsonl lines this run wrote, seconds)."""
-    args = resolve_config_cli(cli.CONFIG_DIR, config, list(overrides), nn_key="nn")
-    run = CLI_DIR / imitation_save_dir(args)
-    before = len(read_jsonl(run / "train.jsonl"))
-    with in_cli_dir():
-        t0 = time.perf_counter()
-        cli.pipeline(args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    return args, run, read_jsonl(run / "train.jsonl")[before:], seconds
-
-
 def imitation_card_vs_cpu(label: str, card_pipe, cpu_pipe, nobs: np.ndarray, act: str,
                           dev) -> float:
     """One request (`act` is "act_chunk" or "act") on the card and on the
@@ -3249,13 +3245,13 @@ def check_imitation_cli(dev, cli, nn: str, config: str, act: str) -> dict:
     # PushT evaluates on the device after the last step; Kitchen keeps the
     # config's eval_freq (beyond these steps)
     evals = ("+eval_freq=100",) if "pusht" in name else ()
-    if "pusht" in name:
-        eval_steps = (DBC_DIT_EVAL_STEPS if (name, nn) == ("dbc_pusht", "dit") else
-                      PUSHT_EVAL_STEPS)
-        evals += (f"max_episode_steps={eval_steps}",)
+    if name == "dbc_pusht":
+        ev_steps = DBC_DIT_EVAL_STEPS if nn == "dit" else DBC_EVAL_STEPS
+        evals += (f"max_episode_steps={ev_steps}",)
     with timed_calls(pipe_cls, "evaluate_on_device") as ev:
-        args, run, logs, seconds = run_imitation(cli, config,
-                                                 (*IMITATION_TRAIN, *evals, f"nn={nn}"))
+        args, run, logs, seconds = run_cli(
+            cli, (*IMITATION_TRAIN, *evals, f"nn={nn}"), imitation_save_dir,
+            lambda c, o: resolve_config_cli(c.CONFIG_DIR, config, o, nn_key="nn"))
     loss_key = "avg_diffusion_loss" if name == "dp_pusht" else "avg_loss"
     steps = args.gradient_steps
     if [lg["step"] for lg in logs] != list(range(args.log_freq, steps + 1, args.log_freq)) or \

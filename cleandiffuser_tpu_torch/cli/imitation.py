@@ -2,15 +2,15 @@
 loops of pipelines/{dp,dbc}_{pusht,kitchen}.py): set-up, `mode=train`
 window by window, `mode=inference` from `ckpt_<ckpt>`.
 
-Training takes `gradient_steps` steps at `batch_size`, logging every
-`log_freq` steps (`{"step", <loss key>, "steps_per_sec"}` to train.jsonl),
-saving when a step crosses a multiple of `save_freq` (`ckpt_<step>` where
-the JAX CLI saves one, and `ckpt_latest`) and evaluating when one crosses
-a multiple of `eval_freq` (0 or absent: never). When `save_freq`,
-`eval_freq` and `gradient_steps` are multiples of `log_freq`, a log window
-is one `make_train_scan` window (logs kept on the device, one read per
-window); otherwise the steps run one by one, with the loss summed on the
-device. The generator is `runner.step_generator(seed, 0)`.
+Training is `runner.train_loop`: `gradient_steps` steps at `batch_size`,
+logging every `log_freq` steps (`{<loss key>, "step", "steps_per_sec"}` to
+train.jsonl), saving every `save_freq` steps (`ckpt_<step>` where the JAX
+CLI saves one, and `ckpt_latest`) and evaluating every `eval_freq` steps
+(0 or absent: never). When `save_freq`, `eval_freq` and `gradient_steps`
+are multiples of `log_freq`, a log window is one `make_train_scan` window
+(logs kept on the device, one read per window); otherwise the steps run
+one by one, the loss summed on the device, and a last, shorter window is
+logged too.
 
 Runs on the CUDA device, and raises without one, unless the config says
 `platform=cpu`. Checkpoints and logs go to
@@ -19,12 +19,11 @@ Runs on the CUDA device, and raises without one, unless the config says
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Callable
 
 from ..parallel import device_of, place_pipeline, setup_mesh
-from ..pipelines.runner import step_generator
+from ..pipelines.runner import train_loop
 from ..utils.logger import Logger
 from ..utils.tensors import set_seed
 
@@ -46,43 +45,30 @@ def run_imitation_cli(args, build: Callable, evaluate: Callable, loss_key: str =
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
 
-    if args.mode == "train":
-        log_freq, save_freq = args.log_freq, args.save_freq
-        eval_freq = int(args.get("eval_freq", 0) or 0)
-        fused = (save_freq % log_freq == 0 and eval_freq % log_freq == 0
-                 and args.gradient_steps % log_freq == 0)
-        window = pipe.make_train_scan(dataset, args.batch_size, log_freq) if fused else None
-        generator = step_generator(args.seed, 0, device)
-        step, t_window = 0, time.time()
-        while step < args.gradient_steps:
-            prev = step
-            if fused:
-                loss = window(generator)["loss"]
-                n = log_freq
-            else:
-                n = min(log_freq, args.gradient_steps - step)
-                loss = sum(pipe.train_step(dataset.sample_batch(generator, args.batch_size))["loss"]
-                           for _ in range(n)) / n
-            step += n
-            now = time.time()
-            m = {"step": step, loss_key: float(loss),
-                 "steps_per_sec": round(n / max(now - t_window, 1e-9), 2)}
-            print(m, flush=True)
-            logger.log(m, "train")
-            if step // save_freq > prev // save_freq:
-                if numbered_ckpts:
-                    pipe.save(str(save_path / f"ckpt_{step}"))
-                pipe.save(str(save_path / "ckpt_latest"))
-            if eval_freq and step // eval_freq > prev // eval_freq:
-                m = {"step": step, **evaluate(pipe, dataset, args)}
-                print(m, flush=True)
-                logger.log(m, "inference")
-            t_window = time.time()
-    elif args.mode == "inference":
-        pipe.load(str(save_path / f"ckpt_{args.get('ckpt', 'latest')}"))
-        m = evaluate(pipe, dataset, args)
+    def scored(m: dict) -> None:
         print(m, flush=True)
         logger.log(m, "inference")
+
+    if args.mode == "train":
+        eval_freq = int(args.get("eval_freq", 0) or 0)
+        window = None
+        if all(v % args.log_freq == 0 for v in (args.save_freq, eval_freq, args.gradient_steps)):
+            scan = pipe.make_train_scan(dataset, args.batch_size, args.log_freq)
+            window = lambda g: {loss_key: scan(g)["loss"]}
+
+        def save(tag: str) -> None:
+            if numbered_ckpts or tag == "latest":
+                pipe.save(str(save_path / f"ckpt_{tag}"))
+
+        train_loop(
+            lambda g: {loss_key: pipe.train_step(dataset.sample_batch(g, args.batch_size))["loss"]},
+            args.gradient_steps, args.log_freq, args.save_freq, save, logger, seed=args.seed,
+            window_fn=window, device=device, step_key="step", log_tail=True,
+            eval_interval=eval_freq,
+            eval_fn=lambda step: scored({"step": step, **evaluate(pipe, dataset, args)}))
+    elif args.mode == "inference":
+        pipe.load(str(save_path / f"ckpt_{args.get('ckpt', 'latest')}"))
+        scored(evaluate(pipe, dataset, args))
     else:
         raise ValueError(f"Invalid mode: {args.mode}")
     logger.finish()

@@ -140,12 +140,19 @@ def train_loop(
     resume_fn: Optional[Callable[[], int]] = None,
     window_fn: Optional[Callable[[torch.Generator], Dict[str, torch.Tensor]]] = None,
     device=None,
+    eval_fn: Optional[Callable[[int], None]] = None,
+    eval_interval: int = 0,
+    step_key: str = "gradient_steps",
+    log_tail: bool = False,
 ):
     """Generic training loop: `step_fn(generator) -> log` of device scalars.
 
-    Logs window means with the window's steps/s, saves `save_fn(str(step))`
-    and `save_fn("latest")` every `save_interval` steps, and resumes from
-    `resume_fn()`'s step. With `window_fn` (a `make_train_scan` window of
+    Logs window means with the window's steps/s and the step under
+    `step_key`, saves `save_fn(str(step))` and `save_fn("latest")` every
+    `save_interval` steps, then calls `eval_fn(step)` every `eval_interval`
+    steps (0: never), and resumes from `resume_fn()`'s step. With `log_tail`
+    the per-step path also logs the last, shorter window of a step count
+    off the log grid (the imitation CLIs log it; the others do not). With `window_fn` (a `make_train_scan` window of
     `log_interval` steps) and a schedule on the window grid, it runs window
     by window; a resume off the grid first realigns with per-step updates
     (then saves "latest", and the numbered checkpoint if the realign ended
@@ -159,7 +166,7 @@ def train_loop(
         if start_step > 0:
             print(f"[train_loop] resuming from step {start_step}")
     generator = step_generator(seed, start_step, device)
-    aligned = save_interval % log_interval == 0 and gradient_steps % log_interval == 0
+    aligned = all(v % log_interval == 0 for v in (save_interval, eval_interval, gradient_steps))
 
     if (window_fn is not None and start_step % log_interval != 0
             and start_step < gradient_steps and aligned):
@@ -182,7 +189,7 @@ def train_loop(
             log = window_fn(generator)
             step += log_interval
             out = {k: float(v) for k, v in log.items()}
-            out["gradient_steps"] = step
+            out[step_key] = step
             now = time.time()
             out["steps_per_sec"] = round(log_interval / max(now - t_window, 1e-9), 2)
             t_window = now
@@ -192,10 +199,13 @@ def train_loop(
             if step % save_interval == 0:
                 save_fn(str(step))
                 save_fn("latest")
+            if eval_fn is not None and eval_interval and step % eval_interval == 0:
+                eval_fn(step)
         return
     if window_fn is not None:
-        print(f"[train_loop] WARNING: start step {start_step}, save_interval {save_interval} "
-              f"and gradient_steps {gradient_steps} are not all on the {log_interval}-step "
+        print(f"[train_loop] WARNING: start step {start_step}, save_interval {save_interval}, "
+              f"eval_interval {eval_interval} and gradient_steps {gradient_steps} are not all "
+              f"on the {log_interval}-step "
               "window grid — running per-step dispatch", flush=True)
     # logs accumulate on the device: one read per key per log window
     log_acc: Dict[str, torch.Tensor] = {}
@@ -204,11 +214,12 @@ def train_loop(
         log = step_fn(generator)
         for key, v in log.items():
             log_acc[key] = log_acc.get(key, 0.0) + v
-        if (step + 1) % log_interval == 0:
-            out = {k: float(v) / log_interval for k, v in log_acc.items()}
-            out["gradient_steps"] = step + 1
+        if (step + 1) % log_interval == 0 or (log_tail and step + 1 == gradient_steps):
+            n = (step + 1) % log_interval or log_interval
+            out = {k: float(v) / n for k, v in log_acc.items()}
+            out[step_key] = step + 1
             now = time.time()
-            out["steps_per_sec"] = round(log_interval / max(now - t_window, 1e-9), 2)
+            out["steps_per_sec"] = round(n / max(now - t_window, 1e-9), 2)
             t_window = now
             print(out, flush=True)
             if logger is not None:
@@ -217,6 +228,8 @@ def train_loop(
         if (step + 1) % save_interval == 0:
             save_fn(str(step + 1))
             save_fn("latest")
+        if eval_fn is not None and eval_interval and (step + 1) % eval_interval == 0:
+            eval_fn(step + 1)
 
 
 def d4rl_eval_loop(

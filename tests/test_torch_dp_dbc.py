@@ -12,23 +12,27 @@ shipped widths.
 - Sampling with the JAX sampler's draws injected (`k_init, k_scan =
   split(rng)`, then `rng, k_noise = split(rng)` per step; EDM's initial
   draw): every backbone on every engine (DP: ddpm, edm; DBC: ddpm, ddim,
-  edm, and Diffusion-X steps on each), within 1e-5 absolute / 1e-4
-  relative, or, where float32 rounding alone is larger (the JAX sample
-  itself more than 1e-5 from a float64 run of the same sampler, the port's
-  math in float64), the port's distance from that run within twice the JAX
-  sample's: with 4 ddpm steps the first level's alpha is 0.0084, and
-  1 / alpha amplifies the network's rounding ~120x (the JAX sample's
-  float32 error reached 6.4e-5 there, the port's 9.1e-5).
+  edm, and Diffusion-X steps on each). Both samplers also run in float64
+  (weights, draws and schedule tables widened, each package's float32
+  casts widened, the JAX draws taken at 32 bits): the two float64 samples
+  within 1e-9. The port's float32 sample is within 1e-5 absolute / 1e-4
+  relative of JAX's, or, where float32 rounding alone is larger (the JAX
+  sample itself more than 1e-5 from JAX's float64 run), the port's
+  distance from JAX's float64 run within twice the JAX sample's: with 4
+  ddpm steps the first level's alpha is 0.0084, and 1 / alpha amplifies the
+  network's rounding ~120x (the JAX sample's float32 error reached 6.4e-5
+  there, the port's 9.4e-5).
 - 3 training steps with the JAX update's draws replayed (`_, sub =
   split(rng)`, `k_noise, k_cond, _ = split(sub, 3)`, `k_t, k_eps =
   split(k_noise)`; DBC's DiT condition's keep-mask read from the JAX
   condition's zeroed rows; the ChiTransformer's dropout masks injected on
   both sides, the JAX update retraced per step so each takes its own):
-  losses and grad norms within 1e-5 / 1e-4 per step, then params and EMA
-  by the Adam rule of PERF.md section 6: every element within 2 lr per
-  step, and all but a 1e-4 share of the elements within 1e-5 / 1e-4,
-  leaving out the elements whose gradient is zero in exact arithmetic
-  (below 1e-9 of the largest gradient in a float64 run of the first step:
+  the first step's gradient in float64 on both sides within 1e-9 of the
+  largest element; losses and grad norms within 1e-5 / 1e-4 per step,
+  then params and EMA by the Adam rule of PERF.md section 6: every
+  element within 2 lr per step, and all but a 1e-4 share of the elements
+  within 1e-5 / 1e-4, leaving out the elements whose gradient is zero in
+  exact arithmetic (below 1e-9 of the largest in JAX's float64 gradient:
   the attention's key and value biases, and in the PearceTransformer every
   bias before its token BatchNorm), which Adam moves by lr either way on
   float32 rounding noise in each package.
@@ -39,6 +43,7 @@ shipped widths.
   the port's own checkpoint round trip.
 """
 
+import contextlib
 import copy
 
 import jax
@@ -60,6 +65,8 @@ from cleandiffuser_tpu.nn_diffusion import DiT1d as JaxDiT
 from cleandiffuser_tpu.nn_diffusion import PearceTransformer as JaxPearceTransformer
 from cleandiffuser_tpu_torch.dataset import PushTStateDataset, generate_pusht_demos
 from cleandiffuser_tpu_torch.env.pusht import PushTEnv
+from cleandiffuser_tpu.utils import schedules as jax_schedules
+from cleandiffuser_tpu_torch.utils import schedules as port_schedules
 from cleandiffuser_tpu_torch.nn_diffusion import (
     ChiTransformer,
     ChiUNet1d,
@@ -84,6 +91,7 @@ torch.set_num_threads(2)
 
 OBS, ACT, H, TO, TA, B = 5, 2, 8, 2, 4, 3
 ATOL, RTOL = 1e-5, 1e-4
+F64_TOL = 1e-9
 LR = 1e-3
 COV_STEP = 2 / 2048 / 0.95  # 2 coverage points, as a reward
 
@@ -149,25 +157,90 @@ def _obs(seed, n=B):
     return np.random.default_rng(seed).uniform(-1, 1, (n, TO, OBS)).astype(np.float32)
 
 
+@contextlib.contextmanager
+def _jax_x64():
+    """JAX in float64 on the float32 runs' draws: every `jax.random` draw
+    is taken at 32 bits and widened, and the packages' float32 casts widen
+    too."""
+    normal, uniform, randint = jax.random.normal, jax.random.uniform, jax.random.randint
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax.random, "normal", lambda k, shape=(), dtype=None:
+               normal(k, shape, np.float32).astype(np.float64))
+    mp.setattr(jax.random, "uniform", lambda k, shape=(), dtype=None, minval=0.0, maxval=1.0:
+               uniform(k, shape, np.float32, minval, maxval).astype(np.float64))
+    mp.setattr(jax.random, "randint", lambda k, shape, minval, maxval, dtype=None:
+               randint(k, shape, minval, maxval, np.int32))
+    mp.setattr(jnp, "float32", jnp.float64)
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        mp.undo()
+
+
+def _cosine_tables(schedules, agent):
+    """A discrete engine's (alpha, sigma), the pipelines' cosine schedule,
+    built anew by `schedules` (run in float64)."""
+    t = schedules.uniform_discretization(agent.diffusion_steps, agent.epsilon)
+    return schedules.SUPPORTED_NOISE_SCHEDULES["cosine"]["forward"](t)
+
+
+def _f64(tree):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+
+
+def _jax_f64_sample(jp, method, nobs, key):
+    """The JAX pipeline's `act_chunk` / `act` in float64 on a float64 copy
+    of its EMA weights and the float32 run's draws: the float32 samples'
+    common reference."""
+    agent = jp.agent
+    st, tables = agent.state, {k: getattr(agent, k) for k in ("alpha", "sigma")
+                               if hasattr(agent, k)}
+    jp._fn_cache.clear()
+    try:
+        with _jax_x64():
+            agent.state = st.replace(ema_params=_f64(st.ema_params))
+            if tables:
+                agent.alpha, agent.sigma = _cosine_tables(jax_schedules, agent)
+            out = getattr(jp, method)(jnp.asarray(nobs, np.float64), key)
+            assert out.dtype == np.float64
+            return np.asarray(out)
+    finally:
+        agent.state = st
+        for k, v in tables.items():
+            setattr(agent, k, v)
+        jp._fn_cache.clear()
+
+
 def _f64_sample(tp, nobs, noise):
     """The port's sampler in float64 on a float64 copy of its EMA weights
-    (the executed part): the float32 samples' common reference."""
+    (the executed part)."""
     agent = copy.deepcopy(tp.agent)
     agent.ema_params.double()
     agent.x_max, agent.x_min = (None if v is None else v.double()
                                 for v in (tp.agent.x_max, tp.agent.x_min))
     d = lambda v: v.double() if isinstance(v, torch.Tensor) else tuple(u.double() for u in v)
-    out, _ = agent.build_sample_fn(**tp.sample_kw)(
-        agent.ema_params, None, torch.zeros(tp.prior_shape(nobs.shape[0]), dtype=torch.float64),
-        condition_cfg=tp.condition_of(torch.from_numpy(nobs).double()), w_cfg=1.0,
-        noise=d(noise))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "float32", torch.float64)
+        mp.setattr(port_schedules, "_F32", torch.float64)
+        if hasattr(agent, "alpha"):
+            agent.alpha, agent.sigma = _cosine_tables(port_schedules, agent)
+        out, _ = agent.build_sample_fn(**tp.sample_kw)(
+            agent.ema_params, None, torch.zeros(tp.prior_shape(nobs.shape[0]), dtype=torch.float64),
+            condition_cfg=tp.condition_of(torch.from_numpy(nobs).double()), w_cfg=1.0,
+            noise=d(noise))
     return tp.executed(out).numpy()
 
 
-def _assert_sample_close(got, want, ref64):
-    """Within ATOL / RTOL of the JAX sample; or, where the JAX sample's own
-    float32 error against the float64 run exceeds ATOL, the port's error
-    against that run within twice the JAX sample's."""
+def _assert_sample_close(jp, tp, method, nobs, key, noise, got, want):
+    """The port's float64 sampler within F64_TOL of JAX's on the same
+    weights and draws; and the port's float32 sample within ATOL / RTOL of
+    JAX's, or, where the JAX sample's own float32 error against JAX's
+    float64 run exceeds ATOL, the port's error against that run within
+    twice the JAX sample's."""
+    ref64 = _jax_f64_sample(jp, method, nobs, key)
+    port64 = _f64_sample(tp, nobs, noise)
+    np.testing.assert_allclose(port64, ref64, atol=F64_TOL, rtol=0)
     if np.allclose(got, want, atol=ATOL, rtol=RTOL):
         return
     jax_err, port_err = np.abs(want - ref64).max(), np.abs(got - ref64).max()
@@ -189,7 +262,7 @@ def test_dp_act_chunk_matches_jax(nn, diffusion):
     noise = _sample_draws(tp, key, (B, H, ACT), 3)
     got = tp.act_chunk(nobs, noise=noise).numpy()
     assert got.shape == (B, TA, ACT)
-    _assert_sample_close(got, want, _f64_sample(tp, nobs, noise))
+    _assert_sample_close(jp, tp, "act_chunk", nobs, key, noise, got, want)
 
 
 @pytest.mark.parametrize("nn,diffusion,x_steps", DBC_CASES)
@@ -201,7 +274,7 @@ def test_dbc_act_matches_jax(nn, diffusion, x_steps):
     noise = _sample_draws(tp, key, shape, 4 + x_steps)
     got = tp.act(nobs, noise=noise).numpy()
     assert got.shape == (B, ACT)
-    _assert_sample_close(got, want, _f64_sample(tp, nobs, noise))
+    _assert_sample_close(jp, tp, "act", nobs, key, noise, got, want)
 
 
 @pytest.mark.parametrize("diffusion", ["ddpm", "ddim"])
@@ -223,19 +296,25 @@ def _batch(rng):
             "action": rng.uniform(-1, 1, (B, H, ACT)).astype(np.float32)}
 
 
-def _train_draws(jp, tp, batch):
-    """The JAX pipeline's next update's draws, as the port's `noise`."""
+def _x_and_cond(tp, batch):
+    """The denoised target and the condition the pipeline trains on."""
+    if isinstance(tp, tdbc.DBCPipeline):
+        return tp._x_and_cond(batch)
+    return (torch.from_numpy(batch["action"]),
+            tp.condition_of(torch.from_numpy(batch["obs"]["state"])))
+
+
+def _train_draws(jp, tp, batch, dtype=np.float32):
+    """The JAX pipeline's next update's draws, as the port's `noise`
+    (EDM's levels computed in `dtype` from the float32 normal draw)."""
     agent, st = jp.agent, jp.agent.state
     _, sub = jax.random.split(st.rng)
     k_noise, k_cond, _ = jax.random.split(sub, 3)
     k_t, k_eps = jax.random.split(k_noise)
-    if isinstance(tp, tdbc.DBCPipeline):
-        x, cond = (np.asarray(v) for v in tp._x_and_cond(batch))
-    else:
-        x = batch["action"]
-        cond = tp.condition_of(torch.from_numpy(batch["obs"]["state"])).numpy()
+    x, cond = (v.numpy() for v in _x_and_cond(tp, batch))
     if tp.diffusion_kind == "edm":
-        t = jnp.exp(jax.random.normal(k_t, (B,)) * agent.P_std + agent.P_mean)
+        z = np.asarray(jax.random.normal(k_t, (B,)), dtype)
+        t = np.exp(z * dtype(agent.P_std) + dtype(agent.P_mean))
     else:
         t = jax.random.randint(k_t, (B,), 0, agent.diffusion_steps)
     keep = None
@@ -243,29 +322,59 @@ def _train_draws(jp, tp, batch):
         train = np.asarray(agent.apply_condition(st.params, jnp.asarray(cond), train=True,
                                                  rng=k_cond))
         keep = _t((np.abs(train).sum(-1) > 0).astype(np.float32))
-    return _t(t), _t(jax.random.normal(k_eps, x.shape)), keep
+    eps = np.asarray(jax.random.normal(k_eps, x.shape), np.float32).astype(dtype)
+    return _t(t), _t(eps), keep
 
 
-def _rounding_noise(tp, batch, noise):
-    """The elements whose gradient is zero in exact arithmetic: below 1e-9
-    of the largest in a float64 run of the loss (a flax tree of bools)."""
+def _jax_f64_grads(jp, tp, batch, masks):
+    """The JAX pipeline's next update's gradient in float64, on a float64
+    copy of its params and the float32 run's draws and dropout masks (a
+    flax tree in the port's layout)."""
+    agent, st = jp.agent, jp.agent.state
+    _, sub = jax.random.split(st.rng)
+    x, cond = (np.asarray(v.numpy(), np.float64) for v in _x_and_cond(tp, batch))
+    tables = (agent.alpha, agent.sigma) if hasattr(agent, "alpha") else None
+    try:
+        with _jax_x64(), pytest.MonkeyPatch.context() as mp:
+            if masks:
+                jm = _FlaxMasks(list(masks))
+                mp.setattr(flax_attention, "random", jm)
+                mp.setattr(flax_stochastic, "random", jm)
+            if tables:
+                agent.alpha, agent.sigma = _cosine_tables(jax_schedules, agent)
+            g = jax.jit(jax.grad(lambda p: agent.loss_fn(p, sub, jnp.asarray(x),
+                                                         jnp.asarray(cond))))(_f64(st.params))
+            g = jax.tree_util.tree_map(np.asarray, g)
+    finally:
+        if tables:
+            agent.alpha, agent.sigma = tables
+    return _flatten_blocks(g)
+
+
+def _port_f64_grads(tp, batch, noise, masks):
+    """The port's gradient of the same loss in float64, on a float64 copy
+    of its params, the same draws and dropout masks (a flax tree)."""
     agent = copy.deepcopy(tp.agent)
     agent.params.double()
-    if isinstance(tp, tdbc.DBCPipeline):
-        x, cond = tp._x_and_cond(batch)
-    else:
-        x = torch.from_numpy(batch["action"])
-        cond = tp.condition_of(torch.from_numpy(batch["obs"]["state"]))
+    x, cond = _x_and_cond(tp, batch)
     d = lambda v: v.double() if v is not None and v.is_floating_point() else v
-    agent.loss_fn(agent.params, x.double(), cond.double(), noise=tuple(d(v) for v in noise),
-                  generator=torch.Generator().manual_seed(0)).backward()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "float32", torch.float64)
+        mp.setattr(port_schedules, "_F32", torch.float64)
+        if masks:
+            tm = list(masks)
+            mp.setattr(chitransformer, "dropout_keep",
+                       lambda shape, rate, g, dev: torch.from_numpy(tm.pop(0)))
+        if hasattr(agent, "alpha"):
+            agent.alpha, agent.sigma = _cosine_tables(port_schedules, agent)
+            agent._alpha_dev, agent._sigma_dev = agent.alpha, agent.sigma
+        agent.loss_fn(agent.params, x.double(), cond.double(), noise=tuple(d(v) for v in noise),
+                      generator=torch.Generator().manual_seed(0)).backward()
     grads = copy.deepcopy(agent.params)
     with torch.no_grad():
         for g, p in zip(grads.parameters(), agent.params.parameters()):
             g.copy_(torch.zeros_like(p) if p.grad is None else p.grad)  # None: detached
-    tree = _flatten_blocks(agent_params_of(grads))
-    top = max(np.abs(a).max() for a in jax.tree_util.tree_leaves(tree))
-    return jax.tree_util.tree_map(lambda a: np.abs(a) <= 1e-9 * top, tree)
+    return agent_params_of(grads)
 
 
 def _close_adam_rule(got, want, exempt, steps=3):
@@ -306,15 +415,17 @@ def trained(tmp_path_factory):
             for i in range(3):
                 batch = _batch(rng)
                 noise = _train_draws(jp, tp, batch)
-                if i == 0:
-                    exempt = _rounding_noise(tp, batch, noise)
                 n, width = _dropout_layers(tp)
-                if n:  # the ChiTransformer's dropout: the same masks on both sides
-                    masks = []
-                    for _ in range(n):
-                        masks += [rng.uniform(size=(H, H)) < 0.7,
-                                  rng.uniform(size=(H, 1 + TO)) < 0.7,
-                                  rng.uniform(size=(B, H, width)) < 0.7]
+                masks = []  # the ChiTransformer's dropout: the same masks on both sides
+                for _ in range(n):
+                    masks += [rng.uniform(size=(H, H)) < 0.7,
+                              rng.uniform(size=(H, 1 + TO)) < 0.7,
+                              rng.uniform(size=(B, H, width)) < 0.7]
+                if i == 0:
+                    grads64 = (_jax_f64_grads(jp, tp, batch, masks),
+                               _port_f64_grads(tp, batch,
+                                               _train_draws(jp, tp, batch, np.float64), masks))
+                if n:
                     jm, tm = list(masks), list(masks)
                     mp.setattr(flax_attention, "random", _FlaxMasks(jm))
                     mp.setattr(flax_stochastic, "random", _FlaxMasks(jm))
@@ -329,7 +440,7 @@ def trained(tmp_path_factory):
                 logs.append(({k: float(v) for k, v in lj.items()},
                              {k: float(v) for k, v in lt.items()}))
             jp.save(ckpt)
-            runs[case] = (jp, tp, logs, ckpt, exempt)
+            runs[case] = (jp, tp, logs, ckpt, grads64)
     finally:
         mp.undo()
     return runs
@@ -337,7 +448,15 @@ def trained(tmp_path_factory):
 
 @pytest.mark.parametrize("case", TRAIN_CASES, ids=["_".join(c) for c in TRAIN_CASES])
 def test_three_training_steps_match_jax(trained, case):
-    jp, tp, logs, _, exempt = trained[case]
+    jp, tp, logs, _, (jax_g, port_g) = trained[case]
+    # the first step's gradient in float64 on both sides
+    top = max(np.abs(a).max() for a in jax.tree_util.tree_leaves(jax_g))
+    got_l, want_l = (jax.tree_util.tree_leaves_with_path(g) for g in (port_g, jax_g))
+    assert [p for p, _ in got_l] == [p for p, _ in want_l]
+    for (path, a), (_, b) in zip(got_l, want_l):
+        np.testing.assert_allclose(a, b, atol=F64_TOL * top, rtol=0,
+                                   err_msg=jax.tree_util.keystr(path))
+    exempt = jax.tree_util.tree_map(lambda a: np.abs(a) <= 1e-9 * top, jax_g)
     for lj, lt in logs:
         assert set(lt) == set(lj) == {"loss", "grad_norm"}
         for k in lj:
