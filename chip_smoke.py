@@ -275,9 +275,8 @@ Phases, each of which raises on failure (exit code != 0):
 28. DBC PushT CLIs - `cli.dbc_pusht` with `nn=pearce_mlp` and `dit`: the same,
                with `act` (50 ddpm steps per action, one sampler call per env
                step: the evaluation cut to 48 env steps, the DiT's to 20,
-               DBC_EVAL_STEPS), and one
-               Diffusion-X request (8 extra steps at the last level) held
-               against the CPU.
+               DBC_EVAL_STEPS), and one Diffusion-X request (8 extra steps
+               at the last level) held against the CPU.
 29. Kitchen CLIs - `cli.dp_kitchen` (chi_unet) and `cli.dbc_kitchen`
                (pearce_mlp, Diffusion-X on) on their synthetic demos: 100
                steps in two windows, requests from ckpt_latest at the
