@@ -6,7 +6,9 @@ kitchen suites, AdaptDiffuser's, and Diffusion Veteran's and DiffuserLite's
 (plain blocks, no kernel); SfBC's, QGPO's and SynthER's CLIs and the
 staged consistency policy (MLPs, no kernel); the PushT env and its MPC
 expert on the card, and the Diffusion Policy and DiffusionBC CLIs on PushT
-and Kitchen (no kernel).
+and Kitchen (no kernel); the PushT renderer, and the Diffusion Policy and
+DiffusionBC CLIs on PushT images, robomimic and robomimic images (no
+kernel).
 
     python3 chip_smoke.py
 
@@ -283,6 +285,32 @@ Phases, each of which raises on failure (exit code != 0):
                config's envs held against the CPU; the FrankaKitchen
                evaluation needs gymnasium_robotics, which the card's machine
                lacks (the phase says so). No kernel launch in phases 26-29.
+30. PushT image env - `render_state` of 1,024 seeded states at 96 x 96 on
+               the card against the CPU, pixel for pixel outside the band
+               where a signed distance lies within 1e-4 of 0 (the pixels
+               apart inside it counted), ms per batch; the image env's
+               observation; the GN-ResNet18 alone at 64 and 128 frames of
+               84 x 84 (forward, forward + backward, the convs' TFLOP/s);
+               then 32 expert demos (<= 100 control steps)
+               with their frames rendered after the rollout, the seconds,
+               cached in CLI_DIR for the PushT image CLIs.
+31. Visual PushT CLIs - `cli.dp_pusht_image` at the shipped `dit` config
+               and at `nn=chi_unet`, `cli.dbc_pusht_image` (pearce_mlp, 8
+               Diffusion-X steps): `mode=train` 20 steps in two windows at
+               the config's batch (VISUAL_TRAIN), the on-device evaluation
+               at 10 envs (DP 300 env steps; DBC cut to 48), then 5
+               requests from ckpt_latest (one profiled) and one held
+               against the CPU with the same noise (`visual_card_vs_cpu`:
+               within 1e-4; beyond it, where float32 rounding decides, the
+               request in float64 on the card and on the CPU within 1e-9
+               and the card's float32 answer within 1e-3 of it).
+32. Robomimic CLIs - `cli.dp_robomimic` (lift, and chi_unet's `lift_abs`:
+               10-dim actions) and `cli.dbc_robomimic` (lift) on the CLIs'
+               synthetic demos: the same without the evaluation (robomimic
+               and robosuite are not on the card's machine).
+33. Robomimic image CLIs - `cli.dp_robomimic_image` and
+               `cli.dbc_robomimic_image` (lift): the same. No kernel launch
+               in phases 30-33.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
@@ -292,7 +320,8 @@ steps) and reads the counts just after. The line before the last is a JSON
 object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
 phases by CLI and part (`cli_launches`: the Veteran, DiffuserLite, SfBC,
-QGPO, SynthER, consistency-policy, PushT and imitation phases' read 0), error and times
+QGPO, SynthER, consistency-policy, PushT, imitation and visual imitation
+phases' read 0), error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -329,6 +358,9 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     adaptdiffuser_d4rl_mujoco,
     dbc_kitchen,
     dbc_pusht,
+    dbc_pusht_image,
+    dbc_robomimic,
+    dbc_robomimic_image,
     dd_d4rl_antmaze,
     dd_d4rl_kitchen,
     dd_d4rl_mujoco,
@@ -342,6 +374,9 @@ from cleandiffuser_tpu_torch.cli import (  # noqa: E402
     dql_d4rl_kitchen,
     dp_kitchen,
     dp_pusht,
+    dp_pusht_image,
+    dp_robomimic,
+    dp_robomimic_image,
     dql_d4rl_mujoco,
     edp_d4rl_antmaze,
     edp_d4rl_kitchen,
@@ -370,7 +405,18 @@ from cleandiffuser_tpu_torch.diffusion.vp_solvers import ddpm_coefficients  # no
 from cleandiffuser_tpu_torch.cli.imitation import save_dir as imitation_save_dir  # noqa: E402
 from cleandiffuser_tpu_torch.dataset import ReplayBuffer  # noqa: E402
 from cleandiffuser_tpu_torch.env.goal2d import evaluate_policy, normalized_score_fn  # noqa: E402
-from cleandiffuser_tpu_torch.env.pusht import PushTEnv  # noqa: E402
+from cleandiffuser_tpu_torch.nn_condition.images import ResNet18  # noqa: E402
+from cleandiffuser_tpu_torch.dataset.pusht import (  # noqa: E402
+    generate_pusht_demos,
+    render_buffer_images,
+)
+from cleandiffuser_tpu_torch.env.pusht import (  # noqa: E402
+    PushTEnv,
+    PushTImageEnv,
+    PushTState,
+    render_sdfs,
+    render_state,
+)
 from cleandiffuser_tpu_torch.env.pusht_expert import (  # noqa: E402
     PushTExpertMPC,
     generate_pusht_expert_trajectories,
@@ -396,9 +442,11 @@ from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
 from cleandiffuser_tpu_torch.parallel import setup_mesh  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
     ConsistencyPolicyPipeline,
+    DBCImagePipeline,
     DBCPipeline,
     DDPipeline,
     DiffuserPipeline,
+    DPImagePipeline,
     DPPipeline,
     DQLPipeline,
     SfBCPipeline,
@@ -604,6 +652,7 @@ PUSHT_STEP_STATES, PUSHT_POS_TOL, PUSHT_COV_POINTS = 1024, 1e-3, 2
 EXPERT_KEEP_BAR = 0.5
 IMITATION_TRAIN = ("mode=train", "gradient_steps=100", "log_freq=50", "save_freq=100")
 IMITATION_ATOL = 1e-4
+REQUEST_F64_ATOL = 1e-9  # a request in float64 on the card against the CPU
 DP_PUSHT_CASES = (("chi_unet", "pusht"), ("chi_unet", "pusht_keypoint"),
                   ("chi_transformer", "pusht"), ("dit", "pusht"))
 DBC_PUSHT_CASES = (("pearce_mlp", "pusht"), ("dit", "pusht"))
@@ -618,6 +667,28 @@ DBC_PUSHT_CASES = (("pearce_mlp", "pusht"), ("dit", "pusht"))
 # steps: 8.6-13.7 s for 300)
 DBC_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 20, 100
 DBC_X_STEPS = 8  # the Diffusion-X request: the Kitchen configs' extra_sample_steps
+# the visual imitation and robomimic phases (30-33): the renderer on
+# RENDER_STATES seeded states held pixel for pixel against the CPU outside
+# the SDF band (|sd| < RENDER_BAND at a boundary, where float rounding may
+# decide); IMAGE_DEMO_EPISODES expert demos of at most EXPERT_MAX_STEPS
+# control steps with their frames, cached at IMAGE_DEMOS for the PushT
+# image CLIs; then each CLI trains VISUAL_TRAIN (two windows of 10 steps
+# at the config's batch: the cut, from the configs' millions, that keeps
+# the new phases within their 200 s), the PushT ones evaluate on the
+# device after the last step at the config's 10 envs (DBC's evaluation cut
+# to VISUAL_DBC_EVAL_STEPS env steps of 300: one sampler call of 58 steps
+# per env step), and each serves N_REQUESTS requests from ckpt_latest, one
+# held against the CPU with the same noise within IMITATION_ATOL.
+RENDER_STATES, RENDER_BAND, IMAGE_SIZE = 1024, 1e-4, 96
+IMAGE_DEMO_EPISODES, IMAGE_DEMOS = 32, "dev/pusht/pusht_image_demos.npz"
+VISUAL_TRAIN = ("mode=train", "gradient_steps=20", "log_freq=10", "save_freq=20")
+VISUAL_DBC_EVAL_STEPS = 48
+VISUAL_CASES = ((dp_pusht_image, (), "act_chunk"), (dp_pusht_image, ("nn=chi_unet",), "act_chunk"),
+                (dbc_pusht_image, (), "act"), (dp_robomimic, ("task=lift",), "act_chunk"),
+                (dp_robomimic, ("nn=chi_unet", "--config-name=lift_abs"), "act_chunk"),
+                (dbc_robomimic, ("task=lift",), "act"),
+                (dp_robomimic_image, ("task=lift",), "act_chunk"),
+                (dbc_robomimic_image, ("task=lift",), "act"))
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
@@ -1833,6 +1904,12 @@ def cli_requests(pipe, obs: np.ndarray, n: int, **kw) -> list:
     return act_requests(lambda o: pipe.act(o, **kw), obs, n, pipe.act_dim)
 
 
+def obs_rows(obs) -> int:
+    """The envs of a request: an array's rows, or a dict's (image
+    observations: one array per key)."""
+    return len(next(iter(obs.values()))) if isinstance(obs, dict) else obs.shape[0]
+
+
 def act_requests(act, obs: np.ndarray, n: int, act_dim: int) -> list:
     """n requests of an act function (normalised numpy observations in,
     actions out: the planners' `act` returns (actions, info), the policies'
@@ -1844,7 +1921,7 @@ def act_requests(act, obs: np.ndarray, n: int, act_dim: int) -> list:
         out = act(obs)
         a = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
         lat.append((time.perf_counter() - t0) * 1e3)
-        if a.shape != (obs.shape[0], act_dim):
+        if a.shape != (obs_rows(obs), act_dim):
             raise AssertionError(f"actions {a.shape}")
         if not (np.isfinite(a).all() and np.abs(a).max() <= 1.0):
             raise AssertionError("actions non-finite or outside [-1, 1]")
@@ -2812,7 +2889,7 @@ def served(act, obs, n: int, label: str, act_dim: int, reps: int = 1) -> dict:
     prof = profile_request(lambda: [act(obs) for _ in range(reps)], median * reps, ())
     prof["device_busy_ms"] /= reps
     prof["median_latency_ms"] = median
-    print(f"{label}: {n} requests x {obs.shape[0]} envs: latency ms "
+    print(f"{label}: {n} requests x {obs_rows(obs)} envs: latency ms "
           f"{[round(v, 3) for v in lat]} (median {median:.3f}; cold {cold[0]:.3f}); one "
           f"profiled request: {json.dumps(prof)}", flush=True)
     return {"latency_ms": lat, "median_ms": median, "profile": prof}
@@ -3210,21 +3287,27 @@ def check_pusht_env_and_expert(dev) -> dict:
     return no_kernel_launched("the PushT env and expert phase")
 
 
+def request_noise(pipe, rows: int) -> tuple:
+    """A request's explicit draws, seeded: (initial, per_step), or EDM's
+    initial draw alone."""
+    gen = torch.Generator().manual_seed(SEED)
+    shape, kw = pipe.prior_shape(rows), pipe.sample_kw
+    noise = torch.randn(shape, generator=gen)
+    if pipe.diffusion_kind == "edm":
+        return noise
+    steps = kw["sample_steps"] + kw.get("diffusion_x_sampling_steps", 0)
+    return noise, torch.randn((steps, *shape), generator=gen)
+
+
 def imitation_card_vs_cpu(label: str, card_pipe, cpu_pipe, nobs: np.ndarray, act: str,
                           dev) -> float:
     """One request (`act` is "act_chunk" or "act") on the card and on the
     CPU with the same explicit noise, within IMITATION_ATOL. Returns the
     gap."""
-    gen = torch.Generator().manual_seed(SEED)
-    shape = card_pipe.prior_shape(nobs.shape[0])
-    kw = card_pipe.sample_kw
-    noise = torch.randn(shape, generator=gen)  # EDM: the initial draw only
-    if card_pipe.diffusion_kind != "edm":
-        steps = kw["sample_steps"] + kw.get("diffusion_x_sampling_steps", 0)
-        noise = (noise, torch.randn((steps, *shape), generator=gen))
+    noise = request_noise(card_pipe, obs_rows(nobs))
     card = getattr(card_pipe, act)(nobs, noise=to_device(noise, dev)).cpu()
     gap = (card - getattr(cpu_pipe, act)(nobs, noise=noise)).abs().max().item()
-    print(f"{label} ({nobs.shape[0]} envs): card against CPU, same noise (TF32 off): max "
+    print(f"{label} ({obs_rows(nobs)} envs): card against CPU, same noise (TF32 off): max "
           f"|diff| {gap:.3g} (limit {IMITATION_ATOL})", flush=True)
     if not gap <= IMITATION_ATOL:
         raise AssertionError(f"{label}: card and CPU differ by {gap}")
@@ -3307,6 +3390,228 @@ def check_imitation_cli(dev, cli, nn: str, config: str, act: str) -> dict:
     no_kernel_launched(f"the {label} phase's comparisons")
     return counts
 
+# ---------------------------------------------------------------------------
+# Diffusion Policy and DiffusionBC on images and robomimic: the renderer,
+# the expert's demos with frames and the six CLIs, no kernel on the path
+def render_gap(states: torch.Tensor, dev, size: int = IMAGE_SIZE) -> dict:
+    """`render_state` of `states` on the card against the CPU: the pixels
+    that differ, those of them inside the SDF band (|sd| < RENDER_BAND for
+    the goal, the block or the agent, on the CPU) and outside it."""
+    def state(d):
+        s = states.to(d)
+        return PushTState(s[:, :2], torch.zeros_like(s[:, :2]), s[:, 2:4], s[:, 4])
+
+    card, cpu = render_state(state(dev), size).cpu(), render_state(state("cpu"), size)
+    sd_goal, sd_block, sd_agent = render_sdfs(state("cpu"), size)
+    band = (sd_goal.abs() < RENDER_BAND) | (sd_block.abs() < RENDER_BAND) | (
+        sd_agent.abs() < RENDER_BAND)
+    diff = (card != cpu).any(-1)
+    return {"pixels": diff.numel(), "differ": int(diff.sum()), "band": int(band.sum()),
+            "differ_in_band": int((diff & band).sum()), "differ_outside": int((diff & ~band).sum())}
+
+
+def conv_macs(net: torch.nn.Module, x: torch.Tensor) -> int:
+    """The multiply-adds of `net(x)`'s 2-D convolutions (each output element
+    takes Cin / groups x KH x KW), counted by forward hooks."""
+    total = [0]
+
+    def hook(m, _, out):
+        kh, kw = m.kernel_size
+        total[0] += out.numel() * m.in_channels // m.groups * kh * kw
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def check_image_encoder(dev) -> None:
+    """The GN-ResNet18 alone at the training batches' frames (84 x 84 crops:
+    64 for DP's DiT, 128 for the To = 2 sequence encoders): device ms of a
+    forward and of a forward and backward (`cuda_ms`, TF32 off), the
+    convolutions' TFLOP/s and their share of the f32 peak."""
+    net = ResNet18(3, 64).to(dev)
+    for frames in (64, 128):
+        x = torch.rand(frames, 3, 84, 84, device=dev)
+        gflop = 2 * conv_macs(net, x) / 1e9
+        fwd = cuda_ms(lambda: net(x), 5)
+        both = cuda_ms(lambda: net(x).sum().backward(), 5)  # backward ~2x the forward
+        print(f"GN-ResNet18 at {frames} frames of 84 x 84: convs {gflop:.2f} GFLOP forward; "
+              f"forward {fwd:.3f} ms ({gflop / fwd:.2f} TFLOP/s, "
+              f"{gflop / fwd / F32_TFLOPS * 100:.1f} % of {F32_TFLOPS} f32), forward + "
+              f"backward {both:.3f} ms ({3 * gflop / both:.2f} TFLOP/s)", flush=True)
+
+
+def check_pusht_image_env(dev) -> dict:
+    """The renderer on the card against the CPU; the image env's
+    observation; the expert's demos with their frames (rendered after the
+    rollout), cached where the PushT image CLIs read them. Returns the
+    kernels' launches (all 0)."""
+    phase("PushT image env on the card: the renderer against the CPU, the expert's demos "
+          "with frames")
+    reset_counts()
+    states, _ = pusht_states(RENDER_STATES)
+    gap = render_gap(states, dev)
+    s = states.to(dev)
+    batch = PushTState(s[:, :2], torch.zeros_like(s[:, :2]), s[:, 2:4], s[:, 4])
+    render_ms = cuda_ms(lambda: render_state(batch, IMAGE_SIZE), 5)
+    print(f"render_state of {RENDER_STATES} seeded states at {IMAGE_SIZE} x {IMAGE_SIZE}, card "
+          f"against CPU: {json.dumps(gap)} (outside the |sd| < {RENDER_BAND} band: must be 0); "
+          f"{render_ms:.3f} ms per batch on the card ({render_ms / RENDER_STATES * 1e3:.2f} us "
+          "per frame)", flush=True)
+    if gap["differ_outside"]:
+        raise AssertionError(f"the renderer differs from the CPU outside the SDF band: {gap}")
+    check_image_encoder(dev)
+    env = PushTImageEnv(render_size=IMAGE_SIZE, device=dev)
+    state, obs = env.reset(batch=10, reset_to_state=states[:10])
+    _, obs, _, _ = env.step(state, state.agent_pos + 10.0)
+    img = obs["image"]
+    if tuple(img.shape) != (10, 3, IMAGE_SIZE, IMAGE_SIZE) or not (0 <= img.min() and
+                                                                  img.max() <= 1):
+        raise AssertionError(f"image obs {tuple(img.shape)} in [{img.min()}, {img.max()}]")
+
+    t0 = time.perf_counter()
+    rb = generate_pusht_demos(n_episodes=IMAGE_DEMO_EPISODES, max_steps=EXPERT_MAX_STEPS,
+                              seed=SEED, expert=True, device=dev, with_images=True,
+                              image_size=IMAGE_SIZE)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = render_buffer_images(rb["state"], IMAGE_SIZE, dev)
+    render_s = time.perf_counter() - t0
+    if rb.n_episodes == 0 or not np.array_equal(again, rb["img"]):
+        raise AssertionError("the demos' frames are missing or not those of their states")
+    print(f"expert demos with frames: {IMAGE_DEMO_EPISODES} episodes of at most "
+          f"{EXPERT_MAX_STEPS} control steps: {seconds:.1f} s; kept {rb.n_episodes}, "
+          f"{rb.n_steps} frames {tuple(rb['img'].shape[1:])} uint8; their render alone "
+          f"{render_s:.2f} s", flush=True)
+    (CLI_DIR / IMAGE_DEMOS).parent.mkdir(parents=True, exist_ok=True)
+    rb.save_npz(str(CLI_DIR / IMAGE_DEMOS))
+    return no_kernel_launched("the PushT image env phase")
+
+
+def float64_request(pipe, obs, act: str, noise) -> torch.Tensor:
+    """The request on a float64 copy of `pipe` (its weights, the
+    observations and the draws widened; the schedule tables as they are),
+    on the pipeline's device: the answer the float32 runs round."""
+    import copy
+
+    pipe = copy.deepcopy(pipe)
+    pipe.agent.ema_params.double()
+    f32 = torch.float32
+    torch.float32 = torch.float64  # the pipelines' casts widen with it
+    try:
+        wide = noise.double() if isinstance(noise, torch.Tensor) else tuple(
+            v.double() for v in noise)
+        return getattr(pipe, act)(obs, noise=wide).cpu()
+    finally:
+        torch.float32 = f32
+
+
+def visual_card_vs_cpu(label: str, card_pipe, cpu_pipe, obs, act: str, dev) -> dict:
+    """One request on the card and on the CPU with the same explicit noise:
+    within IMITATION_ATOL. Beyond it float32 rounding decides (a ddpm step
+    from the first level divides the network's error by alpha ~0.008, and
+    cuDNN's float32 convolutions round otherwise than the CPU's): then the
+    same request in float64 on the card and on the CPU agree within
+    REQUEST_F64_ATOL (the same function), and the card's float32 answer
+    lies within PLAN_ATOL of the float64 one. Returns the gaps."""
+    noise = request_noise(card_pipe, obs_rows(obs))
+    card = getattr(card_pipe, act)(obs, noise=to_device(noise, dev)).cpu()
+    cpu = getattr(cpu_pipe, act)(obs, noise=noise)
+    gaps = {"card_cpu": (card - cpu).abs().max().item()}
+    if gaps["card_cpu"] > IMITATION_ATOL:
+        exact = float64_request(cpu_pipe, obs, act, noise)
+        card64 = float64_request(card_pipe, obs, act, to_device(noise, dev))
+        gaps.update(card64_cpu64=(card64 - exact).abs().max().item(),
+                    card_f64=(card.double() - exact).abs().max().item(),
+                    cpu_f64=(cpu.double() - exact).abs().max().item())
+    print(f"{label} ({obs_rows(obs)} envs): card against CPU, same noise (TF32 off): max |diff| "
+          f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} } (limit {IMITATION_ATOL}; beyond "
+          f"it, float64 card against CPU {REQUEST_F64_ATOL}, card against float64 {PLAN_ATOL})",
+          flush=True)
+    if gaps["card_cpu"] > IMITATION_ATOL and not (gaps["card64_cpu64"] <= REQUEST_F64_ATOL
+                                                 and gaps["card_f64"] <= PLAN_ATOL):
+        raise AssertionError(f"{label}: card and CPU differ: {gaps}")
+    return gaps
+
+
+def visual_obs(dataset, args, n: int, image: bool):
+    """The first To frames of n windows of the CLI's demos, as a request
+    takes them: a dict (image pipelines: uint8 frames as stored, the
+    normalised low-dim) or the normalised state array."""
+    k = torch.arange(n) % len(dataset)
+    obs = {key: v[:, :args.obs_steps].cpu().numpy()
+           for key, v in dataset.gather(k)["obs"].items()}
+    return obs if image else obs["state"]
+
+
+def check_visual_cli(dev, cli, extra: tuple, act: str) -> dict:
+    """A visual imitation or robomimic CLI as users run it: `mode=train`
+    (two windows at the config's widths and batch; the PushT CLIs then
+    evaluate on the device at the config's envs), then `ckpt_latest`
+    served and held against the CPU. Returns the kernels' launches (all
+    0)."""
+    name = cli.__name__.rsplit(".", 1)[-1]
+    label = f"{name} {' '.join(extra)}".strip()
+    phase(f"{label}: cli.{name} mode=train, then requests from ckpt_latest")
+    reset_counts()
+    image, pusht = "image" in name, "pusht" in name
+    pipe_cls = ((DPImagePipeline if name.startswith("dp") else DBCImagePipeline) if image else
+                (DPPipeline if name.startswith("dp") else DBCPipeline))
+    overrides = [*VISUAL_TRAIN, *extra]
+    if pusht:
+        overrides += ["eval_freq=20", f"dataset_path={IMAGE_DEMOS}"]
+        if name.startswith("dbc"):
+            overrides.append(f"max_episode_steps={VISUAL_DBC_EVAL_STEPS}")
+    with timed_calls(pipe_cls, "evaluate_on_device") as ev:
+        args, run, logs, seconds = run_cli(cli, overrides, imitation_save_dir,
+                                           lambda c, o: c.config(o))
+    steps = args.gradient_steps
+    if [lg["step"] for lg in logs] != list(range(args.log_freq, steps + 1, args.log_freq)) or \
+            not all(np.isfinite(lg["avg_loss"]) for lg in logs):
+        raise AssertionError(f"{label}: windows {logs}")
+    if not (run / "ckpt_latest").exists() or (name == "dp_pusht_image") != (
+            run / f"ckpt_{steps}").exists():
+        raise AssertionError(f"{label}: checkpoints in {run}")
+    print(f"{label}: {steps} steps in {len(logs)} windows at batch {args.batch_size}: "
+          f"{seconds:.1f} s with set-up, saves and evaluation; steps/s per window "
+          f"{[lg['steps_per_sec'] for lg in logs]}; losses "
+          f"{[round(lg['avg_loss'], 4) for lg in logs]}", flush=True)
+    if pusht:
+        if len(ev.calls) != 1:
+            raise AssertionError(f"{label}: {len(ev.calls)} evaluations")
+        ev_s, _, (rew, success) = ev.calls[0]
+        env_steps = args.max_episode_steps
+        calls = env_steps // args.action_steps if name.startswith("dp") else env_steps
+        print(f"{label}: evaluate_on_device, {args.num_envs} envs x {env_steps} env steps "
+              f"({calls} sampler calls of {args.sample_steps} steps, a render per env step): "
+              f"{ev_s:.2f} s ({ev_s / calls * 1e3:.2f} ms per sampler call and its env steps); "
+              f"mean reward {rew:.4f}, mean success {success:.4f}", flush=True)
+    else:
+        try:
+            import robomimic  # noqa: F401
+            note = "installed: run `mode=inference` with the task's hdf5 for the evaluation"
+        except ImportError:
+            note = "not installed: no evaluation (`mode=inference` raises ImportError)"
+        print(f"{label}: robomimic {note}", flush=True)
+
+    with in_cli_dir():  # the demos the CLI trained on
+        dataset, pipe = cli.build(args, dev)
+    pipe.load(str(run / "ckpt_latest"))
+    n = int(args.get("num_envs") or 10)
+    obs = visual_obs(dataset, args, n, image)
+    dim = pipe.action_dim * (args.action_steps if act == "act_chunk" else 1)
+    served(lambda o: getattr(pipe, act)(o).reshape(obs_rows(o), -1), obs, N_REQUESTS, label, dim)
+    counts = no_kernel_launched(f"the {label} phase")
+    _, cpu_pipe = cli.build(args, torch.device("cpu"), dataset=dataset)
+    cpu_pipe.load(str(run / "ckpt_latest"))
+    visual_card_vs_cpu(label, pipe, cpu_pipe, obs, act, dev)
+    no_kernel_launched(f"the {label} phase's comparisons")
+    return counts
+
 
 def main() -> int:
     kind = check_device()
@@ -3368,6 +3673,13 @@ def main() -> int:
                                                   "act_chunk")
     imitation["dbc_kitchen"] = check_imitation_cli(dev, dbc_kitchen, "pearce_mlp", "kitchen",
                                                    "act")
+    # the visual imitation CLIs and robomimic (no kernel on their path): the
+    # renderer and the demos with frames, then the six CLIs
+    imitation["pusht_image_env"] = check_pusht_image_env(dev)
+    for cli_mod, extra, act in VISUAL_CASES:
+        key = "_".join([cli_mod.__name__.rsplit(".", 1)[-1], *(
+            e.split("=")[-1] for e in extra)])
+        imitation[key] = check_visual_cli(dev, cli_mod, extra, act)
     print(f"[chip_smoke] total {time.perf_counter() - T_START:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {

@@ -14,7 +14,7 @@ logged too.
 
 Runs on the CUDA device, and raises without one, unless the config says
 `platform=cpu`. Checkpoints and logs go to
-`results/torch/<pipeline_name>/<env_name>/`.
+`results/torch/<pipeline_name>/<env_name or task_name>/`.
 """
 
 from __future__ import annotations
@@ -28,8 +28,17 @@ from ..utils.logger import Logger
 from ..utils.tensors import set_seed
 
 
+def task_of(args):
+    """The config's task group, or the config itself where the task's keys
+    sit at the top (the robomimic `*_abs.yaml` files)."""
+    return args.task if "task" in args else args
+
+
 def save_dir(args) -> Path:
-    return Path(f"results/torch/{args.pipeline_name}/{args.get('env_name') or 'kitchen'}/")
+    """results/torch/<pipeline_name>/<env_name>/ (robomimic: the task's
+    name; Kitchen: kitchen)."""
+    name = args.get("env_name") or task_of(args).get("task_name") or "kitchen"
+    return Path(f"results/torch/{args.pipeline_name}/{name}/")
 
 
 def run_imitation_cli(args, build: Callable, evaluate: Callable, loss_key: str = "avg_loss",

@@ -18,9 +18,26 @@ from .d4rl_mujoco import (
     DV_D4RLMuJoCoSeqDataset,
     MultiHorizonD4RLMuJoCoDataset,
 )
-from .dataset_utils import SequenceSampler, create_indices
-from .fake import FAKE_ENV_SPECS, fake_d4rl_dataset, fake_d4rl_qlearning_dataset
+from .dataset_utils import RotationTransformer, SequenceSampler, create_indices
+from .fake import (
+    FAKE_ENV_SPECS,
+    fake_d4rl_dataset,
+    fake_d4rl_qlearning_dataset,
+    fake_robomimic_buffer,
+)
 from .hermetic import goal2d_qlearning_dataset, goal2d_sequence_dataset
 from .kitchen import KitchenDataset, KitchenDatasetV2, KitchenMjlDataset
-from .pusht import PushTKeypointDataset, PushTStateDataset, generate_pusht_demos
+from .pusht import (
+    PushTImageDataset,
+    PushTKeypointDataset,
+    PushTStateDataset,
+    generate_pusht_demos,
+)
 from .replay_buffer import ReplayBuffer
+from .robomimic import (
+    RobomimicDataset,
+    RobomimicImageDataset,
+    RobomimicTDDataset,
+    abs_action_transform,
+    undo_transform_action,
+)

@@ -1,6 +1,6 @@
 """Synthetic D4RL-format datasets for hermetic tests and offline
-development (counterpart of cleandiffuser_tpu/dataset/fake.py; the
-robomimic buffer comes with the imitation datasets).
+development (counterpart of cleandiffuser_tpu/dataset/fake.py), and the
+synthetic robomimic demos (`fake_robomimic_buffer`).
 
 The generators produce dictionaries with the schema of `env.get_dataset()`
 / `d4rl.qlearning_dataset(env)`, so every dataset class and pipeline runs
@@ -17,7 +17,8 @@ from typing import Dict
 
 import numpy as np
 
-__all__ = ["fake_d4rl_dataset", "fake_d4rl_qlearning_dataset", "FAKE_ENV_SPECS"]
+__all__ = ["fake_d4rl_dataset", "fake_d4rl_qlearning_dataset", "fake_robomimic_buffer",
+           "FAKE_ENV_SPECS"]
 
 FAKE_ENV_SPECS = {
     # env_name: (obs_dim, act_dim)
@@ -129,3 +130,22 @@ def fake_d4rl_qlearning_dataset(
         "rewards": d["rewards"][:-1],
         "terminals": d["terminals"][:-1].astype(np.float32),
     }
+
+
+def fake_robomimic_buffer(obs_dim: int = 19, act_dim: int = 7, n_episodes: int = 4,
+                          ep_len: int = 60, image_keys=(), image_size: int = 84, seed: int = 0):
+    """Synthetic robomimic demos as a ReplayBuffer, for runs without the
+    hdf5 files: per episode "obs" (ep_len, obs_dim) normals, "action"
+    uniform in [-1, 1) and, per image key, uint8 frames (ep_len, size,
+    size, 3), drawn from `default_rng(seed)` in the reference's order."""
+    from .replay_buffer import ReplayBuffer
+
+    rng = np.random.default_rng(seed)
+    rb = ReplayBuffer.create_empty_numpy()
+    for _ in range(n_episodes):
+        ep = {"obs": rng.standard_normal((ep_len, obs_dim)).astype(np.float32),
+              "action": rng.uniform(-1, 1, (ep_len, act_dim)).astype(np.float32)}
+        for k in image_keys:
+            ep[k] = rng.integers(0, 256, (ep_len, image_size, image_size, 3), dtype=np.uint8)
+        rb.add_episode(ep)
+    return rb

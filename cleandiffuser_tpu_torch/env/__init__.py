@@ -10,6 +10,7 @@ from .d4rl_eval import (
 from .goal2d import Goal2DEnv, evaluate_policy, normalized_score_fn, optimal_return
 from .maze2d_expert import WaypointController, generate_maze2d_dataset
 from .kitchen import ALL_KITCHEN_TASKS, KitchenLowdimWrapper, make_kitchen_env
-from .pusht import PushTEnv, PushTKeypointEnv, PushTState
+from .pusht import PushTEnv, PushTImageEnv, PushTKeypointEnv, PushTState, render_state
 from .pusht_expert import PushTExpertMPC, generate_pusht_expert_trajectories
+from .robomimic import RobomimicImageWrapper, RobomimicLowdimWrapper, create_robomimic_env
 from .wrapper import DuckSyncVectorEnv, MultiStepWrapper, repeated_space, stack_last_n_obs

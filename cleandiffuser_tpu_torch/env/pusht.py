@@ -25,12 +25,20 @@ that model op for op, in torch on the device:
 Every threshold is hard (`pen > 0`, `sd <= 0`, `coverage > 0.95`), so
 float32 op order can flip a branch near one; the port keeps the JAX op
 order. `PushTKeypointEnv` observes the block's 9 keypoints and the agent
-(20 dims). The image env and `render_state` come with the visual slice
-(ROADMAP queue 1, item 7b).
+(20 dims).
+
+`render_state(state, size)` rasterises a batch of states in one pass of
+tensor ops on the states' device, as the reference's SDF rasteriser does
+one state: a `linspace(0, 512, size)` grid in world coordinates, white,
+then the goal T light green, the block T grey and the agent royal blue,
+each where its signed distance is <= 0: (B, size, size, 3) uint8.
+`PushTImageEnv` observes {"image": (B, 3, size, size) float in [0, 1],
+"agent_pos": (B, 2)}, rendered at every step.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -39,8 +47,8 @@ import torch
 
 from ..utils.tensors import default_device
 
-__all__ = ["PushTState", "PushTEnv", "PushTKeypointEnv", "GOAL_POSE", "KEYPOINTS_LOCAL",
-           "AGENT_R", "SIM_HZ", "CONTROL_HZ"]
+__all__ = ["PushTState", "PushTEnv", "PushTKeypointEnv", "PushTImageEnv", "render_state",
+           "GOAL_POSE", "KEYPOINTS_LOCAL", "AGENT_R", "SIM_HZ", "CONTROL_HZ"]
 
 WS = 512.0
 SCALE = 30.0
@@ -126,6 +134,54 @@ def _sd_box(p, rect):
 def sd_tee_local(p):
     """Signed distance of local-frame points to the T."""
     return torch.minimum(_sd_box(p, BAR), _sd_box(p, STEM))
+
+
+GOAL_RGB, BLOCK_RGB, AGENT_RGB = (144.0, 238.0, 144.0), (119.0, 136.0, 153.0), (65.0, 105.0, 225.0)
+
+
+def render_grid(size: int, device) -> torch.Tensor:
+    """(size, size, 2) world coordinates (x, y) of the pixels: row i at y =
+    linspace(0, 512, size)[i], column j at x = linspace(...)[j]."""
+    lin = torch.linspace(0.0, WS, size, device=device)
+    ys, xs = torch.meshgrid(lin, lin, indexing="ij")
+    return torch.stack([xs, ys], -1)
+
+
+@functools.lru_cache(maxsize=16)
+def _render_consts(size: int, device: torch.device):
+    """The pixel grid, the goal T's signed distances on it and the three
+    colours, made once per size and device (a render per env step then
+    copies nothing from the host)."""
+    pts = render_grid(size, device)
+    goal = torch.as_tensor(GOAL_POSE, device=device)
+    sd_goal = sd_tee_local(world_to_block(pts, goal[:2], goal[2]))
+    colors = [torch.tensor(rgb, device=device) for rgb in (GOAL_RGB, BLOCK_RGB, AGENT_RGB)]
+    return pts, sd_goal, colors
+
+
+def render_sdfs(state: PushTState, size: int):
+    """The signed distances the renderer thresholds at 0, per pixel: the
+    goal T's (size, size), the block T's and the agent circle's (...,
+    size, size)."""
+    pts, sd_goal, _ = _render_consts(size, state.agent_pos.device)
+    lead = lambda v: v[..., None, None, :]
+    sd_block = sd_tee_local(world_to_block(pts, lead(state.block_pos),
+                                           state.block_angle[..., None, None]))
+    sd_agent = torch.linalg.vector_norm(pts - lead(state.agent_pos), dim=-1) - AGENT_R
+    return sd_goal, sd_block, sd_agent
+
+
+def render_state(state: PushTState, size: int = 96) -> torch.Tensor:
+    """A batch of states (any leading shape) as (..., size, size, 3) uint8
+    images on their device (module note)."""
+    dev = state.agent_pos.device
+    colors = _render_consts(size, dev)[2]
+    img = torch.full((*state.block_angle.shape, size, size, 3), 255.0, device=dev)
+    for sd, rgb in zip(render_sdfs(state, size), colors):
+        # a - b <= 0 exactly when a <= b in floating point: the agent's test
+        # is the reference's |p - agent| <= r
+        img = torch.where((sd <= 0.0)[..., None], rgb, img)
+    return img.to(torch.uint8)
 
 
 class PushTEnv:
@@ -241,3 +297,16 @@ class PushTKeypointEnv(PushTEnv):
     def get_obs(self, state: PushTState):
         kp = self.keypoints(state).reshape(*state.block_angle.shape, -1)
         return torch.cat([kp, state.agent_pos], -1)
+
+
+class PushTImageEnv(PushTEnv):
+    """obs = {"image": (B, 3, size, size) float in [0, 1], "agent_pos": (B,
+    2)}, the state rendered at `render_size` on the env's device."""
+
+    def __init__(self, render_size: int = 96, coverage_grid_n: int = 32, device=None):
+        super().__init__(coverage_grid_n, device)
+        self.render_size = render_size
+
+    def get_obs(self, state: PushTState):
+        img = render_state(state, self.render_size).movedim(-1, -3).to(torch.float32) / 255.0
+        return {"image": img, "agent_pos": state.agent_pos}

@@ -1,8 +1,9 @@
 """Host env wrappers (counterpart of cleandiffuser_tpu/env/wrapper.py):
 `DuckSyncVectorEnv` and the imitation pipelines' `MultiStepWrapper`, with
 `repeated_space` and `stack_last_n_obs`. numpy only: the envs step on the
-host, and gymnasium is imported only to build a space. The video wrappers
-come with the visual slice (ROADMAP queue 1, item 7b).
+host, and gymnasium is imported only to build a space. The video wrappers,
+which no CLI uses, wait with the other unused modules (ROADMAP queue 1,
+item 9).
 """
 
 from __future__ import annotations

@@ -1,0 +1,251 @@
+"""Image condition encoders (counterpart of the parts of
+cleandiffuser_tpu/nn_condition/images.py that the visual imitation
+pipelines use): the GN-ResNet18 with its SpatialSoftmax keypoint head,
+the crop randomiser and `MultiImageObsCondition`.
+
+    cond = MultiImageObsCondition(shape_meta, emb_dim=256, crop_shape=(84, 84))
+    emb = cond({"image": (b, 3, 96, 96), "agent_pos": (b, 2)})         # (b, 256)
+    emb = cond(obs, train=True, generator=g)   # random crops drawn from g
+
+The reference computes in NHWC; here the images stay NCHW, the layout
+cuDNN's convolutions take, and the layers keep flax's arithmetic:
+
+- convolutions without bias, 7x7 stride 2 padding 3 (the stem), 3x3
+  padding 1, and 1x1 stride 2 for a downsampling block's skip (flax's
+  "SAME" at a 1x1 kernel pads nothing at either parity of H);
+- max-pooling 3x3 stride 2 padding 1 with -inf padding, as flax's;
+- GroupNorm with max(C // 16, 1) groups and flax's eps 1e-6;
+- SpatialSoftmax: a softmax over H*W per channel of x / temperature (a
+  learned (1,) parameter), then the expected x (linspace(-1, 1) along W)
+  and y (along H): (b, C, 2), flattened channel-major.
+
+The residual block has no activation after its sum, as the reference's.
+
+`random_crop` takes its per-sample offsets from an explicit generator (or
+given ones, which is how the tests hand both packages the same crops) and
+gathers the crop by index: exact, where the reference multiplies by
+one-hot matrices. In training, `MultiImageObsCondition` crops every rgb
+key at random, with the offsets in `condition[CROP_KEY][key]` when the
+caller gives them; at sampling it crops the centre.
+
+Parameters carry across from the JAX package (utils/jax_params.py): a
+conv's torch weight (Cout, Cin, KH, KW) is flax's kernel (KH, KW, Cin,
+Cout) transposed; the children take flax's auto names (`ResNet18_<i>` per
+sorted rgb key, `Conv_*`, `GroupNorm_*`, `_ResBlock2d_*`,
+`SpatialSoftmax_0`, `Dense_*`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..utils.blocks import dense, lecun_normal_init
+from .base import BaseNNCondition
+
+__all__ = ["ResNet18", "SpatialSoftmax", "MultiImageObsCondition", "random_crop",
+           "center_crop", "CROP_KEY"]
+
+# the condition's entry for given crop offsets: {rgb key: (top, left)}
+CROP_KEY = "crop_offsets"
+
+
+def conv2d(in_channel: int, out_channel: int, kernel: int, stride: int = 1, padding: int = 0,
+           generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+    """A conv without bias, initialised as flax's `nn.Conv` (LeCun normal
+    over the fan-in KH * KW * Cin)."""
+    layer = nn.utils.skip_init(nn.Conv2d, in_channel, out_channel, kernel, stride=stride,
+                               padding=padding, bias=False)
+    lecun_normal_init(layer.weight, generator, fan_in=kernel * kernel * in_channel)
+    return layer
+
+
+class GroupNorm2d(nn.Module):
+    """flax `nn.GroupNorm(num_groups)` on (b, C, H, W); flax's eps 1e-6."""
+
+    def __init__(self, channels: int, groups: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.group_norm(x, self.groups, self.scale, self.bias, self.eps)
+
+
+def _gn(channels: int, group_channels: int = 16) -> GroupNorm2d:
+    return GroupNorm2d(channels, max(channels // group_channels, 1))
+
+
+class ResBlock2d(nn.Module):
+    """conv 3x3 (stride 2 when downsampling), GN, activation, conv 3x3, GN,
+    plus the skip (conv 1x1 stride 2 and GN when downsampling)."""
+
+    def __init__(self, in_channel: int, out_channel: int, downsample: bool = False,
+                 group_channels: int = 16, activation: Callable = F.relu,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        stride = 2 if downsample else 1
+        g = generator
+        self.conv1 = conv2d(in_channel, out_channel, 3, stride, 1, g)
+        self.norm1 = _gn(out_channel, group_channels)
+        self.conv2 = conv2d(out_channel, out_channel, 3, 1, 1, g)
+        self.norm2 = _gn(out_channel, group_channels)
+        self.downsample, self.activation = downsample, activation
+        if downsample:
+            self.skip_conv = conv2d(in_channel, out_channel, 1, 2, 0, g)
+            self.skip_norm = _gn(out_channel, group_channels)
+        self.JAX_NAMES = {"conv1": "Conv_0", "norm1": "GroupNorm_0", "conv2": "Conv_1",
+                          "norm2": "GroupNorm_1", "skip_conv": "Conv_2", "skip_norm": "GroupNorm_2"}
+
+    def forward(self, x):
+        h = self.activation(self.norm1(self.conv1(x)))
+        h = self.norm2(self.conv2(h))
+        skip = self.skip_norm(self.skip_conv(x)) if self.downsample else x
+        return h + skip
+
+
+class SpatialSoftmax(nn.Module):
+    """(b, C, H, W) -> (b, C, 2) soft-argmax keypoints (module note)."""
+
+    def __init__(self):
+        super().__init__()
+        self.temperature = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        smax = torch.softmax(x.reshape(b, c, h * w) / self.temperature, -1).reshape(b, c, h, w)
+        xr = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
+        yr = torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
+        ex = (smax.sum(2) * xr).sum(-1)
+        ey = (smax.sum(3) * yr).sum(-1)
+        return torch.stack([ex, ey], -1)
+
+
+RESNET18_STAGES = ((64, False), (64, False), (128, True), (128, False), (256, True),
+                   (256, False), (512, True), (512, False))
+
+
+class ResNet18(nn.Module):
+    """GN-ResNet18 with the SpatialSoftmax head: (B, C, H, W) -> (B, emb):
+    stem (conv 7x7 stride 2, GN, activation, max-pool 3x3 stride 2), eight
+    residual blocks (64, 64, 128, 128, 256, 256, 512, 512 channels), the
+    512 keypoints (1024 numbers), Dense, SiLU, Dense."""
+
+    def __init__(self, in_channel: int, emb_dim: int, group_channels: int = 16,
+                 activation: Callable = F.relu, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.stem_conv = conv2d(in_channel, 64, 7, 2, 3, g)
+        self.stem_norm = _gn(64, group_channels)
+        blocks, c_in = [], 64
+        for c, down in RESNET18_STAGES:
+            blocks.append(ResBlock2d(c_in, c, down, group_channels, activation, g))
+            c_in = c
+        self.blocks = nn.ModuleList(blocks)
+        self.softmax = SpatialSoftmax()
+        self.dense1 = dense(2 * c_in, emb_dim, generator=g)
+        self.dense2 = dense(emb_dim, emb_dim, generator=g)
+        self.activation = activation
+        self.JAX_NAMES = {"stem_conv": "Conv_0", "stem_norm": "GroupNorm_0",
+                          "blocks": "_ResBlock2d_{}", "softmax": "SpatialSoftmax_0",
+                          "dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def forward(self, x):
+        x = self.activation(self.stem_norm(self.stem_conv(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        for block in self.blocks:
+            x = block(x)
+        feat = self.softmax(x).reshape(x.shape[0], -1)
+        return self.dense2(F.silu(self.dense1(feat)))
+
+
+def random_crop(img, crop_h: int, crop_w: int, generator: Optional[torch.Generator] = None,
+                offsets: Optional[Tuple] = None):
+    """An independent crop per sample of (B, ..., H, W) images: offsets
+    top in [0, H - crop_h], left in [0, W - crop_w], drawn from `generator`
+    (top first) unless `offsets` = (top, left), each (B,), gives them."""
+    *lead, h, w = img.shape
+    b = img.shape[0]
+    flat = img.reshape(b, -1, h, w)
+    if offsets is None:
+        top = torch.randint(0, h - crop_h + 1, (b,), generator=generator, device=img.device)
+        left = torch.randint(0, w - crop_w + 1, (b,), generator=generator, device=img.device)
+    else:
+        top, left = (torch.as_tensor(o, device=img.device).long() for o in offsets)
+    rows = top[:, None] + torch.arange(crop_h, device=img.device)
+    cols = left[:, None] + torch.arange(crop_w, device=img.device)
+    c = flat.shape[1]
+    out = flat.gather(2, rows[:, None, :, None].expand(b, c, crop_h, w))
+    out = out.gather(3, cols[:, None, None, :].expand(b, c, crop_h, crop_w))
+    return out.reshape(*lead, crop_h, crop_w)
+
+
+def center_crop(img, crop_h: int, crop_w: int):
+    h, w = img.shape[-2], img.shape[-1]
+    top, left = (h - crop_h) // 2, (w - crop_w) // 2
+    return img[..., top:top + crop_h, left:left + crop_w]
+
+
+class MultiImageObsCondition(BaseNNCondition):
+    """shape_meta-driven dict observation encoder: each rgb key (sorted)
+    through its own GN-ResNet18 (random crop in training, centre crop at
+    sampling), the low_dim keys (sorted) flattened beside them, then Dense,
+    SiLU, Dense to `emb_dim`. With `use_seq` the inputs are (b, To, ...)
+    and the output (b, To, emb) with `keep_horizon_dims`, else (b, To *
+    emb); without it (b, ...) -> (b, emb).
+
+    shape_meta example:
+        {"obs": {"image": {"shape": [3, 96, 96], "type": "rgb"},
+                 "agent_pos": {"shape": [2], "type": "low_dim"}}}
+    """
+
+    def __init__(self, shape_meta: Dict, emb_dim: int = 256, rgb_model_emb_dim: int = 64,
+                 crop_shape: Optional[Tuple[int, int]] = (76, 76), group_channels: int = 16,
+                 use_seq: bool = False, keep_horizon_dims: bool = False, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        obs_meta = shape_meta["obs"]
+        self.rgb_keys = sorted(k for k, v in obs_meta.items() if v["type"] == "rgb")
+        self.low_dim_keys = sorted(k for k, v in obs_meta.items() if v["type"] == "low_dim")
+        self.crop_shape = None if crop_shape is None else tuple(crop_shape)
+        self.use_seq, self.keep_horizon_dims = use_seq, keep_horizon_dims
+        self.emb_dim, self.dropout = emb_dim, dropout
+        self.nets = nn.ModuleList(
+            ResNet18(obs_meta[k]["shape"][0], rgb_model_emb_dim, group_channels,
+                     generator=generator) for k in self.rgb_keys)
+        in_dim = rgb_model_emb_dim * len(self.rgb_keys) + sum(
+            math.prod(obs_meta[k]["shape"]) for k in self.low_dim_keys)
+        self.dense1 = dense(in_dim, emb_dim, generator=generator)
+        self.dense2 = dense(emb_dim, emb_dim, generator=generator)
+        self.JAX_NAMES = {"nets": "ResNet18_{}", "dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def _frames(self, x):
+        """(b, To, ...) -> (b * To, ...) with `use_seq`; returns (x, b)."""
+        b = x.shape[0]
+        return (x.reshape(b * x.shape[1], *x.shape[2:]) if self.use_seq else x), b
+
+    def forward(self, condition: Dict, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        crops = condition.get(CROP_KEY) or {}
+        feats = []
+        for key, net in zip(self.rgb_keys, self.nets):
+            img, b = self._frames(condition[key])
+            if self.crop_shape is not None:
+                ch, cw = self.crop_shape
+                img = (random_crop(img, ch, cw, generator, crops.get(key)) if train else
+                       center_crop(img, ch, cw))
+            feats.append(net(img))
+        for key in self.low_dim_keys:
+            x, b = self._frames(condition[key])
+            feats.append(x.reshape(x.shape[0], -1))
+        h = self.dense2(F.silu(self.dense1(torch.cat(feats, -1))))
+        if self.use_seq:
+            h = h.reshape(b, -1, self.emb_dim)
+            if not self.keep_horizon_dims:
+                h = h.reshape(b, -1)
+        return self._apply_mask(h, self.get_mask(h, mask, train, generator))

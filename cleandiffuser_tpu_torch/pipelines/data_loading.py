@@ -7,11 +7,12 @@ Nothing is downloaded. The resolution order is:
    (default directory `dev/d4rl`) with the d4rl key schema;
 2. the synthetic generator (dataset/fake.py), with a printed warning.
 
-`resolve_pusht_demos(args, device)` gives the PushT imitation CLIs their
-demos: the file at `args.dataset_path` when it exists, else demos made by
-the on-device MPC expert (or, with `demo_expert=false`, the scripted
-pusher), cached to that path when it ends in .npz; a cache written by the
-JAX package loads here, and the other way round.
+`resolve_pusht_demos(args, device, with_images=False)` gives the PushT
+imitation CLIs their demos: the file at `args.dataset_path` when it
+exists, else demos made by the on-device MPC expert (or, with
+`demo_expert=false`, the scripted pusher), rendered at `image_size` with
+`with_images`, cached to that path when it ends in .npz; a cache written
+by the JAX package loads here, and the other way round.
 
 `get_normalized_score_fn(env_name)` is d4rl's normalized score, and
 `make_eval_env_fns(env_name, n)` the gymnasium eval envs of a d4rl task:
@@ -129,15 +130,16 @@ def make_eval_env_fns(env_name: str, num_envs: int):
     raise ValueError(f"no gymnasium mapping for {env_name}")
 
 
-def resolve_pusht_demos(args, device=None):
+def resolve_pusht_demos(args, device=None, with_images: bool = False, image_size: int = 96):
     """The PushT demos of a dp / dbc CLI: the path `args.dataset_path` if it
     exists (a reference zarr store or an .npz export of one: drop in
     pusht_cchi_v7_replay to train on the human demos), else a fresh
     ReplayBuffer of `demo_episodes` episodes of at most `demo_max_steps`
     steps from the MPC expert on `device` (`demo_expert`, the default; all
     episodes in one rollout unless `demo_batch` is set; `demo_noise` > 0 adds
-    DART execution noise) or from the scripted pusher, saved to the path
-    when it ends in .npz."""
+    DART execution noise) or from the scripted pusher, with `with_images`
+    each state rendered at `image_size` ("img"), saved to the path when it
+    ends in .npz."""
     path = Path(args.dataset_path)
     if path.exists():
         return str(path)
@@ -156,7 +158,8 @@ def resolve_pusht_demos(args, device=None):
     rb = generate_pusht_demos(n_episodes=n_episodes, max_steps=max_steps, seed=args.seed,
                               expert=expert,
                               mpc_kwargs={"exec_noise_prob": noise} if noise > 0.0 else None,
-                              batch=None if batch is None else int(batch), device=device)
+                              batch=None if batch is None else int(batch), device=device,
+                              with_images=with_images, image_size=image_size)
     if path.suffix == ".npz":
         path.parent.mkdir(parents=True, exist_ok=True)
         rb.save_npz(str(path))

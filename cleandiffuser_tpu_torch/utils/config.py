@@ -16,7 +16,8 @@ cleandiffuser_tpu/utils/config.py), reading the same `configs/` tree.
   spelling the imitation CLIs take: `--config-path=<dir>` /
   `--config-dir=<dir>` (relative to the current directory),
   `--config-name=<name>`, and `nn=<backbone>`, which switches to the
-  sibling directory `<dir>/../<backbone>/` when it holds the config.
+  sibling directory `<dir>/../<backbone>/` (or `<nn_root>/<backbone>/`)
+  when it holds the config.
 """
 
 from __future__ import annotations
@@ -149,11 +150,12 @@ def parse_cli(argv: Sequence[str]) -> List[str]:
 
 
 def resolve_config_cli(default_dir: Union[str, Path], default_name: str, argv: Sequence[str],
-                       nn_key: Optional[str] = None) -> Config:
+                       nn_key: Optional[str] = None,
+                       nn_root: Optional[Union[str, Path]] = None) -> Config:
     """The config a CLI's argv names (module note): the directory and file
-    from `--config-path` / `--config-name`, the backbone's sibling
-    directory for `<nn_key>=<backbone>`, the other `key=value` tokens as
-    overrides."""
+    from `--config-path` / `--config-name`, the backbone's directory for
+    `<nn_key>=<backbone>` (a sibling of the config's, or under `nn_root`),
+    the other `key=value` tokens as overrides."""
     cfg_dir, cfg_name, overrides = Path(default_dir), default_name, []
     for a in argv:
         if a.startswith(("--config-path=", "--config-dir=")):
@@ -164,6 +166,7 @@ def resolve_config_cli(default_dir: Union[str, Path], default_name: str, argv: S
             overrides.append(a)
     if nn_key:
         nn = next((o.split("=", 1)[1] for o in overrides if o.startswith(f"{nn_key}=")), None)
-        if nn is not None and (cfg_dir.parent / nn / f"{cfg_name}.yaml").exists():
-            cfg_dir = cfg_dir.parent / nn
+        root = cfg_dir.parent if nn_root is None else Path(nn_root)
+        if nn is not None and (root / nn / f"{cfg_name}.yaml").exists():
+            cfg_dir = root / nn
     return load_config(cfg_dir, cfg_name, overrides)

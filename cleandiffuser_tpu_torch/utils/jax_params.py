@@ -16,7 +16,10 @@ Leaves keep their names, except for two torch layers:
 - an `nn.ConvTranspose1d` weight is flax's `ConvTranspose` kernel: flax
   keeps `(K, Cin, Cout)` and, with `transpose_kernel=False`, correlates
   where torch convolves, so torch's `(Cin, Cout, K)` weight is the kernel
-  flipped along K: `w = kernel[::-1].transpose(1, 2, 0)`.
+  flipped along K: `w = kernel[::-1].transpose(1, 2, 0)`;
+- an `nn.Conv2d` weight (the image encoders, nn_condition/images.py) is
+  flax's 2-D `Conv` kernel: flax keeps `(KH, KW, Cin, Cout)`, torch
+  `(Cout, Cin, KH, KW)`: `w = kernel.transpose(3, 2, 0, 1)`.
 
 - a `DenseGeneral` (utils/blocks.py; flax's `MultiHeadDotProductAttention`
   projections) keeps its flax kernel and bias shapes in `jax_shapes`: the
@@ -35,7 +38,9 @@ U-Net's `ChiResidualBlock_i` (`Conv_*`, `GroupNorm_*`, `Dense_0`),
 `Downsample1d_i`, `Upsample1d_i`; the Chi transformer's
 `_PreNormDecoderLayer_i` with their `MultiHeadDotProductAttention_*`
 (DenseGeneral kernels (D, heads, head_dim)); the Pearce nets' `FCBlock_i`,
-`TimeSiren_0` (its first Dense without bias) and `_PearceEncoderBlock_i`.
+`TimeSiren_0` (its first Dense without bias) and `_PearceEncoderBlock_i`;
+the image encoder's `ResNet18_i` (`Conv_*`, `GroupNorm_*`, `_ResBlock2d_i`,
+`SpatialSoftmax_0`, `Dense_*`).
 
 Block layouts. A DiT1d built with `use_pallas_block=True` stores each block
 flat (`PallasDiTBlock_i`: wmod, bmod, wqkv, ...); one built without stores
@@ -129,6 +134,8 @@ def _to_torch(arr: np.ndarray, layout, shape=None) -> np.ndarray:
         return arr.T
     if layout == "conv_transpose":
         return arr[::-1].transpose(1, 2, 0)
+    if layout == "conv2d":
+        return arr.transpose(3, 2, 0, 1)
     return arr
 
 
@@ -139,14 +146,16 @@ def _to_jax(arr: np.ndarray, layout) -> np.ndarray:
         return arr.T
     if layout == "conv_transpose":
         return arr.transpose(2, 0, 1)[::-1]
+    if layout == "conv2d":
+        return arr.transpose(2, 3, 1, 0)
     return arr
 
 
 def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
     """flax path of the port's state_dict entry `key`, and how the array's
     layout differs between the two: "dense" (an nn.Linear weight),
-    "conv_transpose" (an nn.ConvTranspose1d weight), a (flax shape, torch
-    shape) pair (a DenseGeneral's weight or bias) or "" (the same)."""
+    "conv_transpose" (an nn.ConvTranspose1d weight), "conv2d" (an
+    nn.Conv2d weight), a (flax shape, torch shape) pair (a DenseGeneral's weight or bias) or "" (the same)."""
     *names, leaf = key.split(".")
     path, m, i = [], model, 0
     while i < len(names):
@@ -164,7 +173,8 @@ def _jax_path(model: nn.Module, key: str) -> Tuple[Tuple[str, ...], str]:
         layout = (m.jax_shapes[leaf], tuple(getattr(m, leaf).shape))
         return tuple(path) + ("kernel" if leaf == "weight" else leaf,), layout
     layout = ("dense" if isinstance(m, nn.Linear) else
-              "conv_transpose" if isinstance(m, nn.ConvTranspose1d) else "")
+              "conv_transpose" if isinstance(m, nn.ConvTranspose1d) else
+              "conv2d" if isinstance(m, nn.Conv2d) else "")
     if layout and leaf == "weight":
         return tuple(path) + ("kernel",), layout
     return tuple(path) + (leaf,), ""

@@ -84,6 +84,17 @@ def cosine_decay_schedule(lr: float, steps: int) -> Callable[[int], float]:
     return schedule
 
 
+def _norms(tensors) -> list:
+    """Each tensor's 2-norm. On the CPU as the root of the pairwise `sum`
+    of squares: the CPU norm kernel's error grows with the length (3e-5
+    relative at 2.4 M elements, an image encoder's 3x3 conv at 512
+    channels), where the sum's stays near float32 rounding; on the card
+    one foreach launch."""
+    if tensors and tensors[0].is_cuda:
+        return torch._foreach_norm(tensors)
+    return [t.square().sum().sqrt() for t in tensors]
+
+
 class TrainOptimizer:
     """Adam(W) over a fixed list of parameters, with optional global-norm
     clipping and an optional schedule. `step()` after `backward()`: it
@@ -112,7 +123,7 @@ class TrainOptimizer:
             if p.grad is None:  # unused this step: optax sees a zero gradient
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = torch.linalg.vector_norm(torch.stack(_norms(grads)))
         if self.grad_clip_norm is not None:
             # optax clip_by_global_norm: g if norm < max else g * max / norm
             scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
