@@ -8,7 +8,9 @@ staged consistency policy (MLPs, no kernel); the PushT env and its MPC
 expert on the card, and the Diffusion Policy and DiffusionBC CLIs on PushT
 and Kitchen (no kernel); the PushT renderer, and the Diffusion Policy and
 DiffusionBC CLIs on PushT images, robomimic and robomimic images (no
-kernel).
+kernel); and bf16 sampling and training beyond the DiT: the Diffuser CLI
+with both flags through K3's BF16 route, and bf16 requests on the MLP and
+Chi U-Net backbones.
 
     python3 chip_smoke.py
 
@@ -21,9 +23,9 @@ Phases, each of which raises on failure (exit code != 0):
                parallel; prints the seconds and the compiler's register /
                shared-memory report; counts the tensor-core instructions
                (HMMA / HGMMA) in the SASS of both and fails if either has
-               none, and the BF16 ones (HMMA.16816.F32.BF16) of K1's BF16
-               route, failing if there are none; compiles the Triton
-               solver-update kernel.
+               none, and the BF16 ones (HMMA.16816.F32.BF16) of K1's and
+               K3's BF16 routes, failing if either has none; compiles the
+               Triton solver-update kernel.
 3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
                (B=100, H=32, D=320, 10 heads, f32), at the 3200-trajectory
                candidate batch and at the antmaze horizon H=64 (a cluster of
@@ -46,6 +48,15 @@ Phases, each of which raises on failure (exit code != 0):
                H = 64 at the top; 951 GFLOP per call at B = 3200), with each
                shape's thread-block plan and shared memory against the
                device's limit and the share of the 3xTF32 bound.
+   film_resblock BF16 - K3's BF16 route (BF16 weights, biases and affine)
+               against its plain version at every distinct block shape of
+               the shipped U-Net at B = 3200, with the operands the bf16
+               U-Net hands it (the first block's x BF16 with the f32 FiLM
+               term, the later blocks' x f32): error within 5e-2 (and the
+               share of that limit read), the route's time beside the f32
+               route's and the plain version's, TFLOP/s and the share of
+               the BF16 bound, and their sums over the 16 blocks; the build
+               phase counts the route's BF16 MMAs in film_resblock's SASS.
 5. solver_update - K2 against its plain version at the plan's state shape
                (3200, 32, 23) with a real ddpm step's coefficients: exact
                without noise, N(0, 1) moments of the in-kernel noise over
@@ -270,13 +281,13 @@ Phases, each of which raises on failure (exit code != 0):
                configs), `chi_transformer` and `dit` at the shipped widths:
                `mode=train` 100 steps in two windows at batch 256 (ckpt_100,
                ckpt_latest), the on-device evaluation at the config's 10
-               envs and 300 env steps (seconds, ms per sampler call, reward
+               envs and 100 env steps (seconds, ms per sampler call, reward
                and success), then 5 `act_chunk` requests from ckpt_latest
                at 10 envs (one profiled: device busy, idle share) and one
                held against the CPU with the same noise within 1e-4.
 28. DBC PushT CLIs - `cli.dbc_pusht` with `nn=pearce_mlp` and `dit`: the same,
                with `act` (50 ddpm steps per action, one sampler call per env
-               step: the evaluation cut to 48 env steps, the DiT's to 20,
+               step: the evaluation cut to 48 env steps, the DiT's to 10,
                DBC_EVAL_STEPS), and one Diffusion-X request (8 extra steps
                at the last level) held against the CPU.
 29. Kitchen CLIs - `cli.dp_kitchen` (chi_unet) and `cli.dbc_kitchen`
@@ -298,7 +309,7 @@ Phases, each of which raises on failure (exit code != 0):
                and at `nn=chi_unet`, `cli.dbc_pusht_image` (pearce_mlp, 8
                Diffusion-X steps): `mode=train` 20 steps in two windows at
                the config's batch (VISUAL_TRAIN), the on-device evaluation
-               at 10 envs (DP 300 env steps; DBC cut to 48), then 5
+               at 10 envs (DP cut to 100 env steps, DBC to 48), then 5
                requests from ckpt_latest (one profiled) and one held
                against the CPU with the same noise (`visual_card_vs_cpu`:
                within 1e-4; beyond it, where float32 rounding decides, the
@@ -311,6 +322,23 @@ Phases, each of which raises on failure (exit code != 0):
 33. Robomimic image CLIs - `cli.dp_robomimic_image` and
                `cli.dbc_robomimic_image` (lift): the same. No kernel launch
                in phases 30-33.
+34. bf16 Diffuser CLI (after phase 14) - `cli.diffuser_d4rl_mujoco` with
+               `bf16_sampling=true bf16_training=true` on the shipped config
+               (under its own pipeline name): 20 steps in two windows
+               through K3's BF16 route (16 launches per step, the f32 route
+               none), then 2 requests at 50 envs x 64 candidates from
+               ckpt_latest in bf16 (320 BF16 launches per plan) and 2 in f32,
+               their latency and one of each under the profiler (device busy,
+               idle share); one plan's 3,200 candidates in bf16 against f32
+               with the same weights and noise within 0.02 / 0.005 of scale,
+               a training loss in bf16 against f32 within 5 %.
+35. bf16 requests (last) - one `bf16_sampling` request each from the DQL
+               CLI's ckpt_latest (phase 15; `DQLMlp`, the JAX package's bf16
+               gate) and the DP PushT chi_unet CLI's (phase 27): finite, and
+               within 0.005 of scale on average of the same request in f32
+               with the same noise (the max read only: the reference's own
+               requests move by up to 0.168 and 0.104 at these widths,
+               tools/bf16_request_gap.py); no kernel launched.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
@@ -327,7 +355,8 @@ TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
 operations are 3x the flops at the 495 TFLOP/s TF32 peak; K1's BF16 route
 does its four weight products at the 989 TFLOP/s BF16 peak and attention
-in 3xTF32; K2's are f32 at 67 TFLOP/s. The last line is {"ok": true,
+in 3xTF32, K3's BF16 route its two convs and skip at the BF16 peak; K2's
+are f32 at 67 TFLOP/s. The last line is {"ok": true,
 "device": {...}}. TF32 is off for every comparison (matmul and cuDNN), so
 both sides compute in full float32. Every device time (`cuda_ms`) replays
 one CUDA graph of the timed calls, so it is the device's alone: launched
@@ -433,6 +462,7 @@ from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
     film_resblock_op,
     film_resblock_reference,
     fused_film_resblock,
+    fused_film_resblock_bf16,
     load_film_resblock_library,
 )
 from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
@@ -453,6 +483,7 @@ from cleandiffuser_tpu_torch.pipelines import (  # noqa: E402
     SynthERPipeline,
     goal2d_gate,
 )
+from cleandiffuser_tpu_torch.pipelines.dql import sample_candidates  # noqa: E402
 from cleandiffuser_tpu_torch.pipelines.diffuserlite_value import (  # noqa: E402
     build_candidate_plan_fn,
 )
@@ -516,15 +547,24 @@ DD_CLI_PER_STEP = ("mode=train", "diffusion_gradient_steps=250", "invdyn_gradien
 DIFFUSER_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=200",
                       "classifier_gradient_steps=100", "log_interval=50", "save_interval=100")
 DD_CLI_REQUESTS, DIFFUSER_CLI_REQUESTS = 5, 2
+# the bf16 Diffuser CLI (configs/diffuser/mujoco with bf16_sampling=true
+# bf16_training=true, under its own pipeline name): 20 steps in two windows,
+# then DIFFUSER_CLI_REQUESTS requests at 50 envs x 64 candidates in bf16 and
+# as many in f32 from its ckpt_latest
+DIFFUSER_BF16_CLI_TRAIN = ("mode=train", "diffusion_gradient_steps=20",
+                           "classifier_gradient_steps=10", "log_interval=10", "save_interval=20",
+                           "bf16_sampling=true", "bf16_training=true",
+                           "pipeline_name=diffuser_d4rl_mujoco_bf16")
 CLI_DIR = ROOT / "results" / "chip_smoke_cli"
 # the RL CLI phases: 5 windows of 250, a save after each, so that ckpt_1000
 # holds the last step before the actor EMA's gate opens and ckpt_latest the
 # 1250th (the loop saves on the save grid only: with save_interval=500 the
 # last save would be step 1000); then 100 steps with the save interval off
 # the log grid (the per-step path; no save, so ckpt_latest stays; cut from
-# 200 to keep the script within its time)
+# 200, then to 50 when the bf16 phases came, to keep the script within its
+# time)
 RL_CLI_TRAIN = ("mode=train", "gradient_steps=1250", "log_interval=250", "save_interval=250")
-RL_CLI_PER_STEP = ("mode=train", "gradient_steps=100", "log_interval=100", "save_interval=250")
+RL_CLI_PER_STEP = ("mode=train", "gradient_steps=50", "log_interval=50", "save_interval=250")
 RL_CLI_REQUESTS = 5
 # the hermetic DQL gate (tests/test_hermetic_parity.py:101-108)
 DQL_GOAL2D_STEPS, DQL_GOAL2D_BATCH = 3000, 128
@@ -598,10 +638,11 @@ LITE_COMPARE_ENVS = 50
 # iterations of 200 critic steps (one Monte-Carlo re-evaluation of every
 # path); QGPO: 500 BC steps, the support of every next state (batches of
 # 5,000 states x K 16), 500 Q and 500 CEP steps in windows; SynthER MuJoCo:
-# 500 diffusion steps, one 50,000-row generation batch of 128 ddpm steps
-# (cut from 100,000 to keep the script within its time),
-# 1,000 TD3+BC steps; SynthER antmaze and kitchen: 100 steps, one 10,000-row
-# batch, 200 TD3+BC steps, 2 requests. A request is held against the same
+# 500 diffusion steps, one 20,000-row generation batch of 128 ddpm steps
+# (cut from 100,000, then from 50,000 when the bf16 phases came, to keep the
+# script within its time), 500 TD3+BC steps (cut from 1,000); SynthER
+# antmaze and kitchen: 100 steps, one 5,000-row batch, 100 TD3+BC steps
+# (cut from 10,000 and 200), 2 requests. A request is held against the same
 # request on the port's CPU path with the same explicit noise at the
 # served 50 envs (SynthER's also one generation chunk of
 # SYNTHER_COMPARE_ROWS rows).
@@ -613,13 +654,13 @@ QGPO_CLI_BC = ("mode=bc_training", "bc_gradient_steps=500", "log_interval=125",
                "save_interval=250")
 QGPO_CLI_STAGE = ("q_gradient_steps=500", "cep_gradient_steps=500", "log_interval=125")
 SYNTHER_CLI = {"mujoco": (("diffusion_gradient_steps=500", "log_interval=125",
-                           "save_interval=250"), 50_000,
-                          ("td3bc_gradient_steps=1000", "log_interval=250",
-                           "save_interval=1000"), N_REQUESTS),
+                           "save_interval=250"), 20_000,
+                          ("td3bc_gradient_steps=500", "log_interval=250",
+                           "save_interval=500"), N_REQUESTS),
                "suite": (("diffusion_gradient_steps=100", "log_interval=50",
-                          "save_interval=100"), 10_000,
-                         ("td3bc_gradient_steps=200", "log_interval=100",
-                          "save_interval=200"), SUITE_CLI_REQUESTS)}
+                          "save_interval=100"), 5_000,
+                         ("td3bc_gradient_steps=100", "log_interval=50",
+                          "save_interval=100"), SUITE_CLI_REQUESTS)}
 SYNTHER_COMPARE_ROWS = 16
 # SynthER's generation runs 128 ddpm steps of a 1024-wide net with no
 # clipping, and at the chain's sample scale (|x| up to 1e4-1e5 after 500
@@ -634,7 +675,7 @@ GEN_ERR_FACTOR = 4.0
 # IQL, EDM and distillation steps at batch 128, the teacher's and the 2-NFE
 # student's bars; then requests at 50 envs x 32 candidates
 CP_STEPS, CP_BATCH, CP_TEACHER_BAR, CP_STUDENT_BAR = (2000, 3000, 2000), 128, 0.85, 0.80
-CP_REQUESTS = (("cd", 2), ("edm", 5), ("edm_heun", 5))
+CP_REQUESTS = (("cd", 2), ("edm", 2), ("edm_heun", 2))  # EDM's cut from 5 each
 # Diffusion Policy and DiffusionBC (configs/{dp,dbc}/{pusht,kitchen}/*, no kernel:
 # the Chi U-Net builds its own block, the DiTs are built without the fused one):
 # one PushT step from PUSHT_STEP_STATES seeded states on the card against the
@@ -663,9 +704,13 @@ DBC_PUSHT_CASES = (("pearce_mlp", "pusht"), ("dit", "pusht"))
 # per env step: 90-112 ms with the PearceMlp, 270-524 ms with the depth-6
 # DiT, so 300 steps would take 27-34 s and 81-157 s); the expert's episodes
 # 100 control steps of the configs' 300 (their median length was 39). DP's
-# evaluations keep the configs' 300 env steps (one sampler call per 8 env
-# steps: 8.6-13.7 s for 300)
-DBC_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 20, 100
+# evaluations kept the configs' 300 env steps (one sampler call per 8 env
+# steps: 8.6-13.7 s for 300) until the cut below
+DBC_EVAL_STEPS, DBC_DIT_EVAL_STEPS, EXPERT_MAX_STEPS = 48, 10, 100
+# DP's evaluations run 100 env steps of the configs' 300 (12 sampler calls
+# of 8 env steps): cut, with DBC's DiT from 20 to 10, when the bf16 phases
+# came (the whole script took 1,110 s on a slow host then)
+DP_EVAL_STEPS = 100
 DBC_X_STEPS = 8  # the Diffusion-X request: the Kitchen configs' extra_sample_steps
 # the visual imitation and robomimic phases (30-33): the renderer on
 # RENDER_STATES seeded states held pixel for pixel against the CPU outside
@@ -692,7 +737,8 @@ VISUAL_CASES = ((dp_pusht_image, (), "act_chunk"), (dp_pusht_image, ("nn=chi_une
 # cuda_ms's first spin, ~50 ms at the H100's boost clock, and how many
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
-KERNELS = (fused_dit_block, fused_dit_block_bf16, fused_film_resblock, fused_solver_update)
+KERNELS = (fused_dit_block, fused_dit_block_bf16, fused_film_resblock, fused_film_resblock_bf16,
+           fused_solver_update)
 # NVIDIA H100 SXM peaks (data sheet, dense): f32 outside the tensor cores,
 # TF32 and BF16 on them, and HBM3 bandwidth
 F32_TFLOPS, TF32_TFLOPS, BF16_TFLOPS, HBM_TBPS = 67.0, 495.0, 989.0, 3.35
@@ -829,10 +875,11 @@ def build_kernels(dev):
               f"{mma[0].split(';')[0].split('*/')[-1].strip() if mma else '-'}")
         if not mma:
             raise AssertionError(f"{name}'s SASS has no tensor-core instruction")
-    bf16 = [ln for ln in build.sass("dit_block").splitlines() if "HMMA.16816.F32.BF16" in ln]
-    print(f"dit_block SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
-    if not bf16:
-        raise AssertionError("dit_block's SASS has no BF16 MMA: the BF16 route is not built")
+    for name in ("dit_block", "film_resblock"):
+        bf16 = [ln for ln in build.sass(name).splitlines() if "HMMA.16816.F32.BF16" in ln]
+        print(f"{name} SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
+        if not bf16:
+            raise AssertionError(f"{name}'s SASS has no BF16 MMA: the BF16 route is not built")
     x = torch.zeros(1024, device=dev)
     for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
         t0 = time.perf_counter()
@@ -1012,7 +1059,7 @@ def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
         max_abs, max_rel = errors(out, ref)
         worst = max(worst, max_abs)
         rows, smem = lib.film_resblock_block_rows(Cout), lib.film_resblock_smem_bytes(
-            B, H, Cin, Cout, K, G)
+            B, H, Cin, Cout, K, G, 0)
         print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}) "
               f"x{blocks.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
               f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); plan: "
@@ -1038,11 +1085,88 @@ def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
           f"frequent shape {most_frequent}", flush=True)
     ms, plain_ms, _ = timed[most_frequent]
     H, Cin, Cout = most_frequent
-    gbytes = 4 * (B * H * Cin + B * Cout + K * Cin * Cout + K * Cout * Cout
-                  + (Cin + 1) * Cout * (Cin != Cout) + 6 * Cout + B * H * Cout) / 1e9
     record = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-              **bound(film_gflop(B, H, Cin, Cout, K) / TF32X3_TFLOPS, gbytes)}
+              **bound(film_gflop(B, H, Cin, Cout, K) / TF32X3_TFLOPS,
+                      film_gbytes(B, H, Cin, Cout, K))}
     return record
+
+
+def film_gbytes(B, H, Cin, Cout, K, x_bytes: int = 4, w_bytes: int = 4, out_bytes: int = 4):
+    """x and emb read, out written, the weights, biases and affine read,
+    once each; x of `x_bytes`, emb and out f32 or `out_bytes`, weights of
+    `w_bytes`."""
+    skip = (Cin + 1) * Cout * (Cin != Cout)
+    return (x_bytes * B * H * Cin + 4 * B * Cout + out_bytes * B * H * Cout
+            + w_bytes * (K * Cin * Cout + K * Cout * Cout + skip + 6 * Cout)) / 1e9
+
+
+def check_film_kernel_bf16(dev, blocks=UNET_BLOCKS) -> dict:
+    """K3's BF16 route against its plain version at every distinct block
+    shape of the shipped U-Net at B = 3200, with the operands the bf16 U-Net
+    hands it (BF16 weights, biases and affine; the first block's x BF16, as
+    the engine casts it, with the f32 FiLM term; every later block's x
+    f32): error within BF16_ATOL / BF16_RTOL (and the share of that limit
+    read), the route's time beside the f32 route's (on the f32 weights) and
+    the plain version's, one CUDA graph each, in turns; TFLOP/s and the
+    share of the BF16 bound; the sums over the net's 16 blocks. Returns the
+    record at the most frequent shape."""
+    phase("film_resblock BF16 route vs plain version (mujoco U-Net)")
+    B, K, G = 3200, 5, 8
+    lib = load_film_resblock_library()
+    smem_limit = lib.film_resblock_max_smem_optin(dev.index or 0)
+    rng = np.random.default_rng(SEED + 12)
+    worst, timed, shares = 0.0, {}, []
+    shapes = list(dict.fromkeys(blocks))
+    most_frequent = max(shapes, key=blocks.count)
+    kw = dict(K=K, groups=G, eps=1e-6)
+    for i, (H, Cin, Cout) in enumerate(shapes):
+        args = film_args(rng, dev, B, H, Cin, Cout, K)
+        wb = [a.to(torch.bfloat16) for a in args[2:]]
+        x = args[0].to(torch.bfloat16) if i == 0 else args[0]  # the first block's x is bf16
+        out = fused_film_resblock_bf16(x, args[1], *wb, **kw)
+        ref = film_resblock_reference(x, args[1], *wb, **kw)
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or ref.dtype != torch.float32:
+            raise AssertionError(f"the BF16 route returned {out.dtype} for {x.dtype} x and "
+                                 f"f32 emb (plain: {ref.dtype})")
+        max_abs, max_rel = errors(out, ref)
+        worst = max(worst, max_abs)
+        used = ((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max().item()
+        smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, G, 1)
+        print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}, x "
+              f"{str(x.dtype)[6:]}) x{blocks.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
+              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); {used:.1%} "
+              f"of the limit ({BF16_ATOL} abs + {BF16_RTOL} rel); {smem} B of shared memory "
+              f"(device limit {smem_limit})", flush=True)
+        torch.testing.assert_close(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL)
+        if not 0 < smem <= smem_limit:
+            raise AssertionError(f"film_resblock_smem_bytes {smem} outside (0, {smem_limit}]")
+        med, times = time_in_turns(
+            {"plain": lambda: film_resblock_reference(x, args[1], *wb, **kw),
+             "bf16": lambda: fused_film_resblock_bf16(x, args[1], *wb, **kw),
+             "f32": lambda: fused_film_resblock(*args, **kw)}, 20)
+        timed[(H, Cin, Cout)] = med
+        gf = film_gflop(B, H, Cin, Cout, K)
+        b = bound(gf / BF16_TFLOPS, film_gbytes(B, H, Cin, Cout, K, x.element_size(), 2))
+        shares.append(b["bound_ms"] / med["bf16"])
+        print(f"  device time per block: BF16 route {med['bf16']:.4f} ms, f32 route "
+              f"{med['f32']:.4f} ms, plain {med['plain']:.4f} ms ({gf:.3f} GFLOP: "
+              f"{gf / med['bf16']:.2f} / {gf / med['f32']:.2f} / {gf / med['plain']:.2f} "
+              f"TFLOP/s); BF16 bound {b['bound_ms']:.4f} ms by {b['bound_by']} (at "
+              f"{BF16_TFLOPS:.0f} TFLOP/s): BF16 route at {shares[-1]:.1%} of it (runs {times})",
+              flush=True)
+    total = {k: sum(timed[s_][k] for s_ in blocks) for k in ("bf16", "f32", "plain")}
+    gf = sum(film_gflop(B, *s_, K) for s_ in blocks)
+    print(f"sum over the {len(blocks)} blocks of one U-Net call ({gf:.2f} GFLOP; BF16 bound of "
+          f"the flops {gf / BF16_TFLOPS:.4f} ms): BF16 route {total['bf16']:.4f} ms "
+          f"({gf / total['bf16']:.2f} TFLOP/s, {gf / BF16_TFLOPS / total['bf16']:.1%} of the "
+          f"bound), f32 route {total['f32']:.4f} ms, plain {total['plain']:.4f} ms; most "
+          f"frequent shape {most_frequent}", flush=True)
+    H, Cin, Cout = most_frequent
+    med = timed[most_frequent]
+    return {"max_abs_err": worst, "ms": med["bf16"], "plain_ms": med["plain"],
+            **bound(film_gflop(B, H, Cin, Cout, K) / BF16_TFLOPS,
+                    film_gbytes(B, H, Cin, Cout, K, 4, 2))}
 
 
 def check_solver_kernel(dev) -> dict:
@@ -2021,6 +2145,168 @@ def check_diffuser_cli(dev) -> dict:
         raise AssertionError(f"serving ckpt_latest launched K3 {serve} times, K2 {serve_k2}")
     return {"film_resblock": {"diffuser_train": k3, "diffuser_serve": serve},
             "solver_update": {"diffuser_train": k2, "diffuser_serve": serve_k2}}
+
+
+def check_diffuser_cli_bf16(dev) -> dict:
+    """The Diffuser CLI with `bf16_sampling=true bf16_training=true` on the
+    shipped config (50 envs x 64 candidates, 20 ddpm steps, model_dim 32):
+    `mode=train` through K3's BF16 route (16 launches per step, the f32
+    route none), then its `ckpt_latest` served in bf16 (320 BF16-route
+    launches per plan) beside the same requests in f32 (latency, and the
+    device's busy time and idle share of one request each under the
+    profiler); one plan's every candidate in bf16 against f32 with the same
+    weights and noise within BF16_PLAN_MAX / BF16_PLAN_MEAN of scale, and a
+    training loss in bf16 against f32 (same batch and draws) within
+    BF16_LOSS_RTOL. Returns the BF16 route's launches."""
+    phase("Diffuser CLI with bf16_sampling=true bf16_training=true: mode=train, then act from "
+          "ckpt_latest in bf16 and f32")
+    reset_counts()
+    try:
+        args, run, logs, seconds = run_cli(diffuser_d4rl_mujoco, DIFFUSER_BF16_CLI_TRAIN)
+        if not (DiffusionModel.bf16_sampling and DiffusionModel.bf16_training):
+            raise AssertionError("the bf16 config keys did not reach the engines")
+        k3b, k3 = fused_film_resblock_bf16.launches, fused_film_resblock.launches
+        steps = args.diffusion_gradient_steps
+        dataset, pipe = diffuser_d4rl_mujoco.build(args, dev)
+        n_blocks = len(pipe.agent.params["diffusion"].blocks)
+        print(f"{steps} bf16_training steps in {len(logs)} windows of {args.log_interval} at "
+              f"model_dim {args.model_dim}, batch {args.batch_size}: {seconds:.1f} s with set-up "
+              f"and saves; steps/s per window {[lg['steps_per_sec'] for lg in logs]}; BF16 route "
+              f"launches {k3b} (expected {n_blocks} x {steps}), f32 route {k3}", flush=True)
+        if k3b != n_blocks * steps or k3:
+            raise AssertionError(f"bf16 training launched the BF16 route {k3b} times and the "
+                                 f"f32 route {k3} times")
+        check_windows(logs, steps, args.log_interval, "classifier_loss",
+                      args.classifier_gradient_steps)
+        pipe.load(str(run / "ckpt_latest"))
+        obs = dataset.seq_obs[:args.num_envs, 0]
+        K = args.num_candidates
+        reset_counts()
+        lat = cli_requests(pipe, obs, DIFFUSER_CLI_REQUESTS, num_candidates=K)
+        serve, serve_f32 = fused_film_resblock_bf16.launches, fused_film_resblock.launches
+        want = DIFFUSER_CLI_REQUESTS * args.sampling_steps * n_blocks
+        pipe.agent.bf16_sampling = False  # the instance flag hides the class's
+        lat32 = cli_requests(pipe, obs, DIFFUSER_CLI_REQUESTS, num_candidates=K)
+        print(f"{DIFFUSER_CLI_REQUESTS} requests x {args.num_envs} envs x {K} candidates in "
+              f"bf16: latency ms {[round(v, 3) for v in lat]} (the first one cold); the same in "
+              f"f32: {[round(v, 3) for v in lat32]}; BF16 route launches {serve} (expected "
+              f"{want}: {args.sampling_steps * n_blocks} per plan), f32 route {serve_f32}",
+              flush=True)
+        if serve != want or serve_f32:
+            raise AssertionError(f"bf16 planning launched the BF16 route {serve} times and "
+                                 f"the f32 route {serve_f32} times")
+        prof = {}
+        for mode, ms in (("f32", lat32[-1]), ("bf16", lat[-1])):
+            pipe.agent.bf16_sampling = mode == "bf16"
+            prof[mode] = profile_request(lambda: pipe.act(obs, num_candidates=K), ms, ())
+        idle = {m: "not measured" if p["idle_share"] is None else f"{p['idle_share']:.3f}"
+                for m, p in prof.items()}
+        print("one request under the profiler: " + "; ".join(
+            f"{m}: latency {p['median_latency_ms']:.3f} ms, device busy "
+            f"{p['device_busy_ms']:.3f} ms, idle share {idle[m]}" for m, p in prof.items()),
+            flush=True)
+        # one plan, bf16 against f32: every candidate, same weights and noise
+        E, D = obs.shape[0], pipe.obs_dim + pipe.act_dim
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        shape = (K * E, pipe.horizon, D)
+        noise = (torch.randn(shape, generator=gen, device=dev),
+                 torch.randn((pipe.sampling_steps,) + shape, generator=gen, device=dev))
+        plans = {}
+        for mode in ("f32", "bf16"):
+            pipe.agent.bf16_sampling = mode == "bf16"
+            plans[mode] = pipe.act(obs, num_candidates=K, noise=noise)[1]["candidates"]
+        d_max, d_mean, scale = plan_gap(plans["bf16"], plans["f32"])
+        print(f"plan bf16 against f32, all {K * E} candidates: max |diff| / scale {d_max:.3e}, "
+              f"mean {d_mean:.3e} (scale {scale:.3f}; limits {BF16_PLAN_MAX}, "
+              f"{BF16_PLAN_MEAN})", flush=True)
+        if not (d_max < BF16_PLAN_MAX and d_mean < BF16_PLAN_MEAN):
+            raise AssertionError("the bf16 plan is not within bf16 bounds of the f32 plan")
+        # a training loss, bf16 against f32: same batch and draws
+        batch = train_batches(np.random.default_rng(SEED + 13), 1, args.batch_size,
+                              pipe.horizon, pipe.obs_dim, pipe.act_dim, dev, 0.0)[0]
+        x = torch.cat([batch["obs"]["state"], batch["act"]], -1)
+        draws = (torch.randint(0, args.diffusion_steps, (x.shape[0],), generator=gen,
+                               device=dev), torch.randn(x.shape, generator=gen, device=dev), None)
+        losses = {}
+        for mode in ("f32", "bf16"):
+            pipe.agent.bf16_training = mode == "bf16"
+            with torch.no_grad():
+                losses[mode] = float(pipe.agent.loss_fn(pipe.agent.params, x, noise=draws))
+        rel = abs(losses["bf16"] - losses["f32"]) / abs(losses["f32"])
+        print(f"training loss bf16 {losses['bf16']:.6g} against f32 {losses['f32']:.6g}: "
+              f"relative {rel:.3e} (limit {BF16_LOSS_RTOL})", flush=True)
+        if not (losses["bf16"] != losses["f32"] and rel < BF16_LOSS_RTOL):
+            raise AssertionError(f"the bf16 loss is not within {BF16_LOSS_RTOL} of f32")
+        return {"diffuser_bf16_train": k3b, "diffuser_bf16_serve": serve}
+    finally:
+        DiffusionModel.bf16_sampling = DiffusionModel.bf16_training = False
+
+
+def check_bf16_requests(dev) -> dict:
+    """One `bf16_sampling` request each from the DQL CLI's ckpt_latest (the
+    reference's own bf16 gate backbone, `DQLMlp`) and the DP PushT chi_unet
+    CLI's (the Chi U-Net, plain blocks), both trained by their phases: the
+    sampled actions finite and, against the same request in f32 with the
+    same weights and noise, within BF16_PLAN_MEAN of scale on average (the
+    max read only, which the reference's own requests exceed, as the code
+    notes); no kernel launched. Returns the kernels' launches."""
+    phase("bf16_sampling requests: dql_d4rl_mujoco and dp_pusht nn=chi_unet")
+    reset_counts()
+    try:
+        args = shipped_config(dql_d4rl_mujoco, ["bf16_sampling=true"])
+        setup_mesh(args)
+        dataset, dql = dql_d4rl_mujoco.build(args, dev)
+        dql.load(str(CLI_DIR / cli_run_dir(args) / "ckpt_latest.pt"))
+        obs = dataset.obs[:args.num_envs]
+        K = args.num_candidates
+        rows = obs.shape[0] * K
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        noise = (torch.randn((rows, dql.act_dim), generator=gen, device=dev),
+                 torch.randn((args.sampling_steps, rows, dql.act_dim), generator=gen,
+                             device=dev))
+        dpargs = resolve_config_cli(dp_pusht.CONFIG_DIR, "pusht",
+                                    ["nn=chi_unet", "bf16_sampling=true"], nn_key="nn")
+        with in_cli_dir():
+            dpdata, dp = dp_pusht.build(dpargs, dev)
+        dp.load(str(CLI_DIR / imitation_save_dir(dpargs) / "ckpt_latest"))
+        n = dpargs.num_envs
+        nobs = dpdata.gather(torch.arange(n) % len(dpdata))["obs"]["state"][
+            :, :dpargs.obs_steps].cpu().numpy()
+        dp_noise = to_device(request_noise(dp, n), dev)
+        # the max is read only, the mean held: both engines' eps-predicting
+        # 5-step ddpm divides the network's bf16 error by alpha 0.0084 at the
+        # first level before the clip to [-1, 1], and the reference's own
+        # requests at these widths move by up to 0.168 (DQL) and 0.104 (DP)
+        # of scale on seeded weights, the port's alike
+        # (tools/bf16_request_gap.py; tests/test_torch_bf16_sampling.py
+        # `test_dql_served_request_bf16_gap_is_the_references`)
+        cases = {
+            "dql_d4rl_mujoco": (dql.actor, lambda: sample_candidates(
+                dql, obs, K, args.use_ema, args.temperature, None, noise)[1]),
+            "dp_pusht chi_unet": (dp.agent, lambda: dp.act_chunk(nobs, noise=dp_noise))}
+        for label, (engine, request) in cases.items():
+            out = {}
+            for mode in ("f32", "bf16"):
+                engine.bf16_sampling = mode == "bf16"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    out[mode] = request()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                print(f"{label}: one {mode} request of {tuple(out[mode].shape)} in {ms:.1f} ms",
+                      flush=True)
+            d_max, d_mean, scale = plan_gap(out["bf16"], out["f32"])
+            print(f"{label}: bf16 against f32, same weights and noise: max |diff| / scale "
+                  f"{d_max:.3e} (read only), mean {d_mean:.3e} (limit {BF16_PLAN_MEAN}; scale "
+                  f"{scale:.3f})", flush=True)
+            if not (torch.isfinite(out["bf16"]).all() and 0 < d_max
+                    and d_mean < BF16_PLAN_MEAN):
+                raise AssertionError(f"{label}: the bf16 request is not within bf16 bounds "
+                                     f"of the f32 one")
+        return no_kernel_launched("the bf16 requests")
+    finally:
+        DiffusionModel.bf16_sampling = DiffusionModel.bf16_training = False
 
 
 def check_rl_cli(dev, family: str) -> dict:
@@ -3330,6 +3616,8 @@ def check_imitation_cli(dev, cli, nn: str, config: str, act: str) -> dict:
     if name == "dbc_pusht":
         ev_steps = DBC_DIT_EVAL_STEPS if nn == "dit" else DBC_EVAL_STEPS
         evals += (f"max_episode_steps={ev_steps}",)
+    elif name == "dp_pusht":
+        evals += (f"max_episode_steps={DP_EVAL_STEPS}",)
     with timed_calls(pipe_cls, "evaluate_on_device") as ev:
         args, run, logs, seconds = run_cli(
             cli, (*IMITATION_TRAIN, *evals, f"nn={nn}"), imitation_save_dir,
@@ -3564,8 +3852,8 @@ def check_visual_cli(dev, cli, extra: tuple, act: str) -> dict:
     overrides = [*VISUAL_TRAIN, *extra]
     if pusht:
         overrides += ["eval_freq=20", f"dataset_path={IMAGE_DEMOS}"]
-        if name.startswith("dbc"):
-            overrides.append(f"max_episode_steps={VISUAL_DBC_EVAL_STEPS}")
+        overrides.append(f"max_episode_steps="
+                         f"{VISUAL_DBC_EVAL_STEPS if name.startswith('dbc') else DP_EVAL_STEPS}")
     with timed_calls(pipe_cls, "evaluate_on_device") as ev:
         args, run, logs, seconds = run_cli(cli, overrides, imitation_save_dir,
                                            lambda c, o: c.config(o))
@@ -3620,6 +3908,7 @@ def main() -> int:
     k1 = check_kernel(dev)
     k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
+    k3_bf16 = check_film_kernel_bf16(dev)
     check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze")
     k2 = check_solver_kernel(dev)
     k1_launches = check_slice(dev)
@@ -3636,6 +3925,8 @@ def main() -> int:
     check_goal2d(dev)
     cache_cli_data()
     cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
+    # the slice's main path: the bf16 Diffuser CLI through K3's BF16 route
+    cli["film_resblock_bf16"] = check_diffuser_cli_bf16(dev)
     for suite in ("antmaze", "kitchen"):
         cli["dit_block"].update(check_dd_suite_cli(dev, suite))
     for suite in ("antmaze", "kitchen"):
@@ -3680,6 +3971,8 @@ def main() -> int:
         key = "_".join([cli_mod.__name__.rsplit(".", 1)[-1], *(
             e.split("=")[-1] for e in extra)])
         imitation[key] = check_visual_cli(dev, cli_mod, extra, act)
+    # bf16 requests on the MLP and Chi U-Net backbones (plain blocks)
+    imitation["bf16_requests"] = check_bf16_requests(dev)
     print(f"[chip_smoke] total {time.perf_counter() - T_START:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
@@ -3704,6 +3997,12 @@ def main() -> int:
                k1_bf16),
         record("film_resblock", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",
                "cleandiffuser_tpu/ops/film_resblock.py:159", k3_launches, k3_train, k3),
+        # the same TPU kernel with bf16 weights: the launches of the bf16
+        # Diffuser CLI's requests and of its training steps
+        record("film_resblock_bf16", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",
+               "cleandiffuser_tpu/ops/film_resblock.py:159",
+               cli["film_resblock_bf16"]["diffuser_bf16_serve"],
+               cli["film_resblock_bf16"]["diffuser_bf16_train"], k3_bf16),
         # a sampler step: the training steps read 0 (and fail otherwise)
         record("solver_update", "triton", "cleandiffuser_tpu_torch/ops/solver_update.py",
                "cleandiffuser_tpu/ops/solver_update.py:75", k2_launches,

@@ -22,8 +22,11 @@ input and condition embedding cast to bf16, and its prediction is cast back
 to f32, so solver and loss math stay f32. In training the cast is
 differentiable (`torch.func.functional_call` on `bf16_cast`), so the
 gradients arrive f32 at the f32 master weights; optimizer state and EMA
-stay f32. Ported for `DiT1d` backbones, whose blocks run K1's BF16 route on
-the card; another backbone with a flag set raises.
+stay f32. Every backbone takes both flags: its layers promote as flax's do
+(utils/blocks.py), so t (f32 or integer) keeps the time embedding f32 and
+each activation has the type the reference gives it. On the card the DiT's
+blocks run K1's BF16 route and the Janner U-Net's K3's: a fused block with
+bf16 weights launches its kernel's BF16 route or raises.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ import torch
 import torch.nn as nn
 
 from ..nn_condition.base import IdentityCondition
-from ..nn_diffusion.dit import DiT1d
 from ..utils.jax_params import load_agent_moments, load_agent_params
 from ..utils.tensors import default_device
 from ..utils.train_state import (
@@ -139,13 +141,6 @@ class DiffusionModel:
             if train and getattr(net, "dropout", 0.0):
                 return net(x, t, emb, train=True, generator=generator)
             return net(x, t, emb)
-        if not isinstance(net, DiT1d):
-            # the reference runs XLA in bf16 here; the port's other
-            # backbones run f32-only kernels (K3), and a quiet switch to
-            # their plain blocks would be a fallback
-            raise NotImplementedError(
-                f"bf16_sampling / bf16_training are ported for DiT1d backbones only, not "
-                f"{type(net).__name__} (ROADMAP queue 1: bf16 for the Janner U-Net)")
         x = x.to(torch.bfloat16)
         emb = None if emb is None else emb.to(torch.bfloat16)
         if _is_bf16(net):
@@ -176,19 +171,29 @@ class DiffusionModel:
             return net(params, xt, t, None)
         raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
 
-    def bf16_params(self, params: nn.ModuleDict) -> nn.ModuleDict:
-        """`params` (backbone and condition) cast to bf16: the sampler's
-        once-per-call cast. The bf16 copy is made at the first call for
-        these params and refilled by one foreach copy (rounding to nearest
-        even, as the reference's `astype`) at every later one."""
-        copy_ = self._bf16_copies.get(params)
-        if copy_ is None:
-            copy_ = copy.deepcopy(params).to(torch.bfloat16).requires_grad_(False)
-            self._bf16_copies[params] = copy_
+    def bf16_params(self, params: nn.ModuleDict, condition: bool = True) -> nn.ModuleDict:
+        """`params` cast to bf16 for a sampler's call: the backbone and, with
+        `condition`, the condition too (the SDE sampler casts the whole tree,
+        as the reference's does); without it the condition stays `params`'
+        own (the EDM, Karras-ODE, rectified-flow and consistency samplers
+        cast `params["diffusion"]` alone, as the reference's do). The bf16
+        copy is made at the first call for these params and refilled by one
+        foreach copy (rounding to nearest even, as the reference's
+        `astype`) at every later one."""
+        view = self._bf16_copies.get((params, condition))
+        if view is None:
+            cast = lambda m: copy.deepcopy(m).to(torch.bfloat16).requires_grad_(False)
+            view = nn.ModuleDict({
+                "diffusion": cast(params["diffusion"]),
+                "condition": cast(params["condition"]) if condition else params["condition"]})
+            self._bf16_copies[(params, condition)] = view
         floating = lambda m: [t for t in (*m.parameters(), *m.buffers()) if t.is_floating_point()]
+        dst, src = floating(view["diffusion"]), floating(params["diffusion"])
+        if condition:
+            dst, src = dst + floating(view["condition"]), src + floating(params["condition"])
         with torch.no_grad():
-            torch._foreach_copy_(floating(copy_), floating(params))
-        return copy_
+            torch._foreach_copy_(dst, src)
+        return view
 
     # ------------------------------------------------------------------
     # Training

@@ -311,7 +311,7 @@ class ContinuousConsistencyModel(DiffusionModel):
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None):
             del w_cfg
             if self.bf16_sampling:
-                params = self.bf16_params(params)
+                params = self.bf16_params(params, condition=False)
 
             def draw(n):
                 if noise is not None:

@@ -217,7 +217,7 @@ class ContinuousEDM(DiffusionModel):
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None, cls_params=None,
                condition_cg=None, w_cg: float = 0.0, warm_reference=None):
             if self.bf16_sampling:
-                params = self.bf16_params(params)
+                params = self.bf16_params(params, condition=False)
             draw = noise if noise is not None else torch.randn(
                 prior.shape, generator=generator, device=prior.device)
             if warm_start and warm_reference is not None:

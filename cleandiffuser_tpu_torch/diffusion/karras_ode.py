@@ -114,7 +114,7 @@ class KarrasODE(ContinuousEDM):
                condition_cg=None, w_cg: float = 0.0, warm_reference=None):
             del warm_reference
             if self.bf16_sampling:
-                params = self.bf16_params(params)
+                params = self.bf16_params(params, condition=False)
             draw = noise if noise is not None else torch.randn(
                 prior.shape, generator=generator, device=prior.device)
             xt = self.pin(draw * float(sigma_s[0]) * float(scale_s[0]) * temperature, prior)

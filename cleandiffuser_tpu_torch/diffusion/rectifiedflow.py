@@ -155,7 +155,7 @@ class _BaseRectifiedFlow(DiffusionModel):
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None, warm_reference=None,
                x1=None):
             if self.bf16_sampling:
-                params = self.bf16_params(params)
+                params = self.bf16_params(params, condition=False)
             draw = lambda: noise if noise is not None else torch.randn(
                 prior.shape, generator=generator, device=prior.device)
             if warm_start and warm_reference is not None:

@@ -10,6 +10,10 @@
   tests replay the reference's draws.
 - At sampling time (train=False) the mask defaults to all-ones, or the
   caller-passed `mask`.
+
+Under `bf16_sampling` the SDE sampler casts the condition's params too (the
+other samplers leave them f32, as the reference's do): its f32 input then
+runs f32 math on the bf16-rounded weights (utils/blocks.py promotion).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.blocks import dense
+from ..utils.blocks import dense, leaky_relu
 from ..utils.tensors import at_least_ndim
 
 __all__ = ["BaseNNCondition", "IdentityCondition", "MLPCondition", "PearceObsCondition"]
@@ -95,7 +99,7 @@ class PearceObsCondition(BaseNNCondition):
 
     def forward(self, obs, mask=None, train: bool = False, generator=None):
         m = self.get_mask(obs, mask, train, generator)
-        h = self.dense2(F.leaky_relu(self.dense1(obs), 0.01))
+        h = self.dense2(leaky_relu(self.dense1(obs), 0.01))
         if self.flatten:
             h = h.reshape(h.shape[0], -1)
         return self._apply_mask(h, m)

@@ -28,6 +28,13 @@ one-hot matrices. In training, `MultiImageObsCondition` crops every rgb
 key at random, with the offsets in `condition[CROP_KEY][key]` when the
 caller gives them; at sampling it crops the centre.
 
+Under a bf16 cast of the params (the SDE sampler's `bf16_sampling` casts
+the condition's too) the frames stay f32: the convs, norms, keypoints and
+Dense layers promote as flax's do (utils/blocks.py), so the encoder
+computes in f32 on the BF16-rounded weights, as the reference's does. The
+crop is exact in any type (the reference's one-hot product in the image's
+type selects one element per output, as the gather does).
+
 Parameters carry across from the JAX package (utils/jax_params.py): a
 conv's torch weight (Cout, Cin, KH, KW) is flax's kernel (KH, KW, Cin,
 Cout) transposed; the children take flax's auto names (`ResNet18_<i>` per
@@ -44,7 +51,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.blocks import dense, lecun_normal_init
+from ..utils.blocks import dense, lecun_normal_init, promote, promoted_norm, silu
 from .base import BaseNNCondition
 
 __all__ = ["ResNet18", "SpatialSoftmax", "MultiImageObsCondition", "random_crop",
@@ -54,11 +61,19 @@ __all__ = ["ResNet18", "SpatialSoftmax", "MultiImageObsCondition", "random_crop"
 CROP_KEY = "crop_offsets"
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` without bias that promotes input and weight to their
+    common type, as flax's `nn.Conv` does."""
+
+    def forward(self, x):
+        return self._conv_forward(*promote(x, self.weight), None)
+
+
 def conv2d(in_channel: int, out_channel: int, kernel: int, stride: int = 1, padding: int = 0,
-           generator: Optional[torch.Generator] = None) -> nn.Conv2d:
+           generator: Optional[torch.Generator] = None) -> Conv2d:
     """A conv without bias, initialised as flax's `nn.Conv` (LeCun normal
     over the fan-in KH * KW * Cin)."""
-    layer = nn.utils.skip_init(nn.Conv2d, in_channel, out_channel, kernel, stride=stride,
+    layer = nn.utils.skip_init(Conv2d, in_channel, out_channel, kernel, stride=stride,
                                padding=padding, bias=False)
     lecun_normal_init(layer.weight, generator, fan_in=kernel * kernel * in_channel)
     return layer
@@ -74,7 +89,8 @@ class GroupNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return F.group_norm(x, self.groups, self.scale, self.bias, self.eps)
+        return promoted_norm(lambda x, s, b: F.group_norm(x, self.groups, s, b, self.eps),
+                             x, self.scale, self.bias)
 
 
 def _gn(channels: int, group_channels: int = 16) -> GroupNorm2d:
@@ -161,7 +177,7 @@ class ResNet18(nn.Module):
         for block in self.blocks:
             x = block(x)
         feat = self.softmax(x).reshape(x.shape[0], -1)
-        return self.dense2(F.silu(self.dense1(feat)))
+        return self.dense2(silu(self.dense1(feat)))
 
 
 def random_crop(img, crop_h: int, crop_w: int, generator: Optional[torch.Generator] = None,
@@ -243,7 +259,7 @@ class MultiImageObsCondition(BaseNNCondition):
         for key in self.low_dim_keys:
             x, b = self._frames(condition[key])
             feats.append(x.reshape(x.shape[0], -1))
-        h = self.dense2(F.silu(self.dense1(torch.cat(feats, -1))))
+        h = self.dense2(silu(self.dense1(torch.cat(feats, -1))))
         if self.use_seq:
             h = h.reshape(b, -1, self.emb_dim)
             if not self.keep_horizon_dims:

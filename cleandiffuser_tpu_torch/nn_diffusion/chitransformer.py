@@ -18,6 +18,11 @@ cross-attention, then the MLP.
 The attention is flax's `MultiHeadDotProductAttention` (utils/blocks.py:
 q, k, v kernels (D, heads, head_dim), normal(0.02) init), and children
 carry flax's names, so utils/jax_params.py maps the JAX param tree on.
+
+Under the engines' bf16 flags the action tokens are bf16 until the first
+cross-attention, whose f32 memory (the f32 time token promotes it) makes
+them f32: the first decoder layer's norm and self-attention (its softmax in
+bf16, rounded as flax's) run bf16, the rest f32 on bf16-rounded weights.
 """
 
 from __future__ import annotations

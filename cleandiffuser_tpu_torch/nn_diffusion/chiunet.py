@@ -10,6 +10,11 @@ added at the first down and the last up stage. The residual block is the
 module's own (GroupNorm with min(8, C // 4) groups at flax's eps 1e-6, FiLM
 scale and bias): it is not the Janner block, so no kernel runs here.
 
+Under the engines' bf16 flags (bf16 params, x and the condition cast to
+bf16, t f32) the layers promote as flax's do (utils/blocks.py): the first
+block's conv, norm and Mish run bf16, its FiLM term (from the f32 time
+embedding) makes the rest f32 on bf16-rounded weights, as in the reference.
+
 Children carry flax's names (`ChiResidualBlock_i` in the order the JAX
 module creates them, `Downsample1d_i`, `Upsample1d_i`, `Dense_i`, `Conv_i`,
 `GroupNorm_0`), so utils/jax_params.py maps the JAX param tree onto them.

@@ -12,6 +12,15 @@ With `use_pallas_block=True` (the name DiT1d uses for the same switch)
 every `ResidualBlock1d` runs through `film_resblock_op`: the fused Hopper
 kernel for a CUDA tensor, the plain version for a CPU tensor. The FiLM
 projection `Dense(mish(emb))` stays a torch op in front of it.
+
+bf16 (the engines' `bf16_sampling` / `bf16_training`: x and the condition
+embedding cast to bf16, t f32, the params a bf16 copy): every layer
+promotes as flax's does (utils/blocks.py). So the time embedding and its
+MLP stay f32 on bf16-rounded weights; the first block runs its first conv,
+norm and Mish and its skip in bf16, and its FiLM add (f32 + bf16) returns
+f32; from there on every activation is f32 on bf16-rounded weights, as in
+the reference. A fused block with bf16 weights runs the kernel's BF16 route
+(`ops/film_resblock.py`), never the f32 one and never the plain block.
 """
 
 from __future__ import annotations
@@ -21,9 +30,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.film_resblock import film_resblock_op
-from ..utils.blocks import Conv1d, GroupNorm, LayerNorm, dense, lecun_normal_init
+from ..utils.blocks import (Conv1d, Dense, GroupNorm, LayerNorm, below_f32, dense,
+                            lecun_normal_init, promote)
 from ..utils.embeddings import mish
 from .base import timestep_embedding_module
 
@@ -79,7 +90,10 @@ class Upsample1d(nn.Module):
             self.conv.bias.zero_()
 
     def forward(self, x):
-        return self.conv(x.transpose(1, 2)).transpose(1, 2)
+        x, w, b = promote(x, self.conv.weight, self.conv.bias)
+        if below_f32(x.dtype):  # flax's order: the product rounded, then the bias
+            return F.conv_transpose1d(x.transpose(1, 2), w, None, 2, 1).transpose(1, 2) + b
+        return F.conv_transpose1d(x.transpose(1, 2), w, b, 2, 1).transpose(1, 2)
 
 
 class ResidualBlock1d(nn.Module):
@@ -134,7 +148,7 @@ class LinearAttention(nn.Module):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
         self.norm = LayerNorm(dim)
-        self.qkv = nn.utils.skip_init(nn.Linear, dim, 3 * heads * dim_head, bias=False)
+        self.qkv = nn.utils.skip_init(Dense, dim, 3 * heads * dim_head, bias=False)
         with torch.no_grad():
             lecun_normal_init(self.qkv.weight, generator)
         self.out = dense(heads * dim_head, dim, generator=generator)

@@ -14,6 +14,11 @@ trees onto them. `IDQLMlp`'s dropout runs only with `train=True`, its keep
 mask drawn from the explicit generator (flax's `Dropout`: keep with
 probability 1 - p, kept entries scaled by 1 / (1 - p)).
 
+Under the engines' bf16 flags the time embedding of the f32 (or integer)
+t stays f32, and the concatenation [x, time, obs] promotes the bf16 x and
+condition to f32, so the trunk runs f32 on bf16-rounded weights, as the
+reference's does (utils/blocks.py `Dense`, `layer_norm`).
+
 `IDQLMlp` is also SynthER's backbone, over flat transitions with
 `obs_dim=0`. `MlpNNDiffusion` belongs to ROADMAP queue 1, item 9 (modules no
 pipeline uses).

@@ -12,6 +12,11 @@ four encoder blocks of multi-head attention with /1.414 residuals and a
 BatchNorm over (batch, tokens) per feature, then a Dense over the flattened
 tokens.
 
+Under the engines' bf16 flags the action embedding runs bf16 (its leaky
+ReLU rounded as flax's, utils/blocks.py `leaky_relu`); the position inputs
+and the raw time stay f32, as the reference's (`t` cast to f32), so from the
+first concatenation on everything is f32 on bf16-rounded weights.
+
 `_TokenBatchNorm` normalises with the current batch's statistics in
 training and in sampling alike: the JAX module keeps no running statistics
 (a logged reference quirk, ROADMAP queue 3), and the port reproduces it.
@@ -28,7 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.blocks import dense
+from ..utils.blocks import dense, leaky_relu, promoted_norm
 from .base import timestep_embedding_module
 
 __all__ = ["PearceMlp", "PearceTransformer", "TimeSiren", "FCBlock"]
@@ -50,7 +55,7 @@ class TimeSiren(nn.Module):
         self.dense2 = dense(emb_dim, emb_dim, generator=generator)
 
     def forward(self, x):
-        return self.dense2(torch.sin(F.linear(x, self.dense1.weight)))
+        return self.dense2(torch.sin(self.dense1(x)))
 
 
 class _GroupNorm(nn.Module):
@@ -63,7 +68,8 @@ class _GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return F.group_norm(x, self.groups, self.scale, self.bias, self.eps)
+        return promoted_norm(lambda x, s, b: F.group_norm(x, self.groups, s, b, self.eps),
+                             x, self.scale, self.bias)
 
 
 class FCBlock(nn.Module):
@@ -105,7 +111,7 @@ class PearceMlp(nn.Module):
                           "out": "Dense_2"}
 
     def forward(self, x, t, emb=None):
-        x_e = self.x_dense2(F.leaky_relu(self.x_dense1(x), 0.01))
+        x_e = self.x_dense2(leaky_relu(self.x_dense1(x), 0.01))
         t_e = self.t_emb(t)
         t_raw = t[:, None].to(torch.float32)
         if emb is None:
@@ -195,12 +201,15 @@ class PearceTransformer(nn.Module):
         if emb is None:
             emb = torch.zeros((x.shape[0], self.To, self.emb_dim), dtype=x.dtype,
                               device=x.device)
-        x_e = self.x_dense2(F.leaky_relu(self.x_dense1(x), 0.01))
+        x_e = self.x_dense2(leaky_relu(self.x_dense1(x), 0.01))
         t_e = self.t_emb(t)
-        one = torch.ones((1, 1), dtype=x.dtype, device=x.device)
+        # the reference's position inputs are float32 (float64 where x is):
+        # under a bf16 cast the positions stay f32 on bf16-rounded weights
+        pos_dtype = torch.promote_types(x.dtype, torch.float32)
+        one = torch.ones((1, 1), dtype=pos_dtype, device=x.device)
         x_in = self.x_in(x_e) + self.pos(one)
         t_in = self.t_in(t_e) + self.pos(one * 2.0)
-        frames = torch.arange(3, 3 + self.To, dtype=x.dtype, device=x.device)
+        frames = torch.arange(3, 3 + self.To, dtype=pos_dtype, device=x.device)
         c_in = self.c_in(emb) + self.pos(frames[None, :, None])
         f = torch.cat([x_in[:, None], t_in[:, None], c_in], dim=1)
         for block in self.blocks:

@@ -10,6 +10,10 @@ block stays at the last width, and the up path concatenates the down
 path's outputs before each block. Children carry the flax names
 (`Dense_i`, `_DenseResBlock_i`), so utils/jax_params.py maps the JAX
 params onto them.
+
+Under the engines' bf16 flags the first block's Dense and SiLU run bf16
+(SiLU rounded as flax's, utils/blocks.py `silu`) until the f32 condition
+term makes them f32 on bf16-rounded weights, as in the reference.
 """
 
 from __future__ import annotations
@@ -18,9 +22,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..utils.blocks import dense
+from ..utils.blocks import dense, silu
 from .base import timestep_embedding_module
 
 __all__ = ["SfBCUNet"]
@@ -38,8 +41,8 @@ class _DenseResBlock(nn.Module):
         self.skip = dense(in_dim, out_dim, generator=generator) if in_dim != out_dim else None
 
     def forward(self, x, c):
-        h = F.silu(self.dense1(x)) + self.cond(c)
-        h = F.silu(self.dense2(h))
+        h = silu(self.dense1(x)) + self.cond(c)
+        h = silu(self.dense2(h))
         return h + (self.skip(x) if self.skip is not None else x)
 
 
@@ -68,7 +71,7 @@ class SfBCUNet(nn.Module):
                           "cond2": "Dense_1", "blocks": "_DenseResBlock_{}", "out": "Dense_2"}
 
     def forward(self, x, t, emb=None):
-        c = self.cond2(F.silu(self.cond1(self.time_emb(t))))
+        c = self.cond2(silu(self.cond1(self.time_emb(t))))
         if emb is not None:
             c = c + emb
         c = c[:, None, :] if x.ndim == 3 else c

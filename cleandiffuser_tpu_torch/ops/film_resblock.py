@@ -18,21 +18,42 @@ Its eps is an argument: the TPU kernel hard-codes 1e-5, while the flax
 the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout): the kernel
 stages them into shared memory as they are stored.
 
-The kernel runs both convs and the skip as implicit GEMMs on the tensor
-cores (`mma.sync` TF32) in 3xTF32: every operand is split inside the
-kernel into a TF32 high part and a TF32 remainder, and the three leading
-cross products are summed in f32, which keeps f32-class accuracy. A thread
-block owns the output rows of whole samples (64 rows, 32 when Cout > 256)
-and every output channel; the source note says what bounds it on the card
-and how the design answers that. So the kernel takes Cout a multiple of 8
-and of groups, at most 512, and H dividing the block's rows.
+Two routes, each with its wrapper and launch count, chosen by the weights'
+type (`kernel_route` admits exactly these):
+
+- `fused_film_resblock`: everything float32. Both convs and the skip run
+  as implicit GEMMs on the tensor cores (`mma.sync` TF32) in 3xTF32: every
+  operand is split inside the kernel into a TF32 high part and a TF32
+  remainder, and the three leading cross products are summed in f32, which
+  keeps f32-class accuracy.
+- `fused_film_resblock_bf16`: BF16 weights, biases and GroupNorm affine
+  (the U-Net's copy under `bf16_sampling` / `bf16_training`), with x and
+  emb each f32 or BF16; the products in BF16 on `mma.sync` with f32
+  accumulation (the f32 activations rounded to BF16 at the MMA's input),
+  GroupNorm statistics, Mish, FiLM and the residual in f32. The output is
+  BF16 when x and emb both are, else f32: the promoted type of the
+  operands, which the flax block returns.
+
+A thread block owns the output rows of whole samples (64 rows, 32 when
+Cout > 256) and every output channel; the source note says what bounds it
+on the card and how the design answers that. So the kernel takes Cout a
+multiple of 8 and of groups, at most 512, and H dividing the block's rows.
+
+The plain version `film_resblock_reference` takes the same types and
+promotes as flax's `ResidualBlock1d` does (utils/blocks.py `promote`,
+`conv1d`, `group_norm`; utils/embeddings.py `mish`): with f32 x and emb and
+BF16 weights it is f32 math on the BF16-rounded weights, as the reference
+computes on a CPU; with BF16 x (the U-Net's first block under the bf16
+flags) the first conv, its norm and Mish and the skip run in BF16 as
+flax's layers do, each rounding its result.
 
 Dispatch (`film_resblock_op`): a CPU tensor takes `film_resblock_reference`;
 a CUDA tensor launches the kernel or raises. The kernel has no backward, as
 the TPU kernel has none: `film_resblock_op` differentiates through
-`_FusedFiLMResBlock` (kernel forward, plain-version backward), while a
-direct `fused_film_resblock` call with grad mode on and an input that
-requires grad raises rather than fall back to the plain version.
+`_FusedFiLMResBlock` (kernel forward, plain-version backward, so a
+`bf16_training` step differentiates the BF16 plain version), while a direct
+kernel call with grad mode on and an input that requires grad raises rather
+than fall back to the plain version.
 """
 
 from __future__ import annotations
@@ -42,13 +63,13 @@ import functools
 
 import torch
 
-from ..utils.blocks import conv1d, group_norm
+from ..utils.blocks import conv1d, group_norm, promote
 from ..utils.embeddings import mish
 from .build import load_library
 from .vjp import plain_vjp
 
-__all__ = ["fused_film_resblock", "film_resblock_op", "film_resblock_reference",
-           "load_film_resblock_library"]
+__all__ = ["fused_film_resblock", "fused_film_resblock_bf16", "film_resblock_op",
+           "film_resblock_reference", "kernel_route", "load_film_resblock_library"]
 
 _LIB_NAME = "film_resblock"
 
@@ -57,7 +78,8 @@ def film_resblock_reference(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=No
                             *, K: int, groups: int, film_scale: bool = False,
                             eps: float = 1e-5):
     """Plain PyTorch version of the kernel's math (test oracle, CPU path).
-    x (B, H, Cin); emb (B, Cout) or (B, 2 Cout) with `film_scale`."""
+    x (B, H, Cin); emb (B, Cout) or (B, 2 Cout) with `film_scale`. Each
+    operation promotes its operands as flax's does (module note)."""
     if w1.shape[0] != K or K % 2 == 0:
         raise ValueError(f"w1 {tuple(w1.shape)} must have an odd number K={K} of taps")
     pad = (K // 2, K // 2)
@@ -68,7 +90,12 @@ def film_resblock_reference(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=No
     else:
         h = h + emb[:, None, :]
     h = mish(group_norm(conv1d(h, w2, b2, padding=pad), groups, g2s, g2b, eps))
-    return h + (x if wskip is None else x @ wskip + bskip)
+    if wskip is None:
+        return h + x
+    xs, wskip, bskip = promote(x, wskip, bskip)
+    if xs.dtype == torch.bfloat16:  # flax's conv rounds the product, then adds the bias
+        return h + ((xs @ wskip) + bskip)
+    return h + (xs @ wskip + bskip)
 
 
 # ---------------------------------------------------------------------------
@@ -81,9 +108,11 @@ def load_film_resblock_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.film_resblock_forward_f32.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
     lib.film_resblock_forward_f32.restype = ci
+    lib.film_resblock_forward_bf16.argtypes = [vp] * 13 + [ci] * 9 + [ctypes.c_float, vp]
+    lib.film_resblock_forward_bf16.restype = ci
     lib.film_resblock_block_rows.argtypes = [ci]
     lib.film_resblock_block_rows.restype = ci
-    lib.film_resblock_smem_bytes.argtypes = [ci] * 6
+    lib.film_resblock_smem_bytes.argtypes = [ci] * 7
     lib.film_resblock_smem_bytes.restype = ctypes.c_longlong
     lib.film_resblock_max_smem_optin.argtypes = [ci]
     lib.film_resblock_max_smem_optin.restype = ci
@@ -97,7 +126,24 @@ def _max_smem_optin(lib, device_index: int) -> int:
     return lib.film_resblock_max_smem_optin(device_index)
 
 
-def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
+def kernel_route(x, emb, ws) -> str:
+    """"f32" (every input float32) or "bf16" (BF16 weights, biases and
+    affine; x and emb each float32 or BF16): the types the kernel takes.
+    Raises TypeError on any other."""
+    w_types = {t.dtype for t in ws}
+    act = {x.dtype, emb.dtype}
+    if w_types == {torch.float32} and act == {torch.float32}:
+        return "f32"
+    if w_types == {torch.bfloat16} and act <= {torch.float32, torch.bfloat16}:
+        return "bf16"
+    raise TypeError(
+        "fused_film_resblock takes all float32, or bfloat16 weights, biases and affine with "
+        f"x and emb each float32 or bfloat16; got x {x.dtype}, emb {emb.dtype}, weights "
+        f"{sorted(str(t) for t in w_types)}")
+
+
+def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale) -> str:
+    """Raises on what the kernel does not take; returns the route."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, H, Cin), got {tuple(x.shape)}")
     B, H, Cin = x.shape
@@ -122,11 +168,10 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
     for name, shape in shapes.items():
         if tuple(named[name].shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(named[name].shape)}")
+    route = kernel_route(x, emb, [t for k, t in named.items() if k != "emb"])
     for name, t in (("x", x), *named.items()):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_film_resblock takes float32 only; {name} is {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *named.values())):
@@ -136,7 +181,7 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
     if rows % H:
         raise ValueError(f"H={H} must divide the {rows} output rows of a thread block at "
                          f"Cout={Cout}: a block owns whole samples")
-    smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, groups)
+    smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, groups, int(route == "bf16"))
     if smem < 0:
         raise ValueError(f"the kernel does not take (H={H}, Cin={Cin}, Cout={Cout}, K={K}, "
                          f"groups={groups})")
@@ -144,30 +189,45 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale):
     if smem > limit:
         raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) needs {smem} bytes of shared "
                          f"memory per block; the device allows {limit}")
+    return route
+
+
+def _launch(route_wanted, x, emb, ws, wskip, bskip, K, groups, film_scale, eps):
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_film_resblock runs on CUDA tensors, got {x.device}")
+    lib = load_film_resblock_library()
+    route = _check_kernel_args(lib, x, emb, ws, (wskip, bskip), K, groups, film_scale)
+    if route != route_wanted:
+        other = "fused_film_resblock_bf16" if route == "bf16" else "fused_film_resblock"
+        raise TypeError(f"{route} inputs go to {other}")
+    B, H, Cin = x.shape
+    Cout = ws[0].shape[-1]
+    out_dtype = torch.promote_types(x.dtype, emb.dtype)
+    out = torch.empty((B, H, Cout), device=x.device, dtype=out_dtype)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = (x.data_ptr(), emb.data_ptr(), *(w.data_ptr() for w in ws), ptr(wskip), ptr(bskip),
+            out.data_ptr(), B, H, Cin, Cout, K, groups, int(film_scale))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "f32":
+            err = lib.film_resblock_forward_f32(*args, eps, stream)
+        else:
+            err = lib.film_resblock_forward_bf16(*args, int(x.dtype == torch.bfloat16),
+                                                 int(emb.dtype == torch.bfloat16), eps, stream)
+    if err != 0:
+        raise RuntimeError(f"film_resblock kernel launch failed: "
+                           f"{lib.film_resblock_error_string(err).decode()} ({err})")
+    return out
 
 
 def fused_film_resblock(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
                         *, K: int, groups: int, film_scale: bool = False, eps: float = 1e-5):
-    """Launch the CUDA kernel on the current stream. Returns a new
-    (B, H, Cout) tensor. Raises on any input the kernel does not take, if
-    an input needs a gradient, and if the launch fails."""
-    ws = (w1, b1, g1s, g1b, w2, b2, g2s, g2b)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_film_resblock runs on CUDA tensors, got {x.device}")
-    lib = load_film_resblock_library()
-    _check_kernel_args(lib, x, emb, ws, (wskip, bskip), K, groups, film_scale)
-    B, H, Cin = x.shape
-    Cout = w1.shape[-1]
-    out = torch.empty((B, H, Cout), device=x.device, dtype=x.dtype)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.film_resblock_forward_f32(
-            x.data_ptr(), emb.data_ptr(), *(w.data_ptr() for w in ws), ptr(wskip), ptr(bskip),
-            out.data_ptr(), B, H, Cin, Cout, K, groups, int(film_scale), eps, stream)
-    if err != 0:
-        raise RuntimeError(f"film_resblock kernel launch failed: "
-                           f"{lib.film_resblock_error_string(err).decode()} ({err})")
+    """Launch the f32 route on the current stream. Returns a new (B, H, Cout)
+    tensor. Raises on any input the kernel does not take (a BF16 call goes
+    to `fused_film_resblock_bf16`), if an input needs a gradient, and if the
+    launch fails."""
+    out = _launch("f32", x, emb, (w1, b1, g1s, g1b, w2, b2, g2s, g2b), wskip, bskip, K, groups,
+                  film_scale, eps)
     fused_film_resblock.launches += 1
     return out
 
@@ -175,13 +235,31 @@ def fused_film_resblock(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, 
 fused_film_resblock.launches = 0
 
 
+def fused_film_resblock_bf16(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None,
+                             bskip=None, *, K: int, groups: int, film_scale: bool = False,
+                             eps: float = 1e-5):
+    """Launch the BF16 route on the current stream: BF16 weights, biases and
+    affine; x and emb each f32 or BF16. Returns a new (B, H, Cout) tensor,
+    BF16 when x and emb both are, else f32. Raises as `fused_film_resblock`
+    does (an all-f32 call goes there)."""
+    out = _launch("bf16", x, emb, (w1, b1, g1s, g1b, w2, b2, g2s, g2b), wskip, bskip, K,
+                  groups, film_scale, eps)
+    fused_film_resblock_bf16.launches += 1
+    return out
+
+
+fused_film_resblock_bf16.launches = 0
+
+
 class _FusedFiLMResBlock(torch.autograd.Function):
-    """Kernel forward; backward by autograd through the plain version,
-    recomputed from the saved inputs (ops/vjp.py: the split K1 takes, as
-    the JAX custom VJP of the DiT block does). The kernel itself runs on detached inputs,
-    so a U-Net built with the fused block trains; a direct
-    `fused_film_resblock` call on an input that needs a gradient still
-    raises."""
+    """Kernel forward (the route the weights' type names); backward by
+    autograd through the plain version, recomputed from the saved inputs
+    (ops/vjp.py: the split K1 takes, as the JAX custom VJP of the DiT block
+    does). The kernel itself runs on detached inputs, so a U-Net built with
+    the fused block trains, in f32 or on a bf16 copy of its weights (a BF16
+    input's gradient comes back BF16, for the caller's cast to carry to an
+    f32 master); a direct kernel call on an input that needs a gradient
+    still raises."""
 
     @staticmethod
     def forward(ctx, x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip, config):
@@ -189,7 +267,8 @@ class _FusedFiLMResBlock(torch.autograd.Function):
         ctx.config = config
         args = [None if t is None else t.detach()
                 for t in (x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip)]
-        return fused_film_resblock(*args, **config)
+        kernel = fused_film_resblock if w1.dtype == torch.float32 else fused_film_resblock_bf16
+        return kernel(*args, **config)
 
     @staticmethod
     def backward(ctx, g):

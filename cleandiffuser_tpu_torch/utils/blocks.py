@@ -28,7 +28,12 @@ raises), while `jnp` and flax's `Dense` cast the operands to their common
 type first (`jnp.result_type`: f32 with bf16 is f32, bf16 with bf16 is
 bf16). `promote` does that for the port's layers, so a net whose params
 were cast to bf16 runs as the reference's does under a bf16 cast; on f32
-operands it returns them unchanged.
+operands it returns them unchanged. Below f32, flax's Dense and Conv round
+the product to the common type and then add the bias (two roundings), and
+flax's norms take their statistics and the affine in f32 and round once to
+the promoted type of x, scale and bias; the port's layers do the same. On
+f32 (or f64) operands every layer computes exactly what it computed before
+promotion was added.
 """
 
 from __future__ import annotations
@@ -49,8 +54,13 @@ __all__ = [
     "promote",
     "Dense",
     "dense",
+    "below_f32",
+    "silu",
+    "leaky_relu",
     "conv1d",
     "group_norm",
+    "layer_norm",
+    "promoted_norm",
     "Conv1d",
     "GroupNorm",
     "LayerNorm",
@@ -106,6 +116,27 @@ def promote(*tensors):
     return tuple(t.to(dt) for t in tensors)
 
 
+def below_f32(dtype) -> bool:
+    """A floating type narrower than f32 (bf16, f16): where flax rounds
+    each step's result."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
+def silu(x):
+    """flax's `nn.silu`, x * sigmoid(x): below f32 as XLA computes it on the
+    CPU, x * (1 / (1 + exp(-x))) with each step rounded to x's type; one
+    fused op otherwise."""
+    return x * (1 / (1 + torch.exp(-x))) if below_f32(x.dtype) else F.silu(x)
+
+
+def leaky_relu(x, negative_slope: float = 0.01):
+    """flax's `nn.leaky_relu`: below f32 the slope is rounded to x's type
+    before the product, as jnp's weakly typed scalar is."""
+    if below_f32(x.dtype):
+        return torch.where(x >= 0, x, x * torch.tensor(negative_slope, dtype=x.dtype))
+    return F.leaky_relu(x, negative_slope)
+
+
 class Dense(nn.Linear):
     """`nn.Linear` that promotes input, weight and bias to their common type
     before the product, as flax's `Dense` does. Below f32, flax rounds the
@@ -113,6 +144,8 @@ class Dense(nn.Linear):
     fused `linear` would round once; the f32 path keeps the fused call."""
 
     def forward(self, x):
+        if self.bias is None:
+            return F.linear(*promote(x, self.weight))
         x, w, b = promote(x, self.weight, self.bias)
         if x.dtype == torch.float32:
             return F.linear(x, w, b)
@@ -134,18 +167,45 @@ def dense(in_dim: int, out_dim: int, kernel_init: Init = lecun_normal_init,
 # ---------------------------------------------------------------------------
 # Channels-last layers with flax's parameter layouts
 def conv1d(x, kernel, bias, stride: int = 1, padding: Tuple[int, int] = (0, 0)):
-    """flax `nn.Conv` on (b, L, Cin) with kernel (K, Cin, Cout): (b, L', Cout)."""
+    """flax `nn.Conv` on (b, L, Cin) with kernel (K, Cin, Cout): (b, L', Cout),
+    in the operands' common type."""
+    x, kernel, bias = promote(x, kernel, bias)
     lo, hi = padding
     xc = x.transpose(1, 2)
     if lo != hi:
         xc, lo = F.pad(xc, (lo, hi)), 0
+    if below_f32(x.dtype):  # the product rounded, then the bias added
+        out = F.conv1d(xc, kernel.permute(2, 1, 0), None, stride=stride, padding=lo)
+        return out.transpose(1, 2) + bias
     return F.conv1d(xc, kernel.permute(2, 1, 0), bias, stride=stride, padding=lo).transpose(1, 2)
+
+
+def promoted_norm(norm, x, scale, bias):
+    """`norm(x, scale, bias)` as flax's norms compute it: in at least f32,
+    the result in the promoted type of x, scale and bias (either may be
+    None)."""
+    params = [t for t in (scale, bias) if t is not None]
+    if all(t.dtype == x.dtype for t in params) and not below_f32(x.dtype):
+        return norm(x, scale, bias)
+    out_dt = promote(x, *params)[0].dtype
+    wide = torch.promote_types(out_dt, torch.float32)
+    up = lambda t: None if t is None else t.to(wide)
+    return norm(x.to(wide), up(scale), up(bias)).to(out_dt)
 
 
 def group_norm(x, groups: int, scale, bias, eps: float):
     """GroupNorm of (b, L, C) per sample over (L, C/groups), then the
-    per-channel affine."""
-    return F.group_norm(x.transpose(1, 2), groups, scale, bias, eps).transpose(1, 2)
+    per-channel affine; promoted as flax's (module note)."""
+    return promoted_norm(
+        lambda x, s, b: F.group_norm(x.transpose(1, 2), groups, s, b, eps).transpose(1, 2),
+        x, scale, bias)
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm over the last axis with an optional affine; promoted as
+    flax's (module note)."""
+    return promoted_norm(lambda x, s, b: F.layer_norm(x, x.shape[-1:], s, b, eps),
+                          x, scale, bias)
 
 
 class Conv1d(nn.Module):
@@ -192,7 +252,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
+        return layer_norm(x, self.scale, self.bias, self.eps)
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +378,14 @@ def _dense_general(in_dim: int, out_dim: int, kernel_shape, bias_shape,
     return layer
 
 
+def _softmax_rounded(x):
+    """`jax.nn.softmax` over the last axis below f32, each step rounded to
+    x's type as jnp's are: exp(x - max), over its sum (taken in f32 and
+    rounded)."""
+    u = torch.exp(x - x.amax(-1, keepdim=True))
+    return u / u.sum(-1, keepdim=True)
+
+
 class _MultiHeadAttention(nn.Module):
     """flax `nn.MultiHeadDotProductAttention(num_heads, qkv_features=D)` on
     (b, L, D): softmax(q k^T / sqrt(head_dim)) v per head, heads
@@ -344,20 +412,27 @@ class _MultiHeadAttention(nn.Module):
         b, L, D = x.shape
         kv = x if kv is None else kv
         heads = lambda h: h.view(b, h.shape[1], self.n_heads, D // self.n_heads)
-        q, k, v = heads(self.query(x)), heads(self.key(kv)), heads(self.value(kv))
-        q = q / math.sqrt(D // self.n_heads)
+        # flax promotes q, k and v to their common type (a bf16 query on an
+        # f32 memory runs f32)
+        q, k, v = promote(heads(self.query(x)), heads(self.key(kv)), heads(self.value(kv)))
+        low = below_f32(q.dtype)
+        if low:  # flax divides by sqrt(depth) rounded to the type, then rounds
+            q = q / torch.tensor(math.sqrt(D // self.n_heads), dtype=q.dtype)
+        else:
+            q = q / math.sqrt(D // self.n_heads)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-        attn = torch.softmax(logits, dim=-1)
+        attn = _softmax_rounded(logits) if low else torch.softmax(logits, dim=-1)
         if keep is not None:
-            attn = attn * (keep.to(attn.dtype) / (1.0 - rate))
+            attn = attn * (keep.to(attn.dtype) / (torch.tensor(1.0 - rate, dtype=attn.dtype)
+                                                  if low else (1.0 - rate)))
         return self.out(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, L, D))
 
 
 def _plain_layer_norm(x):
     """flax `nn.LayerNorm(use_bias=False, use_scale=False, epsilon=1e-6)`."""
-    return F.layer_norm(x, x.shape[-1:], eps=1e-6)
+    return layer_norm(x, None, None, 1e-6)
 
 
 class DVTransformerBlock(nn.Module):

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .blocks import dense
+from .blocks import below_f32, dense
 
 __all__ = [
     "PositionalEmbedding",
@@ -48,8 +48,22 @@ def sinusoidal_features(x, dim: int):
 
 
 def mish(x):
-    """Mish activation: x * tanh(softplus(x)), one fused op."""
+    """Mish activation: x * tanh(softplus(x)), one fused op. Below f32, the
+    reference's op sequence, each step rounded to x's type as jnp's are:
+    softplus as `jnp.logaddexp(x, 0)` = max(x, 0) + log1p(exp(-|x|))."""
+    if below_f32(x.dtype):
+        softplus = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+        return x * torch.tanh(softplus)
     return F.mish(x)
+
+
+def _two_pi_times(freqs):
+    """The reference's `2 * jnp.pi * freqs`: below f32 the weakly typed 2 pi
+    is rounded to the freqs' type before the product (a torch scalar would
+    multiply in f32 and round once)."""
+    if below_f32(freqs.dtype):
+        return torch.tensor(2 * math.pi, dtype=freqs.dtype, device=freqs.device) * freqs
+    return 2 * math.pi * freqs
 
 
 class PositionalEmbedding(nn.Module):
@@ -86,7 +100,7 @@ class FourierEmbedding(nn.Module):
         self.dense2 = dense(dim, dim, generator=generator)
 
     def forward(self, x):
-        ang = x[..., None].to(torch.float32) * (2 * math.pi * self.freqs.detach())
+        ang = x[..., None].to(torch.float32) * _two_pi_times(self.freqs.detach())
         emb = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
         return self.dense2(mish(self.dense1(emb)))
 
@@ -103,7 +117,7 @@ class UntrainableFourierEmbedding(nn.Module):
         self.freqs = nn.Parameter(torch.randn(dim // 2, generator=generator) * scale)
 
     def forward(self, x):
-        ang = x[..., None].to(torch.float32) * (2 * math.pi * self.freqs.detach())
+        ang = x[..., None].to(torch.float32) * _two_pi_times(self.freqs.detach())
         return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
 
 

@@ -13,8 +13,9 @@ through both packages with the bf16 flags set:
 - the DiT block's plain version on the same bf16 inputs, mixed (f32 x and
   mod, bf16 weights) and all-bf16.
 
-Also: `setup_mesh` sets the class flags (and a test resets them), and a bf16
-flag with the Janner U-Net raises.
+Also: `setup_mesh` sets the class flags (and a test resets them), and a
+Diffuser plan (the Janner U-Net, classifier guidance) with `bf16_sampling`
+and a `bf16_training` step against the JAX package.
 
 Tolerances. Both packages make the same bf16 casts of params and inputs
 (round to nearest even, bit for bit) and round the same products to bf16;
@@ -357,18 +358,88 @@ def test_config_loader_takes_the_bf16_keys():
     assert plain.get("bf16_sampling", False) is False
 
 
-@pytest.mark.parametrize("flag", ["bf16_sampling", "bf16_training"])
-def test_bf16_flag_with_the_janner_unet_raises(flag):
-    """Diffuser's U-Net runs K3, which has no bf16 route: a bf16 flag raises
-    on every device rather than running another path."""
-    pipe = DiffuserPipeline(obs_dim=3, act_dim=2, horizon=8, model_dim=8, dim_mult=(1, 2),
-                            diffusion_steps=5, sampling_steps=2, device="cpu")
-    setattr(pipe.agent, flag, True)
-    obs = np.zeros((2, 3), np.float32)
-    batch = {"obs": {"state": np.zeros((2, 8, 3), np.float32)},
-             "act": np.zeros((2, 8, 2), np.float32), "val": np.zeros((2, 1), np.float32)}
-    with pytest.raises(NotImplementedError, match="Janner U-Net"):
-        if flag == "bf16_sampling":
-            pipe.act(obs, num_candidates=2)
-        else:
-            pipe.train_step(batch)
+@pytest.fixture(scope="module")
+def diffuser_bf16():
+    """A Diffuser plan (classifier guidance, E x K candidates) under
+    `bf16_sampling`, and the diffusion loss and its gradient norm under
+    `bf16_training`, in both packages on the same weights and draws; the
+    port's U-Net on its fused block (the CPU runs the block's plain version,
+    which promotes as flax's block does). The JAX side is compiled with
+    XLA's excess precision off (test_torch_bf16_backbones.py `jit_exact`);
+    the f32 plan beside it, for the bf16 against f32 bounds."""
+    from test_torch_bf16_backbones import jit_exact
+    from test_torch_diffuser_slice import CFG as PLAN_CFG
+    from test_torch_diffuser_slice import E as DE
+    from test_torch_diffuser_slice import K as DK
+    from test_torch_diffuser_slice import _jax_noise as diffuser_noise
+    from test_torch_diffuser_train import CFG as TRAIN_CFG
+    from test_torch_diffuser_train import _batch as diffuser_batch
+    from test_torch_diffuser_train import _jax_draws as diffuser_draws
+    from cleandiffuser_tpu.pipelines.diffuser import DiffuserPipeline as JaxDiffuserPipeline
+
+    cfg = {**PLAN_CFG, **{k: TRAIN_CFG[k] for k in ("predict_noise", "ema_rate", "lr")}}
+    jpipe = JaxDiffuserPipeline(**cfg)
+    w = [_seeded(t, s, std=0.2) for s, t in enumerate(
+        (jpipe.agent.state.params, jpipe.agent.state.ema_params, jpipe.classifier.state.params,
+         jpipe.classifier.state.ema_params), start=1)]
+    jpipe.agent.state = jpipe.agent.state.replace(params=_jt(w[0]), ema_params=_jt(w[1]))
+    jpipe.classifier.state = jpipe.classifier.state.replace(params=_jt(w[2]),
+                                                            ema_params=_jt(w[3]))
+    tpipe = DiffuserPipeline(**cfg, use_pallas_block=True, device="cpu")
+    tpipe.load_jax_params(*w)
+    obs = np.random.default_rng(5).standard_normal((DE, cfg["obs_dim"])).astype(np.float32)
+    rng = jax.random.PRNGKey(6)
+    D = cfg["obs_dim"] + cfg["act_dim"]
+    init, per = diffuser_noise(rng, (DE * DK, cfg["horizon"], D), cfg["sampling_steps"])
+    jargs = (_jt(w[1]), _jt(w[3]), rng, jnp.asarray(obs))
+    out = {}
+    try:
+        for bf16 in (False, True):
+            jpipe.agent.bf16_sampling = tpipe.agent.bf16_sampling = bf16
+            # a plan function per setting: the sampler reads the flag when it
+            # is traced, and a jitted sampler keeps its first trace
+            plan_fn = jpipe._make_plan_fn(DE, DK)
+            _, traj_j, _ = jit_exact(plan_fn, *jargs)(*jargs)
+            _, info = tpipe.act(obs, num_candidates=DK,
+                                noise=(torch.from_numpy(init), torch.from_numpy(per)))
+            out[bf16] = (np.asarray(traj_j), info["traj"].numpy())
+        batch = diffuser_batch(np.random.default_rng(7))
+        noise, cls_noise = diffuser_draws(jpipe, batch)
+        x0 = np.concatenate([batch["obs"]["state"], batch["act"]], -1)
+        _, sub = jax.random.split(jpipe.agent.state.rng)
+        jpipe.agent.bf16_training = tpipe.agent.bf16_training = True
+        grad_fn = jax.value_and_grad(lambda p: jpipe.agent.loss_fn(p, sub, jnp.asarray(x0), None))
+        l_j, g_j = jit_exact(grad_fn, jpipe.agent.state.params)(jpipe.agent.state.params)
+        gn_j = float(jnp.sqrt(sum(jnp.sum(g ** 2) for g in jax.tree_util.tree_leaves(g_j))))
+        log_t = tpipe.train_step(batch, noise=noise, classifier_noise=cls_noise)
+    finally:
+        jpipe.agent.bf16_sampling = tpipe.agent.bf16_sampling = False
+        jpipe.agent.bf16_training = tpipe.agent.bf16_training = False
+    return dict(plans=out, loss=(float(l_j), float(log_t["loss"])),
+                grad_norm=(gn_j, float(log_t["grad_norm"])), tpipe=tpipe)
+
+
+@pytest.mark.parametrize("part", ["plan", "train_step"])
+def test_diffuser_bf16_matches_jax(diffuser_bf16, part):
+    """The bf16 Diffuser, port against JAX: the chosen plan within PLAN_TOL
+    of its scale (measured 1.1e-7), bf16 apart from the f32 plan within the
+    JAX package's bounds in both packages (measured 1.4e-3 of scale); a
+    `bf16_training` step's loss within LOSS_TOL (measured 2.1e-7) and
+    gradient norm within GRAD_NORM_TOL (measured 1.0e-6), the master weights
+    f32 after it."""
+    if part == "plan":
+        traj_j, traj_t = diffuser_bf16["plans"][True]
+        assert traj_t.dtype == np.float32 and np.abs(traj_j[:, 1:]).max() > 0.1
+        d_max, _ = _rel(traj_t, traj_j)
+        assert d_max < PLAN_TOL, d_max
+        for side in (0, 1):
+            d_max, d_mean = _rel(diffuser_bf16["plans"][True][side],
+                                 diffuser_bf16["plans"][False][side])
+            assert 1e-5 < d_max < BF16_MAX and d_mean < BF16_MEAN, (side, d_max, d_mean)
+        return
+    (l_j, l_t), (g_j, g_t) = diffuser_bf16["loss"], diffuser_bf16["grad_norm"]
+    assert abs(l_t - l_j) / abs(l_j) < LOSS_TOL, (l_t, l_j)
+    assert abs(g_t - g_j) / g_j < GRAD_NORM_TOL, (g_t, g_j)
+    agent = diffuser_bf16["tpipe"].agent
+    assert all(p.dtype == torch.float32 for p in agent.params.parameters())
+    assert all(p.dtype == torch.float32 for p in agent.ema_params.parameters())

@@ -554,3 +554,85 @@ def test_solver_update_kernel_noise_is_seeded_standard_normal(cuda):
     assert not torch.equal(a, su.fused_solver_update(xt, eps, coefs, 12))
     z = ((a.double() - coefs[0] * xt.double() - coefs[1] * eps.double()) / coefs[2])
     assert abs(z.mean().item()) < 5e-3 and abs(z.std().item() - 1) < 5e-3
+
+
+# ---------------------------------------------------------------------------
+# K3's BF16 route: BF16 weights, biases and affine; x and emb f32 or BF16
+# the route rounds each product's f32 activations to BF16, which the plain
+# version does not where they are f32 (chip_smoke.py's bound for it, the JAX
+# package's for its bf16 kernel)
+BF16_TOL = 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("types", [("f32", "f32"), ("bf16", "f32"), ("bf16", "bf16"),
+                                   ("f32", "bf16")])
+@pytest.mark.parametrize("shape", [(7, 32, 23, 32, False), (9, 4, 256, 256, False),
+                                   (5, 4, 512, 128, False), (5, 16, 23, 48, True)],
+                         ids=["cin23", "c256", "cin512", "cout48-film-scale"])
+def test_film_resblock_bf16_route_matches_plain(cuda, shape, types):
+    """The U-Net's calls (its first block: BF16 x with an f32 FiLM term; the
+    others f32 x) and all-BF16, against the plain version on the same
+    operands: the output in the promoted type of x and emb, one launch of
+    the BF16 route and none of the f32 one."""
+    B, H, Cin, Cout, film_scale = shape
+    x, emb, ws, skip = _film_inputs(cuda, B, H, Cin, Cout, 5, film_scale)
+    cast = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x, emb = x.to(cast[types[0]]), emb.to(cast[types[1]])
+    wb = [None if w is None else w.to(torch.bfloat16) for w in (*ws, *skip)]
+    kw = dict(K=5, groups=8, film_scale=film_scale, eps=1e-6)
+    before = (film.fused_film_resblock.launches, film.fused_film_resblock_bf16.launches)
+    out = film.fused_film_resblock_bf16(x, emb, *wb, **kw)
+    torch.cuda.synchronize()
+    assert (film.fused_film_resblock.launches, film.fused_film_resblock_bf16.launches) == (
+        before[0], before[1] + 1)
+    ref = film.film_resblock_reference(x, emb, *wb, **kw)
+    assert out.dtype == ref.dtype == torch.promote_types(x.dtype, emb.dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_film_resblock_bf16_route_rejects_other_types(cuda):
+    x, emb, ws, skip = _film_inputs(cuda, 2, 8, 16, 32, 5, False)
+    wb = [w.to(torch.bfloat16) for w in (*ws, *skip)]
+    kw = dict(K=5, groups=8)
+    with pytest.raises(TypeError, match="go to fused_film_resblock"):
+        film.fused_film_resblock_bf16(x, emb, *ws, *skip, **kw)  # all f32
+    with pytest.raises(TypeError, match="go to fused_film_resblock_bf16"):
+        film.fused_film_resblock(x, emb, *wb, **kw)
+    with pytest.raises(TypeError, match="bfloat16 weights"):
+        film.fused_film_resblock_bf16(x, emb, *wb[:-1], skip[1], **kw)  # one f32 bias
+    with pytest.raises(TypeError, match="bfloat16 weights"):
+        film.fused_film_resblock_bf16(x.half(), emb, *wb, **kw)
+
+
+@pytest.mark.gpu
+def test_jannerunet_bf16_sampling_and_training_launch_the_bf16_route(cuda):
+    """A Janner U-Net engine with `bf16_sampling` and `bf16_training`: every
+    residual block of a plan and of a training step launches K3's BF16 route
+    and none the f32 one, against the plain blocks on the same bf16 copy
+    within BF16_TOL of the plan's scale; params and EMA stay f32."""
+    from cleandiffuser_tpu_torch.diffusion import DiscreteDiffusionSDE
+
+    nets = [JannerUNet1d(7, model_dim=16, emb_dim=16, dim_mult=(1, 2), kernel_size=5,
+                         use_pallas_block=k, generator=torch.Generator().manual_seed(0))
+            for k in (True, False)]
+    engs = [DiscreteDiffusionSDE(n, diffusion_steps=10, device=cuda) for n in nets]
+    engs[1].ema_params.load_state_dict(engs[0].ema_params.state_dict())
+    noise = (torch.randn(6, 8, 7, device=cuda), torch.randn(3, 6, 8, 7, device=cuda))
+    counts = (film.fused_film_resblock.launches, film.fused_film_resblock_bf16.launches)
+    xs = []
+    for eng in engs:
+        eng.bf16_sampling = eng.bf16_training = True
+        with torch.no_grad():
+            xs.append(eng.build_sample_fn(solver="ddpm", sample_steps=3)(
+                eng.ema_params, None, torch.zeros(6, 8, 7, device=cuda), noise=noise)[0])
+    engs[0].update(torch.randn(4, 8, 7, device=cuda))
+    torch.cuda.synchronize()
+    assert (film.fused_film_resblock.launches - counts[0],
+            film.fused_film_resblock_bf16.launches - counts[1]) == (0, 3 * 8 + 8)
+    assert xs[0].dtype == torch.float32 and torch.isfinite(xs[0]).all()
+    scale = max(xs[1].abs().max().item(), 1.0)
+    assert (xs[0] - xs[1]).abs().max().item() / scale < BF16_TOL
+    assert all(p.dtype == torch.float32 for p in engs[0].params.parameters())
+    assert all(p.dtype == torch.float32 for p in engs[0].ema_params.parameters())
