@@ -1,4 +1,5 @@
 from .base import BaseDataset, DeviceSeqSampler, DeviceTDSampler
+from .block_push import BlockPushDataset
 from .d4rl_antmaze import (
     D4RLAntmazeDataset,
     D4RLAntmazeTDDataset,

@@ -30,11 +30,22 @@ after the schedule's (Diffusion-X, DiffusionBC's option): each one is the
 solver's step from level 1, and each takes its row of `per_step` noise, so
 `per_step` then has sample_steps + diffusion_x_sampling_steps rows.
 
-Ported so far: the solvers, CFG in mix / cond / uncond modes, classifier
-guidance, final log p, clipping, inpainting, the diffusion-x steps and the
-training loss. Warm start and history (which no pipeline calls on these
-engines) and the parallel-in-time sampler come later (ROADMAP queue 1,
-items 9 and 10).
+Warm start (`warm_start`, `warm_start_forward_level` = w): the sampler
+starts from a reference sample taken part of the way up, x = ref * alpha_w
++ sigma_w * draw (the initial row of `noise`, or a draw from the
+generator; no temperature), and runs its steps on the level grid below w:
+the discrete engine's schedule over the first int(w * diffusion_steps)
+levels, the continuous engine's `*_continuous` schedule over [epsilon,
+epsilon + w (1 - epsilon)]. The mask then pins the prior. With
+`fused_update`, K2 takes these warm tables' coefficients.
+`preserve_history` logs "sample_history", every step's state before the
+final clipping: (B, sample_steps + diffusion_x_sampling_steps, ...).
+Neither has a pipeline caller; `sample` serves them, as the reference's.
+
+Ported: the solvers, CFG in mix / cond / uncond modes, classifier
+guidance, final log p, clipping, inpainting, the diffusion-x steps, warm
+start, history and the training loss. The parallel-in-time sampler is
+ROADMAP queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ from ..utils.schedules import (
     uniform_discretization,
 )
 from ..utils.tensors import at_least_ndim
-from .basic import DiffusionModel
+from .basic import DiffusionModel, pick_cfg_mode
 from .vp_solvers import (
     SUPPORTED_SOLVERS,
     ddpm_coefficients,
@@ -86,6 +97,7 @@ class BaseDiffusionSDE(DiffusionModel):
         as_t = lambda v: None if v is None else torch.as_tensor(
             v, dtype=torch.float32, device=self.device)
         self.x_max, self.x_min = as_t(x_max), as_t(x_min)
+        self._sample_fns = {}  # `sample`'s samplers, one per setting
 
     @property
     def clip_pred(self):
@@ -158,9 +170,14 @@ class BaseDiffusionSDE(DiffusionModel):
         w = torch.tensor(w_cg, dtype=torch.float32)
         return float(-(w * s_i) if self.predict_noise else w * (s_i**2 / a_i))
 
-    def _sample_tables(self, sample_step_schedule: str, sample_steps: int):
+    def _sample_tables(self, sample_step_schedule: str, sample_steps: int, warm_level=None):
         """(ts, alphas, sigmas), each a (steps+1,) host tensor; alphas and
-        sigmas float32, ts of the dtype the network takes as t."""
+        sigmas float32, ts of the dtype the network takes as t. With
+        `warm_level`, the grid below the warm start's level (module note)."""
+        raise NotImplementedError
+
+    def _forward_level(self, warm_level: float):
+        """(alpha, sigma) at the warm start's forward level, as floats."""
         raise NotImplementedError
 
     def build_sample_fn(
@@ -174,12 +191,16 @@ class BaseDiffusionSDE(DiffusionModel):
         fused_update: bool = False,
         fix_mask=None,
         diffusion_x_sampling_steps: int = 0,
+        warm_start: bool = False,
+        warm_start_forward_level: float = 0.3,
+        preserve_history: bool = False,
     ):
         """Build the k-step sampler.
 
             fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
                w_cfg=0.0, temperature=1.0, noise=None, cls_params=None,
-               condition_cg=None, w_cg=0.0) -> (x0, log dict)
+               condition_cg=None, w_cg=0.0, warm_reference=None)
+               -> (x0, log dict)
 
         `params` is `self.params` or `self.ema_params`, `cls_params` the
         classifier's. `fix_mask` (one point's shape) overrides the engine's
@@ -190,8 +211,10 @@ class BaseDiffusionSDE(DiffusionModel):
         once per step; its solver math stays f32. With `final_logp` (default: whether there is a
         classifier) the log holds "log_p" of the final sample at t = 0.
 
-        `diffusion_x_sampling_steps` extra steps run at the last level
-        (module note).
+        `diffusion_x_sampling_steps` extra steps run at the last level;
+        with `warm_start` and a `warm_reference` (the prior's shape) the
+        sampler starts from it on the warm tables; with `preserve_history`
+        the log holds "sample_history" (module note).
 
         `fn` follows the caller's grad mode, as the reference's sampler is a
         plain differentiable function: DQL's policy loss backpropagates
@@ -208,7 +231,10 @@ class BaseDiffusionSDE(DiffusionModel):
             final_logp = self.classifier is not None
         fix_mask = (self.fix_mask if fix_mask is None else
                     torch.as_tensor(fix_mask, dtype=torch.float32, device=self.device)[None])
-        ts, alphas, sigmas = self._sample_tables(sample_step_schedule, sample_steps)
+        warm_level = warm_start_forward_level if warm_start else None
+        ts, alphas, sigmas = self._sample_tables(sample_step_schedule, sample_steps, warm_level)
+        if warm_start:
+            fwd_alpha, fwd_sigma = self._forward_level(warm_start_forward_level)
         logSNRs = torch.log(alphas / sigmas)
         zero = torch.zeros(1)
         hs = torch.cat([zero, logSNRs[:-1] - logSNRs[1:]])
@@ -219,7 +245,7 @@ class BaseDiffusionSDE(DiffusionModel):
 
         def fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
                w_cfg: float = 0.0, temperature: float = 1.0, noise=None, cls_params=None,
-               condition_cg=None, w_cg: float = 0.0):
+               condition_cg=None, w_cg: float = 0.0, warm_reference=None):
             if fused_update and torch.is_grad_enabled():
                 # K2 has no backward; a quiet switch to the plain step would
                 # be a fallback
@@ -239,12 +265,16 @@ class BaseDiffusionSDE(DiffusionModel):
                                       device=generator.device).tolist()
             if self.bf16_sampling:
                 params = self.bf16_params(params)
-            xt = draw(-1) * temperature
+            if warm_start and warm_reference is not None:
+                xt = warm_reference * fwd_alpha + fwd_sigma * draw(-1)
+            else:
+                xt = draw(-1) * temperature
             if fix_mask is not None:
                 xt = xt * (1.0 - fix_mask) + prior * fix_mask
             emb = self.apply_condition(params, condition_cfg, mask=mask_cfg)
             prev_x_theta = torch.zeros_like(xt)
             B = prior.shape[0]
+            history = []
             for n, i in enumerate(idxs):
                 t = torch.full((B,), ts[i].item(), dtype=ts.dtype, device=prior.device)
                 a_i, s_i = float(alphas[i]), float(sigmas[i])
@@ -266,7 +296,11 @@ class BaseDiffusionSDE(DiffusionModel):
                 if fix_mask is not None:
                     x_next = x_next * (1.0 - fix_mask) + prior * fix_mask
                 xt, prev_x_theta = x_next, x_theta
+                if preserve_history:
+                    history.append(xt)
             log = {}
+            if preserve_history:
+                log["sample_history"] = torch.stack(history, 1)
             if final_logp:
                 t0 = torch.zeros((B,), dtype=ts.dtype, device=prior.device)
                 log["log_p"] = self.classifier.logp(cls_params, xt, t0, condition_cg)
@@ -275,6 +309,56 @@ class BaseDiffusionSDE(DiffusionModel):
             return xt, log
 
         return fn
+
+    def sample(
+        self,
+        prior,
+        solver: str = "ddpm",
+        sample_steps: int = 5,
+        sample_step_schedule: str = "uniform",
+        use_ema: bool = True,
+        temperature: float = 1.0,
+        condition_cfg=None,
+        mask_cfg=None,
+        w_cfg: float = 0.0,
+        condition_cg=None,
+        w_cg: float = 0.0,
+        diffusion_x_sampling_steps: int = 0,
+        warm_start_reference=None,
+        warm_start_forward_level: float = 0.3,
+        preserve_history: bool = False,
+        fused_update: bool = False,
+        generator=None,
+        noise=None,
+    ):
+        """One sample with the CFG mode picked as the reference picks it
+        (`pick_cfg_mode`) and classifier guidance when there is a
+        classifier, a weight and a condition; a warm start when a
+        `warm_start_reference` is given. Samplers are cached per setting.
+        Returns (x0, log) with "sample_history" and "log_p" (each None when
+        not made). Follows the caller's grad mode, as `build_sample_fn`'s
+        sampler does."""
+        cfg_mode = pick_cfg_mode(w_cfg, condition_cfg)
+        use_cg = self.classifier is not None and w_cg != 0.0 and condition_cg is not None
+        warm = warm_start_reference is not None
+        key = ("sample", solver, sample_steps, sample_step_schedule, cfg_mode, use_cg,
+               diffusion_x_sampling_steps, warm, warm_start_forward_level if warm else None,
+               preserve_history, fused_update)
+        if key not in self._sample_fns:
+            self._sample_fns[key] = self.build_sample_fn(
+                solver=solver, sample_steps=sample_steps,
+                sample_step_schedule=sample_step_schedule, cfg_mode=cfg_mode, use_cg=use_cg,
+                fused_update=fused_update, diffusion_x_sampling_steps=diffusion_x_sampling_steps,
+                warm_start=warm, warm_start_forward_level=warm_start_forward_level,
+                preserve_history=preserve_history)
+        params = self.ema_params if use_ema else self.params
+        cls_params = self.classifier.inference_params if self.classifier is not None else None
+        x0, log = self._sample_fns[key](
+            params, generator or self.generator, prior, condition_cfg, mask_cfg, w_cfg,
+            temperature, noise, cls_params, condition_cg, w_cg, warm_start_reference)
+        log.setdefault("sample_history", None)
+        log.setdefault("log_p", None)
+        return x0, log
 
 
 class DiscreteDiffusionSDE(BaseDiffusionSDE):
@@ -324,10 +408,16 @@ class DiscreteDiffusionSDE(BaseDiffusionSDE):
             eps = torch.randn(x0.shape, generator=generator, device=x0.device)
         return self._noised(x0, self._alpha_dev[t], self._sigma_dev[t], eps), t, eps
 
-    def _sample_tables(self, sample_step_schedule, sample_steps):
+    def _sample_tables(self, sample_step_schedule, sample_steps, warm_level=None):
+        T_eff = (self.diffusion_steps if warm_level is None
+                 else int(warm_level * self.diffusion_steps))
         sched = SUPPORTED_SAMPLING_STEP_SCHEDULE[sample_step_schedule](
-            self.diffusion_steps, sample_steps).long()
+            T_eff, sample_steps).long()
         return sched.to(torch.int32), self.alpha[sched], self.sigma[sched]
+
+    def _forward_level(self, warm_level):
+        i = int(warm_level * self.diffusion_steps)
+        return float(self.alpha[i]), float(self.sigma[i])
 
 
 class ContinuousDiffusionSDE(BaseDiffusionSDE):
@@ -370,10 +460,20 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         alpha, sigma = self.noise_schedule_funcs["forward"](t)
         return self._noised(x0, alpha, sigma, eps), t, eps
 
-    def _sample_tables(self, sample_step_schedule, sample_steps):
+    def _warm_t(self, warm_level):
+        """The continuous time of the warm start's level."""
+        return self.epsilon + warm_level * (1.0 - self.epsilon)
+
+    def _sample_tables(self, sample_step_schedule, sample_steps, warm_level=None):
+        trange = (self.t_diffusion if warm_level is None
+                  else [self.t_diffusion[0], self._warm_t(warm_level)])
         if not sample_step_schedule.endswith("_continuous"):
             sample_step_schedule = sample_step_schedule + "_continuous"
-        sched = SUPPORTED_SAMPLING_STEP_SCHEDULE[sample_step_schedule](
-            self.t_diffusion, sample_steps)
+        sched = SUPPORTED_SAMPLING_STEP_SCHEDULE[sample_step_schedule](trange, sample_steps)
         alphas, sigmas = self.noise_schedule_funcs["forward"](sched)
         return sched, alphas, sigmas
+
+    def _forward_level(self, warm_level):
+        alpha, sigma = self.noise_schedule_funcs["forward"](
+            torch.tensor([self._warm_t(warm_level)], dtype=torch.float32))
+        return float(alpha[0]), float(sigma[0])

@@ -1,3 +1,12 @@
+from .async_vector import make_async_vector_env
+from .block_pushing import (
+    BlockPushEnv,
+    BlockPushMultimodalEnv,
+    BlockPushState,
+    generate_blockpush_demos,
+    generate_blockpush_discontinuous_demos,
+    generate_blockpush_reach_demos,
+)
 from .d4rl_eval import (
     ANTMAZE_EVAL_CELLS,
     ANTMAZE_GYM_IDS,
@@ -13,4 +22,13 @@ from .kitchen import ALL_KITCHEN_TASKS, KitchenLowdimWrapper, make_kitchen_env
 from .pusht import PushTEnv, PushTImageEnv, PushTKeypointEnv, PushTState, render_state
 from .pusht_expert import PushTExpertMPC, generate_pusht_expert_trajectories
 from .robomimic import RobomimicImageWrapper, RobomimicLowdimWrapper, create_robomimic_env
-from .wrapper import DuckSyncVectorEnv, MultiStepWrapper, repeated_space, stack_last_n_obs
+from .wrapper import (
+    DuckSyncVectorEnv,
+    MultiStepWrapper,
+    VideoRecorder,
+    VideoRecordingWrapper,
+    VideoWrapper,
+    make_sync_vector_env,
+    repeated_space,
+    stack_last_n_obs,
+)

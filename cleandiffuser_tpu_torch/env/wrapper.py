@@ -1,9 +1,15 @@
 """Host env wrappers (counterpart of cleandiffuser_tpu/env/wrapper.py):
 `DuckSyncVectorEnv` and the imitation pipelines' `MultiStepWrapper`, with
-`repeated_space` and `stack_last_n_obs`. numpy only: the envs step on the
-host, and gymnasium is imported only to build a space. The video wrappers,
-which no CLI uses, wait with the other unused modules (ROADMAP queue 1,
-item 9).
+`repeated_space` and `stack_last_n_obs`, and the video wrappers and
+`make_sync_vector_env`, which no pipeline uses. numpy only: the envs step
+on the host, and gymnasium is imported only to build a space or a vector
+env.
+
+`VideoWrapper` keeps the rendered frames of an episode (every
+`steps_per_render` steps, the reset's frame first); `VideoRecordingWrapper`
+streams them into a `VideoRecorder`, which writes them through imageio
+when it stops (an mp4 needs imageio's ffmpeg backend; a gif does not). Both wrap any env with reset / step / render and pass every
+other attribute through.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["DuckSyncVectorEnv", "MultiStepWrapper", "repeated_space", "stack_last_n_obs"]
+__all__ = ["DuckSyncVectorEnv", "MultiStepWrapper", "repeated_space", "stack_last_n_obs",
+           "VideoRecorder", "VideoWrapper", "VideoRecordingWrapper", "make_sync_vector_env"]
 
 
 def repeated_space(space, n: int):
@@ -152,3 +159,123 @@ class DuckSyncVectorEnv:
     def close(self):
         for env in self.envs:
             env.close()
+
+
+class VideoRecorder:
+    """Video writer through imageio (the format from the path's extension):
+    `start(path)`, `add_frame` per frame, `stop()` writes the file."""
+
+    def __init__(self, fps: int = 10):
+        self.fps = fps
+        self.frames: List[np.ndarray] = []
+        self.path: Optional[str] = None
+
+    def start(self, path: str):
+        self.path, self.frames = path, []
+
+    def add_frame(self, frame: np.ndarray):
+        if self.path is not None:
+            self.frames.append(np.asarray(frame, np.uint8))
+
+    def stop(self):
+        if self.path is not None and self.frames:
+            import imageio
+
+            imageio.mimsave(self.path, self.frames, fps=self.fps)
+        self.path, self.frames = None, []
+
+
+class _Wrapper:
+    """Passes every attribute it does not define through to the env."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __getattr__(self, name):
+        if name == "env":
+            raise AttributeError(name)
+        return getattr(self.env, name)
+
+    def render(self):
+        return self.env.render()
+
+    def close(self):
+        return self.env.close()
+
+
+class VideoWrapper(_Wrapper):
+    """The episode's rendered frames: after the reset and every
+    `steps_per_render` steps; `get_video()` stacks them (None if none)."""
+
+    def __init__(self, env, mode: str = "rgb_array", enabled: bool = True,
+                 steps_per_render: int = 1):
+        super().__init__(env)
+        self.mode, self.enabled, self.steps_per_render = mode, enabled, steps_per_render
+        self.frames: List[np.ndarray] = []
+        self.step_count = 0
+
+    def reset(self, **kwargs):
+        self.frames, self.step_count = [], 1
+        out = self.env.reset(**kwargs)
+        if self.enabled:
+            self._append_frame()
+        return out
+
+    def step(self, action):
+        out = self.env.step(action)
+        self.step_count += 1
+        if self.enabled and self.step_count % self.steps_per_render == 0:
+            self._append_frame()
+        return out
+
+    def _append_frame(self):
+        frame = self.env.render()
+        if frame is not None:
+            self.frames.append(np.asarray(frame))
+
+    def get_video(self):
+        return np.stack(self.frames) if self.frames else None
+
+
+class VideoRecordingWrapper(_Wrapper):
+    """Streams the rendered frames into `video_recorder` (a new
+    `VideoRecorder` by default) while `file_path` is set: the frame before
+    the reset, then every `steps_per_render` steps; `stop()` writes it."""
+
+    def __init__(self, env, video_recorder: Optional[VideoRecorder] = None,
+                 mode: str = "rgb_array", file_path: Optional[str] = None,
+                 steps_per_render: int = 1):
+        super().__init__(env)
+        self.video_recorder = video_recorder or VideoRecorder()
+        self.file_path, self.steps_per_render = file_path, steps_per_render
+        self.step_count = 0
+
+    def reset(self, **kwargs):
+        self.step_count = 1
+        self.video_recorder.stop()
+        if self.file_path is not None:
+            self.video_recorder.start(self.file_path)
+            self._record()
+        return self.env.reset(**kwargs)
+
+    def step(self, action):
+        out = self.env.step(action)
+        self.step_count += 1
+        if self.file_path is not None and self.step_count % self.steps_per_render == 0:
+            self._record()
+        return out
+
+    def _record(self):
+        frame = self.env.render()
+        if frame is not None:
+            self.video_recorder.add_frame(frame)
+
+    def stop(self):
+        self.video_recorder.stop()
+
+
+def make_sync_vector_env(env_fns: Sequence[Callable]):
+    """gymnasium's SyncVectorEnv over `env_fns` (gymnasium envs)."""
+    import gymnasium as gym
+
+    return gym.vector.SyncVectorEnv(list(env_fns))

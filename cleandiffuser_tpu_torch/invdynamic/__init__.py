@@ -1,1 +1,1 @@
-from .mlp import FancyMlpInvDynamic, MlpInvDynamic
+from .mlp import EnsembleMlpInvDynamic, FancyMlpInvDynamic, MlpInvDynamic, ResInvDynamic

@@ -9,6 +9,14 @@ optional dropout of 0.1 after its first layer. The dropout runs only in
 `update`, its keep-mask drawn from the agent's own generator (seeded by
 `rng`, on the net's device) or passed explicitly (`keep=`), which is how
 the tests replay the reference's draws.
+
+`ResInvDynamic` (no pipeline uses it) is the same harness on a residual
+MLP: Dense(hidden), `n_blocks` blocks of h + Dense(GELU(Dense(LN(h)))),
+Dense(a_dim). `EnsembleMlpInvDynamic` keeps `n_models` `MlpInvDynamic`
+nets as one stacked parameter axis (each Dense a (n, in, out) kernel and
+an (n, out) bias, the reference's vmapped layout) under one Adam: its
+forward is batched matmuls over the heads, `predict` averages the heads,
+and `update`'s loss is the mean over heads, batch and action dims.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from ..utils.jax_params import load_jax_params
 from ..utils.tensors import default_device
 from ..utils.train_state import make_optimizer, read_jax_pickle
 
-__all__ = ["MlpInvDynamic", "FancyMlpInvDynamic"]
+__all__ = ["MlpInvDynamic", "FancyMlpInvDynamic", "ResInvDynamic", "EnsembleMlpInvDynamic"]
 
 
 class _InvMlpNet(nn.Module):
@@ -70,6 +78,68 @@ class _FancyInvMlpNet(nn.Module):
                 keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.9
             h = torch.where(keep, h / 0.9, torch.zeros_like(h))
         h = F.gelu(self.l2(h), approximate="tanh")
+        return self.out_activation(self.l3(h))
+
+
+class _ResInvNet(nn.Module):
+    def __init__(self, in_dim: int, a_dim: int, hidden_dim: int = 256, n_blocks: int = 3,
+                 out_activation: Callable = torch.tanh,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        layers = [dense(in_dim, hidden_dim, generator=g)]
+        for _ in range(n_blocks):
+            layers += [dense(hidden_dim, 4 * hidden_dim, generator=g),
+                       dense(4 * hidden_dim, hidden_dim, generator=g)]
+        layers.append(dense(hidden_dim, a_dim, generator=g))
+        # flax numbers the Dense layers in creation order
+        self.layers = nn.ModuleList(layers)
+        self.norms = nn.ModuleList(LayerNorm(hidden_dim) for _ in range(n_blocks))
+        self.out_activation = out_activation
+        self.JAX_NAMES = {"layers": "Dense_{}", "norms": "LayerNorm_{}"}
+
+    def forward(self, oo):
+        h = self.layers[0](oo)
+        for i, norm in enumerate(self.norms):
+            r = F.gelu(self.layers[2 * i + 1](norm(h)), approximate="tanh")
+            h = h + self.layers[2 * i + 2](r)
+        return self.out_activation(self.layers[-1](h))
+
+
+class _StackedDense(nn.Module):
+    """`n` Dense layers as one (n, in, out) kernel and (n, out) bias (flax's
+    orientation, a vmapped init's layout), each kernel drawn orthogonal."""
+
+    def __init__(self, n: int, in_dim: int, out_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kernel = torch.stack([orthogonal_init(torch.empty(out_dim, in_dim), generator).T
+                              for _ in range(n)])
+        self.kernel = nn.Parameter(kernel.contiguous())
+        self.bias = nn.Parameter(torch.zeros(n, out_dim))
+
+    def forward(self, x):
+        """(n, B, in) -> (n, B, out)."""
+        return torch.baddbmm(self.bias[:, None], x, self.kernel)
+
+
+class _EnsembleInvMlpNet(nn.Module):
+    JAX_NAMES = {"l1": "Dense_0", "l2": "Dense_1", "l3": "Dense_2"}
+
+    def __init__(self, n: int, in_dim: int, a_dim: int, hidden_dim: int = 512,
+                 out_activation: Callable = torch.tanh,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n = n
+        self.l1 = _StackedDense(n, in_dim, hidden_dim, generator)
+        self.l2 = _StackedDense(n, hidden_dim, hidden_dim, generator)
+        self.l3 = _StackedDense(n, hidden_dim, a_dim, generator)
+        self.out_activation = out_activation
+
+    def forward(self, oo):
+        """(B, in) -> (n, B, a_dim): every head's prediction."""
+        h = torch.relu(self.l1(oo.expand(self.n, *oo.shape)))
+        h = torch.relu(self.l2(h))
         return self.out_activation(self.l3(h))
 
 
@@ -132,3 +202,29 @@ class FancyMlpInvDynamic(MlpInvDynamic):
 
     def _forward_train(self, oo, keep):
         return self.net(oo, train=True, keep=keep, generator=self.generator)
+
+
+class ResInvDynamic(MlpInvDynamic):
+    def __init__(self, o_dim: int, a_dim: int, hidden_dim: int = 256, n_blocks: int = 3,
+                 out_activation: Callable = torch.tanh, optim_params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        self._setup(_ResInvNet(2 * o_dim, a_dim, hidden_dim, n_blocks, out_activation,
+                               generator),
+                    (optim_params or {}).get("lr", 3e-4), device)
+
+
+class EnsembleMlpInvDynamic(MlpInvDynamic):
+    """`n_models` MlpInvDynamic heads on one stacked parameter axis (module
+    note)."""
+
+    def __init__(self, o_dim: int, a_dim: int, n_models: int = 5, hidden_dim: int = 512,
+                 out_activation: Callable = torch.tanh, optim_params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        self.n_models = n_models
+        self._setup(_EnsembleInvMlpNet(n_models, 2 * o_dim, a_dim, hidden_dim, out_activation,
+                                       generator),
+                    (optim_params or {}).get("lr", 5e-4), device)
+
+    @torch.no_grad()
+    def predict(self, o, o_next):
+        return self.net(torch.cat([o, o_next], dim=-1)).mean(0)

@@ -1,2 +1,2 @@
-from .half_nets import HalfJannerUNet1d
-from .mlp import BaseNNClassifier, QGPONNClassifier
+from .half_nets import HalfDiT1d, HalfJannerUNet1d
+from .mlp import BaseNNClassifier, MLPNNClassifier, QGPONNClassifier

@@ -1,12 +1,13 @@
-"""Trajectory classifier head: the down half of the Janner U-Net and an MLP
-(counterpart of `HalfJannerUNet1d` in
-cleandiffuser_tpu/nn_classifier/half_nets.py). Maps (b, H, in_dim) x (b,)
-[x cond] -> (b, out_dim), e.g. a trajectory-return prediction for
-classifier guidance. `HalfDiT1d` comes later.
+"""Trajectory classifier heads (counterpart of
+cleandiffuser_tpu/nn_classifier/half_nets.py): `HalfJannerUNet1d`, the
+down half of the Janner U-Net and an MLP, and `HalfDiT1d` (no pipeline
+uses it), a DiT trunk, mean-pooled, through a LayerNorm / SiLU / Dense
+head. Each maps (b, H, in_dim) x (b,) [x cond] -> (b, out_dim), e.g. a
+trajectory-return prediction for classifier guidance.
 
 The classifier is differentiated with respect to its input at every
-sampler step, so its residual blocks always take the plain path (the fused
-block has no backward).
+sampler step, so its blocks always take the plain path (neither fused
+block has a backward kernel).
 """
 
 from __future__ import annotations
@@ -16,14 +17,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..nn_diffusion.base import timestep_embedding_module
+from ..nn_diffusion.dit import DiTBlock, FinalLayer1d
 from ..nn_diffusion.jannerunet import Downsample1d, ResidualBlock1d
-from ..utils.blocks import dense
-from ..utils.embeddings import mish
+from ..utils.blocks import LayerNorm, dense, normal_init, xavier_uniform_init
+from ..utils.embeddings import mish, sinusoidal_features
 from .mlp import BaseNNClassifier
 
-__all__ = ["HalfJannerUNet1d"]
+__all__ = ["HalfJannerUNet1d", "HalfDiT1d"]
 
 
 class HalfJannerUNet1d(BaseNNClassifier):
@@ -94,3 +97,44 @@ class HalfJannerUNet1d(BaseNNClassifier):
         # channels-last flatten, as the JAX head's Dense expects
         h = torch.cat([x.reshape(x.shape[0], -1), te], dim=-1)
         return self.head2(mish(self.head1(h)))
+
+
+class HalfDiT1d(BaseNNClassifier):
+    """DiT trunk (plain `DiTBlock`s) -> FinalLayer1d to d_model // 2 ->
+    mean over the horizon -> LayerNorm, SiLU, Dense(d_model // 4),
+    LayerNorm, SiLU, Dense(out_dim)."""
+
+    def __init__(self, in_dim: int, out_dim: int, emb_dim: int, d_model: int = 384,
+                 n_heads: int = 6, depth: int = 12, timestep_emb_type: str = "positional",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.d_model = d_model
+        self.x_proj = dense(in_dim, d_model, xavier_uniform_init, generator=g)
+        self.t_emb = timestep_embedding_module(emb_dim, timestep_emb_type, None, g)
+        self.t_dense1 = dense(emb_dim, d_model, normal_init(0.02), generator=g)
+        self.t_dense2 = dense(d_model, d_model, normal_init(0.02), generator=g)
+        self.blocks = nn.ModuleList(DiTBlock(d_model, n_heads, False, g) for _ in range(depth))
+        self.final = FinalLayer1d(d_model, d_model // 2, g)
+        self.norm1 = LayerNorm(d_model // 2)
+        self.head1 = dense(d_model // 2, d_model // 4, generator=g)
+        self.norm2 = LayerNorm(d_model // 4)
+        self.head2 = dense(d_model // 4, out_dim, generator=g)
+        self.JAX_NAMES = {
+            "x_proj": "Dense_0", "t_emb": f"{type(self.t_emb).__name__}_0",
+            "t_dense1": "Dense_1", "t_dense2": "Dense_2", "blocks": "PallasDiTBlock_{}",
+            "final": "FinalLayer1d_0", "norm1": "LayerNorm_0", "head1": "Dense_3",
+            "norm2": "LayerNorm_1", "head2": "Dense_4",
+        }
+
+    def forward(self, x, t, y=None):
+        pos = sinusoidal_features(torch.arange(x.shape[1], device=x.device), self.d_model)
+        x = self.x_proj(x) + pos[None]
+        te = self.t_emb(t)
+        if y is not None:
+            te = te + y
+        te = mish(self.t_dense2(mish(self.t_dense1(te))))
+        for block in self.blocks:
+            x = block(x, te)
+        h = F.silu(self.norm1(self.final(x, te).mean(dim=1)))
+        return self.head2(F.silu(self.norm2(self.head1(h))))

@@ -25,9 +25,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.blocks import dense, leaky_relu
+from ..utils.embeddings import _two_pi_times, mish, positional_features
 from ..utils.tensors import at_least_ndim
 
-__all__ = ["BaseNNCondition", "IdentityCondition", "MLPCondition", "PearceObsCondition"]
+__all__ = ["BaseNNCondition", "IdentityCondition", "LinearCondition", "MLPCondition",
+           "MLPSieveObsCondition", "FourierCondition", "PositionalCondition",
+           "PearceObsCondition"]
 
 
 class BaseNNCondition(nn.Module):
@@ -57,6 +60,22 @@ class IdentityCondition(BaseNNCondition):
 
     def forward(self, condition, mask=None, train: bool = False, generator=None):
         return self._apply_mask(condition, self.get_mask(condition, mask, train, generator))
+
+
+class LinearCondition(BaseNNCondition):
+    """Affine projection with condition dropout."""
+
+    JAX_NAMES = {"dense": "Dense_0"}
+
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.25,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense = dense(in_dim, out_dim, generator=generator)
+        self.dropout = dropout
+
+    def forward(self, condition, mask=None, train: bool = False, generator=None):
+        m = self.get_mask(condition, mask, train, generator)
+        return self._apply_mask(self.dense(condition), m)
 
 
 class MLPCondition(BaseNNCondition):
@@ -103,3 +122,71 @@ class PearceObsCondition(BaseNNCondition):
         if self.flatten:
             h = h.reshape(h.shape[0], -1)
         return self._apply_mask(h, m)
+
+
+class MLPSieveObsCondition(BaseNNCondition):
+    """Per-frame MLP (Dense, leaky ReLU, Dense) then flatten: (b, To, o_dim)
+    -> (b, To * emb_dim), with condition dropout."""
+
+    JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def __init__(self, o_dim: int, emb_dim: int = 128, hidden_dim: int = 512,
+                 dropout: float = 0.25, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dense1 = dense(o_dim, hidden_dim, generator=generator)
+        self.dense2 = dense(hidden_dim, emb_dim, generator=generator)
+        self.dropout = dropout
+
+    def forward(self, obs, mask=None, train: bool = False, generator=None):
+        m = self.get_mask(obs, mask, train, generator)
+        h = self.dense2(leaky_relu(self.dense1(obs), 0.01))
+        return self._apply_mask(h.reshape(h.shape[0], -1), m)
+
+
+class FourierCondition(BaseNNCondition):
+    """Scalar condition (b, 1) -> [cos | sin] of 2 pi freqs c (freqs ~
+    N(0, scale^2), hidden_dim // 2 of them) -> Dense(hidden_dim), Mish,
+    Dense(out_dim), with condition dropout. `freqs` is a parameter read
+    through `.detach()`, as the reference reads its flax param through
+    `stop_gradient` (utils/embeddings.py `FourierEmbedding`): no gradient
+    reaches it, and AdamW's decoupled decay shrinks it as it shrinks the
+    reference's."""
+
+    JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def __init__(self, out_dim: int, hidden_dim: int, scale: float = 16.0,
+                 dropout: float = 0.25, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        half = hidden_dim // 2
+        self.freqs = nn.Parameter(torch.randn(half, generator=generator) * scale)
+        self.dense1 = dense(2 * half, hidden_dim, generator=generator)
+        self.dense2 = dense(hidden_dim, out_dim, generator=generator)
+        self.dropout = dropout
+
+    def forward(self, condition, mask=None, train: bool = False, generator=None):
+        ang = condition.squeeze(-1)[..., None] * _two_pi_times(self.freqs.detach())
+        emb = torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+        m = self.get_mask(condition, mask, train, generator)
+        return self._apply_mask(self.dense2(mish(self.dense1(emb))), m)
+
+
+class PositionalCondition(BaseNNCondition):
+    """Scalar condition (b, 1) -> positional features of width out_dim ->
+    Dense(hidden_dim), Mish, Dense(out_dim), with condition dropout."""
+
+    JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def __init__(self, out_dim: int, hidden_dim: int, dropout: float = 0.25,
+                 max_positions: int = 10000, endpoint: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_dim, self.max_positions, self.endpoint = out_dim, max_positions, endpoint
+        self.dense1 = dense(2 * (out_dim // 2), hidden_dim, generator=generator)
+        self.dense2 = dense(hidden_dim, out_dim, generator=generator)
+        self.dropout = dropout
+
+    def forward(self, condition, mask=None, train: bool = False, generator=None):
+        feats = positional_features(condition.squeeze(-1), self.out_dim, self.max_positions,
+                                    self.endpoint)
+        m = self.get_mask(condition, mask, train, generator)
+        return self._apply_mask(self.dense2(mish(self.dense1(feats))), m)

@@ -1,7 +1,10 @@
-"""Image condition encoders (counterpart of the parts of
-cleandiffuser_tpu/nn_condition/images.py that the visual imitation
-pipelines use): the GN-ResNet18 with its SpatialSoftmax keypoint head,
-the crop randomiser and `MultiImageObsCondition`.
+"""Image condition encoders (counterpart of
+cleandiffuser_tpu/nn_condition/images.py): the GN-ResNet18 with its
+SpatialSoftmax keypoint head or its average-pool head, the crop
+randomiser and `MultiImageObsCondition` (the visual imitation pipelines'),
+and `ResNet18ImageCondition`, `ResNet18MultiViewImageCondition`,
+`SmallStem` and `EarlyConvViTMultiViewImageCondition`, which no pipeline
+uses.
 
     cond = MultiImageObsCondition(shape_meta, emb_dim=256, crop_shape=(84, 84))
     emb = cond({"image": (b, 3, 96, 96), "agent_pos": (b, 2)})         # (b, 256)
@@ -20,6 +23,23 @@ cuDNN's convolutions take, and the layers keep flax's arithmetic:
   and y (along H): (b, C, 2), flattened channel-major.
 
 The residual block has no activation after its sum, as the reference's.
+
+The average-pool head (`use_spatial_softmax=False`) is flax's
+`avg_pool((7, 7), strides 1, VALID)` on the final map, flattened
+channels-last, so its Dense reads (f - 6)^2 * 512 features for a final map
+of f x f. flax sizes that Dense from the input at init; here it comes from
+`image_sz`, and, where the reference's init fails (f < 7: images under
+193 px), the constructor raises.
+
+`SmallStem` is four conv 3x3 stride 2 (with bias) + GN + ReLU layers and a
+patch conv (patch_size // 16, stride the same) to d_model, its map read as
+tokens channels-last. `EarlyConvViTMultiViewImageCondition` puts the
+lowdim tokens (Dense, plus a learned embedding), each view's stem tokens
+(plus its learned embedding and sinusoidal positions over the view's To x
+n_tok tokens) and a learned readout token in one sequence, runs the
+pre-norm `Transformer` (utils/blocks.py) under a causal mask over the whole
+sequence, and returns the readout token. The three embeddings start at
+zero, as the reference's.
 
 `random_crop` takes its per-sample offsets from an explicit generator (or
 given ones, which is how the tests hand both packages the same crops) and
@@ -45,37 +65,52 @@ sorted rgb key, `Conv_*`, `GroupNorm_*`, `_ResBlock2d_*`,
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..utils.blocks import dense, lecun_normal_init, promote, promoted_norm, silu
+from ..utils.blocks import (
+    Transformer,
+    dense,
+    generate_causal_mask,
+    lecun_normal_init,
+    promote,
+    promoted_norm,
+    silu,
+)
+from ..utils.embeddings import sinusoidal_features
 from .base import BaseNNCondition
 
 __all__ = ["ResNet18", "SpatialSoftmax", "MultiImageObsCondition", "random_crop",
-           "center_crop", "CROP_KEY"]
+           "center_crop", "CROP_KEY", "ResNet18ImageCondition",
+           "ResNet18MultiViewImageCondition", "SmallStem",
+           "EarlyConvViTMultiViewImageCondition"]
 
 # the condition's entry for given crop offsets: {rgb key: (top, left)}
 CROP_KEY = "crop_offsets"
 
 
 class Conv2d(nn.Conv2d):
-    """`nn.Conv2d` without bias that promotes input and weight to their
-    common type, as flax's `nn.Conv` does."""
+    """`nn.Conv2d` that promotes input, weight (and bias) to their common
+    type, as flax's `nn.Conv` does."""
 
     def forward(self, x):
-        return self._conv_forward(*promote(x, self.weight), None)
+        if self.bias is None:
+            return self._conv_forward(*promote(x, self.weight), None)
+        return self._conv_forward(*promote(x, self.weight, self.bias))
 
 
 def conv2d(in_channel: int, out_channel: int, kernel: int, stride: int = 1, padding: int = 0,
-           generator: Optional[torch.Generator] = None) -> Conv2d:
-    """A conv without bias, initialised as flax's `nn.Conv` (LeCun normal
-    over the fan-in KH * KW * Cin)."""
+           generator: Optional[torch.Generator] = None, bias: bool = False) -> Conv2d:
+    """A conv initialised as flax's `nn.Conv` (LeCun normal over the fan-in
+    KH * KW * Cin; a zero bias with `bias`)."""
     layer = nn.utils.skip_init(Conv2d, in_channel, out_channel, kernel, stride=stride,
-                               padding=padding, bias=False)
+                               padding=padding, bias=bias)
     lecun_normal_init(layer.weight, generator, fan_in=kernel * kernel * in_channel)
+    if bias:
+        nn.init.zeros_(layer.bias)
     return layer
 
 
@@ -146,15 +181,40 @@ RESNET18_STAGES = ((64, False), (64, False), (128, True), (128, False), (256, Tr
                    (256, False), (512, True), (512, False))
 
 
+def resnet18_final_size(image_sz: int) -> int:
+    """The side of the GN-ResNet18's final map for square images of side
+    `image_sz`: the stem conv and max-pool, then three stride-2 blocks."""
+    f = (image_sz + 6 - 7) // 2 + 1
+    for _ in range(4):
+        f = (f + 2 - 3) // 2 + 1
+    return f
+
+
 class ResNet18(nn.Module):
-    """GN-ResNet18 with the SpatialSoftmax head: (B, C, H, W) -> (B, emb):
-    stem (conv 7x7 stride 2, GN, activation, max-pool 3x3 stride 2), eight
-    residual blocks (64, 64, 128, 128, 256, 256, 512, 512 channels), the
-    512 keypoints (1024 numbers), Dense, SiLU, Dense."""
+    """GN-ResNet18: (B, C, H, W) -> (B, emb): stem (conv 7x7 stride 2, GN,
+    activation, max-pool 3x3 stride 2), eight residual blocks (64, 64, 128,
+    128, 256, 256, 512, 512 channels), the head, Dense, SiLU, Dense. The
+    head is the 512 keypoints (1024 numbers), or with
+    `use_spatial_softmax=False` the 7 x 7 average pool of the final map of
+    `image_sz` images (module note)."""
 
     def __init__(self, in_channel: int, emb_dim: int, group_channels: int = 16,
-                 activation: Callable = F.relu, generator: Optional[torch.Generator] = None):
+                 activation: Callable = F.relu, generator: Optional[torch.Generator] = None,
+                 image_sz: Optional[int] = None, use_spatial_softmax: bool = True):
         super().__init__()
+        if use_spatial_softmax:
+            head_dim = 2 * RESNET18_STAGES[-1][0]
+        else:
+            if image_sz is None:
+                raise ValueError("the average-pool head needs image_sz")
+            pooled = resnet18_final_size(image_sz) - 6
+            if pooled < 1:
+                raise ValueError(f"the average-pool head needs a final map of at least 7 x 7; "
+                                 f"{image_sz} px images end at "
+                                 f"{resnet18_final_size(image_sz)} x "
+                                 f"{resnet18_final_size(image_sz)}")
+            head_dim = pooled * pooled * RESNET18_STAGES[-1][0]
+        self.use_spatial_softmax = use_spatial_softmax
         g = generator
         self.stem_conv = conv2d(in_channel, 64, 7, 2, 3, g)
         self.stem_norm = _gn(64, group_channels)
@@ -163,8 +223,9 @@ class ResNet18(nn.Module):
             blocks.append(ResBlock2d(c_in, c, down, group_channels, activation, g))
             c_in = c
         self.blocks = nn.ModuleList(blocks)
-        self.softmax = SpatialSoftmax()
-        self.dense1 = dense(2 * c_in, emb_dim, generator=g)
+        if use_spatial_softmax:
+            self.softmax = SpatialSoftmax()
+        self.dense1 = dense(head_dim, emb_dim, generator=g)
         self.dense2 = dense(emb_dim, emb_dim, generator=g)
         self.activation = activation
         self.JAX_NAMES = {"stem_conv": "Conv_0", "stem_norm": "GroupNorm_0",
@@ -176,8 +237,11 @@ class ResNet18(nn.Module):
         x = F.max_pool2d(x, 3, 2, 1)
         for block in self.blocks:
             x = block(x)
-        feat = self.softmax(x).reshape(x.shape[0], -1)
-        return self.dense2(silu(self.dense1(feat)))
+        if self.use_spatial_softmax:
+            feat = self.softmax(x)
+        else:
+            feat = F.avg_pool2d(x, 7, 1).permute(0, 2, 3, 1)
+        return self.dense2(silu(self.dense1(feat.reshape(x.shape[0], -1))))
 
 
 def random_crop(img, crop_h: int, crop_w: int, generator: Optional[torch.Generator] = None,
@@ -265,3 +329,140 @@ class MultiImageObsCondition(BaseNNCondition):
             if not self.keep_horizon_dims:
                 h = h.reshape(b, -1)
         return self._apply_mask(h, self.get_mask(h, mask, train, generator))
+
+
+def _frames(x, lead: int):
+    """(b, ..., C, H, W) with `lead` leading axes before (C, H, W) -> the
+    frames (b * ..., C, H, W) and the leading shape."""
+    shape = tuple(x.shape[:lead])
+    return x.reshape(-1, *x.shape[lead:]), shape
+
+
+class ResNet18ImageCondition(BaseNNCondition):
+    """(b, C, H, W) -> (b, emb) or (b, N, C, H, W) -> (b, N, emb): one
+    GN-ResNet18 over the frames, with condition dropout."""
+
+    JAX_NAMES = {"net": "ResNet18_0"}
+
+    def __init__(self, image_sz: int, in_channel: int, emb_dim: int, group_channels: int = 16,
+                 use_spatial_softmax: bool = True, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.net = ResNet18(in_channel, emb_dim, group_channels, generator=generator,
+                            image_sz=image_sz, use_spatial_softmax=use_spatial_softmax)
+        self.dropout = dropout
+
+    def forward(self, condition, mask=None, train: bool = False, generator=None):
+        if condition.ndim not in (4, 5):
+            raise ValueError(f"expected a 4D or 5D condition, got {tuple(condition.shape)}")
+        frames, lead = _frames(condition, condition.ndim - 3)
+        emb = self.net(frames).reshape(*lead, -1)
+        return self._apply_mask(emb, self.get_mask(emb, mask, train, generator))
+
+
+class ResNet18MultiViewImageCondition(BaseNNCondition):
+    """(b, V, C, H, W) -> (b, V, emb) or (b, V, N, C, H, W) -> (b, V, N,
+    emb): one GN-ResNet18 per view, with condition dropout."""
+
+    JAX_NAMES = {"nets": "ResNet18_{}"}
+
+    def __init__(self, image_sz: int, in_channel: int, emb_dim: int, n_views: int,
+                 group_channels: int = 16, use_spatial_softmax: bool = True,
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.nets = nn.ModuleList(
+            ResNet18(in_channel, emb_dim, group_channels, generator=generator,
+                     image_sz=image_sz, use_spatial_softmax=use_spatial_softmax)
+            for _ in range(n_views))
+        self.dropout = dropout
+
+    def forward(self, condition, mask=None, train: bool = False, generator=None):
+        if condition.ndim not in (5, 6):
+            raise ValueError(f"expected a 5D or 6D condition, got {tuple(condition.shape)}")
+        embs = []
+        for i, net in enumerate(self.nets):
+            frames, lead = _frames(condition[:, i], condition.ndim - 4)
+            embs.append(net(frames).reshape(*lead, -1))
+        emb = torch.stack(embs, 1)
+        return self._apply_mask(emb, self.get_mask(emb, mask, train, generator))
+
+
+class SmallStem(nn.Module):
+    """Shallow-CNN patchifier: (B, C, H, W) -> (B, tokens, d_model)
+    (module note)."""
+
+    def __init__(self, in_channel: int, d_model: int, patch_size: int = 16,
+                 channels_per_group: int = 16, kernel_sizes: Sequence[int] = (3, 3, 3, 3),
+                 strides: Sequence[int] = (2, 2, 2, 2),
+                 features: Sequence[int] = (32, 64, 128, 256),
+                 padding: Sequence[int] = (1, 1, 1, 1),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        convs, norms, c_in = [], [], in_channel
+        for k, s, f, p in zip(kernel_sizes, strides, features, padding):
+            convs.append(conv2d(c_in, f, k, s, p, generator, bias=True))
+            norms.append(_gn(f, channels_per_group))
+            c_in = f
+        ps = max(patch_size // 16, 1)
+        convs.append(conv2d(c_in, d_model, ps, ps, 0, generator, bias=True))
+        self.convs, self.norms, self.d_model = nn.ModuleList(convs), nn.ModuleList(norms), d_model
+        self.JAX_NAMES = {"convs": "Conv_{}", "norms": "GroupNorm_{}"}
+
+    def forward(self, x):
+        for conv, norm in zip(self.convs, self.norms):
+            x = F.relu(norm(conv(x)))
+        x = self.convs[-1](x)
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.d_model)
+
+
+class EarlyConvViTMultiViewImageCondition(BaseNNCondition):
+    """Octo-style early-CNN ViT over multi-view images and lowdim tokens;
+    returns the readout token (module note).
+
+    condition: {"image": (b, V, To, C, H, W), "lowdim": (b, To, lowdim_sz)
+    (with `lowdim_sz`)} -> (b, d_model)."""
+
+    def __init__(self, image_sz: Sequence[int] = (64, 64), in_channels: Sequence[int] = (3, 3),
+                 lowdim_sz: Optional[int] = None, To: int = 1, d_model: int = 384,
+                 nhead: int = 6, num_layers: int = 2, attn_dropout: float = 0.0,
+                 ffn_dropout: float = 0.0, patch_size: Sequence[int] = (16, 16),
+                 channels_per_group: Sequence[int] = (16, 16), dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.n_views, self.d_model, self.dropout = len(image_sz), d_model, dropout
+        self.JAX_NAMES = {"stems": "SmallStem_{}", "transformer": "Transformer_0"}
+        if lowdim_sz is not None:
+            self.lowdim_emb = nn.Parameter(torch.zeros(1, 1, d_model))
+            self.lowdim_proj = dense(lowdim_sz, d_model, generator=g)
+            self.JAX_NAMES["lowdim_proj"] = "Dense_0"
+        self.has_lowdim = lowdim_sz is not None
+        self.stems = nn.ModuleList(
+            SmallStem(c, d_model, p, cpg, generator=g)
+            for c, p, cpg in zip(in_channels, patch_size, channels_per_group))
+        for i in range(self.n_views):
+            self.register_parameter(f"view_emb_{i}", nn.Parameter(torch.zeros(1, 1, d_model)))
+        self.readout_emb = nn.Parameter(torch.zeros(1, 1, d_model))
+        self.transformer = Transformer(d_model, nhead, num_layers, 4, attn_dropout, ffn_dropout,
+                                       generator=g)
+
+    def forward(self, condition: Dict, mask=None, train: bool = False, generator=None):
+        image = condition["image"]
+        b, v, t = image.shape[:3]
+        if v != self.n_views:
+            raise ValueError(f"{v} views given, the encoder has {self.n_views}")
+        tokens = []
+        if self.has_lowdim:
+            tokens.append(self.lowdim_proj(condition["lowdim"]) + self.lowdim_emb)
+        for i, stem in enumerate(self.stems):
+            view = stem(image[:, i].reshape(b * t, *image.shape[3:]))
+            n = t * view.shape[1]
+            pos = sinusoidal_features(torch.arange(n, device=image.device), self.d_model)
+            tokens.append(view.reshape(b, n, self.d_model) + getattr(self, f"view_emb_{i}")
+                          + pos[None])
+        tokens.append(self.readout_emb.expand(b, 1, self.d_model))
+        tokens = torch.cat(tokens, 1)
+        causal = generate_causal_mask(tokens.shape[1], image.device)
+        out, _ = self.transformer(tokens, causal, train, generator)
+        emb = out[:, -1]
+        return self._apply_mask(emb, self.get_mask(emb, mask, train, generator))

@@ -1,8 +1,8 @@
-from .base import timestep_embedding_module
+from .base import BaseNNDiffusion, timestep_embedding_module
 from .chitransformer import ChiTransformer
 from .chiunet import ChiResidualBlock, ChiUNet1d
-from .dit import DiT1d, DiTBlock, FinalLayer1d, modulate
-from .mlps import DQLMlp, DVInvMlp, IDQLMlp, NewIDQLMlp
+from .dit import DiT1d, DiT1Ref, DiTBlock, FinalLayer1d, modulate
+from .mlps import DQLMlp, DVInvMlp, IDQLMlp, MlpNNDiffusion, NewIDQLMlp
 from .pearce import PearceMlp, PearceTransformer
 from .sfbc_unet import SfBCUNet
 from .jannerunet import (

@@ -11,10 +11,18 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
 
 from ..utils.embeddings import SUPPORTED_TIMESTEP_EMBEDDING
 
-__all__ = ["timestep_embedding_module"]
+__all__ = ["BaseNNDiffusion", "timestep_embedding_module"]
+
+
+class BaseNNDiffusion(nn.Module):
+    """forward(x, t, emb=None) -> prediction of x's shape."""
+
+    def forward(self, x, t, emb=None):
+        raise NotImplementedError
 
 
 def timestep_embedding_module(emb_dim: int, kind: str = "positional",

@@ -7,6 +7,14 @@ JAX `(in, out)` orientation, so the fused kernel (ops/dit_block.py) reads
 the weights as they are stored. The adaLN modulation and the final layer
 are zero-initialised: a freshly built net outputs exactly 0 and every block
 is the identity.
+
+`DiT1Ref` (no pipeline uses it) splits its input's channels into a
+reference trajectory and the trajectory to denoise, projects both with one
+`x_proj`, and in each block runs cross-attention from the trajectory to the
+reference (`_MultiHeadAttention`, flax's `MultiHeadDotProductAttention`
+with xavier kernels) before a plain `DiTBlock`; the output carries the
+reference half through unchanged. No config turns a fused block on there,
+as in the reference, so it launches no kernel.
 """
 
 from __future__ import annotations
@@ -18,11 +26,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dit_block import dit_block_op, dit_block_reference
-from ..utils.blocks import dense, normal_init, promote, xavier_uniform_init, zeros_init
+from ..utils.blocks import (
+    _MultiHeadAttention,
+    dense,
+    normal_init,
+    promote,
+    xavier_uniform_init,
+    zeros_init,
+)
 from ..utils.embeddings import mish, sinusoidal_features
 from .base import timestep_embedding_module
 
-__all__ = ["DiT1d", "DiTBlock", "FinalLayer1d", "modulate"]
+__all__ = ["DiT1d", "DiT1Ref", "DiTBlock", "FinalLayer1d", "modulate"]
 
 
 def modulate(x, shift, scale):
@@ -128,3 +143,53 @@ class DiT1d(nn.Module):
         for block in self.blocks:
             x = block(x, te)
         return self.final(x, te)
+
+
+class DiT1Ref(nn.Module):
+    """(b, H, 2 in_dim) -> (b, H, 2 in_dim): the first in_dim channels are
+    the reference trajectory, passed through; the rest are denoised with
+    cross-attention to the reference in every block (module note)."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        emb_dim: int,
+        d_model: int = 384,
+        n_heads: int = 6,
+        depth: int = 12,
+        timestep_emb_type: str = "positional",
+        timestep_emb_params: Optional[dict] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        g = generator
+        self.d_model = d_model
+        self.x_proj = dense(in_dim, d_model, xavier_uniform_init, generator=g)
+        self.t_emb = timestep_embedding_module(emb_dim, timestep_emb_type,
+                                               timestep_emb_params, g)
+        self.t_dense1 = dense(emb_dim, d_model, normal_init(0.02), generator=g)
+        self.t_dense2 = dense(d_model, d_model, normal_init(0.02), generator=g)
+        self.attns = nn.ModuleList(
+            _MultiHeadAttention(d_model, n_heads, g, kernel_init=xavier_uniform_init)
+            for _ in range(depth))
+        self.blocks = nn.ModuleList(DiTBlock(d_model, n_heads, False, g) for _ in range(depth))
+        self.final = FinalLayer1d(d_model, in_dim, g)
+        # flax names: x_proj is named there, so the time MLP is Dense_0, Dense_1
+        self.JAX_NAMES = {
+            "t_emb": f"{type(self.t_emb).__name__}_0", "t_dense1": "Dense_0",
+            "t_dense2": "Dense_1", "attns": "MultiHeadDotProductAttention_{}",
+            "blocks": "PallasDiTBlock_{}", "final": "FinalLayer1d_0",
+        }
+
+    def forward(self, x, t, emb=None):
+        pos = sinusoidal_features(torch.arange(x.shape[1], device=x.device), self.d_model)
+        x_ref, x_main = x.chunk(2, dim=-1)
+        ref = self.x_proj(x_ref) + pos[None]
+        h = self.x_proj(x_main) + pos[None]
+        te = self.t_emb(t)
+        if emb is not None:
+            te = te + emb
+        te = mish(self.t_dense2(mish(self.t_dense1(te))))
+        for attn, block in zip(self.attns, self.blocks):
+            h = block(attn(h, kv=ref), te)
+        return torch.cat([x_ref, self.final(h, te)], dim=-1)

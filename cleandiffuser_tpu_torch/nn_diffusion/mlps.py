@@ -20,27 +20,49 @@ condition to f32, so the trunk runs f32 on bf16-rounded weights, as the
 reference's does (utils/blocks.py `Dense`, `layer_norm`).
 
 `IDQLMlp` is also SynthER's backbone, over flat transitions with
-`obs_dim=0`. `MlpNNDiffusion` belongs to ROADMAP queue 1, item 9 (modules no
-pipeline uses).
+`obs_dim=0`. `MlpNNDiffusion`, which no pipeline uses, is a plain `Mlp`
+(`Mlp_0`) over [x, time embedding (+ emb)].
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..utils.blocks import LayerNorm, dense
+from ..utils.blocks import LayerNorm, Mlp, dense
 from ..utils.embeddings import mish
-from .base import timestep_embedding_module
+from .base import BaseNNDiffusion, timestep_embedding_module
 
-__all__ = ["DQLMlp", "IDQLMlp", "NewIDQLMlp", "DVInvMlp"]
+__all__ = ["MlpNNDiffusion", "DQLMlp", "IDQLMlp", "NewIDQLMlp", "DVInvMlp"]
 
 
 def _time_emb_names(module: nn.Module) -> dict:
     """The flax names of a backbone's time embedding and its MLP."""
     return {"time_emb": f"{type(module.time_emb).__name__}_0", "time_mlp": "_TimeMlp_0"}
+
+
+class MlpNNDiffusion(BaseNNDiffusion):
+    """(b, x_dim) -> (b, x_dim): [x, time embedding + emb] through an `Mlp`
+    of `hidden_dims` with `activation`; `emb` (b, emb_dim) or None."""
+
+    def __init__(self, x_dim: int, emb_dim: int = 16, hidden_dims: Sequence[int] = (256, 256),
+                 activation: Callable = F.relu, timestep_emb_type: str = "positional",
+                 timestep_emb_params: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.time_emb = timestep_embedding_module(emb_dim, timestep_emb_type, timestep_emb_params,
+                                                  generator)
+        self.mlp = Mlp(x_dim + emb_dim, hidden_dims, x_dim, activation, generator=generator)
+        self.JAX_NAMES = {"time_emb": f"{type(self.time_emb).__name__}_0", "mlp": "Mlp_0"}
+
+    def forward(self, x, t, emb=None):
+        te = self.time_emb(t)
+        if emb is not None:
+            te = te + emb
+        return self.mlp(torch.cat([x, te], dim=-1))
 
 
 class _TimeMlp(nn.Module):

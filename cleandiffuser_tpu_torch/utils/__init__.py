@@ -1,19 +1,67 @@
-from .blocks import DVHorizonCritic, DVTransformerBlock, IDQLVNet, dense, xavier_uniform_init
+from .blocks import (
+    V,
+    DQLCritic,
+    DVHorizonCritic,
+    DVTransformerBlock,
+    FeedForward,
+    IDQLQNet,
+    IDQLVNet,
+    Mlp,
+    MultiHeadAttention,
+    SoftLowerBound,
+    SoftUpperBound,
+    Transformer,
+    TwinQ,
+    dense,
+    dropout,
+    generate_causal_mask,
+    xavier_uniform_init,
+)
 from .embeddings import (
     SUPPORTED_TIMESTEP_EMBEDDING,
     FourierEmbedding,
     PositionalEmbedding,
+    SinusoidalEmbedding,
+    UntrainableFourierEmbedding,
+    UntrainablePositionalEmbedding,
+    get_timestep_embedding,
     mish,
     positional_features,
     sinusoidal_features,
+)
+from .iql import IQL, IQLState
+from .normalizers import (
+    CDFNormalizer,
+    CDFNormalizer1d,
+    DatasetGaussianNormalizer,
+    DatasetMinMaxNormalizer,
+    EmptyNormalizer,
+    GaussianNormalizer,
+    ImageNormalizer,
+    MinMaxNormalizer,
 )
 from .schedules import (
     SUPPORTED_DISCRETIZATIONS,
     SUPPORTED_NOISE_SCHEDULES,
     SUPPORTED_SAMPLING_STEP_SCHEDULE,
+    cosine_beta_schedule,
+    cosine_noise_schedule,
+    inverse_cosine_noise_schedule,
+    inverse_linear_noise_schedule,
+    karras_sigma_schedule,
+    linear_beta_schedule,
     linear_noise_schedule,
+    uniform_discretization,
 )
-from .tensors import at_least_ndim
+from .tensors import (
+    at_least_ndim,
+    count_parameters,
+    dict_apply,
+    loop_dataloader,
+    report_parameters,
+    set_seed,
+)
+from .train_state import ema_update, load_state, make_optimizer, save_state
 
 # Decision Diffuser return-normalization scales
 # (same table as cleandiffuser_tpu/utils/__init__.py)

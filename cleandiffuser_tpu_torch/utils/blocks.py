@@ -21,7 +21,11 @@ param trees. So do Diffusion Veteran's critic transformer
 `DenseGeneral` projections load flax's `MultiHeadDotProductAttention`
 kernels, (D, heads, head_dim) and (heads, head_dim, D); the Chi
 transformer's attention is the same module with keys and values from a
-memory, a mask and an attention-weight dropout mask.
+memory, a mask and an attention-weight dropout mask. The early-conv ViT's
+pre-norm `Transformer` (`LayerNorm_i`, `MultiHeadAttention_i` with
+`q_layer` / `k_layer` / `v_layer` and no output projection, `FeedForward_i`)
+is a separate module, as in the reference; with `SoftLowerBound`,
+`SoftUpperBound` and `generate_causal_mask` it has no pipeline caller.
 
 Type promotion. PyTorch does not promote inside a product (`f32 @ bf16`
 raises), while `jnp` and flax's `Dense` cast the operands to their common
@@ -68,10 +72,18 @@ __all__ = [
     "DQLCritic",
     "TwinQ",
     "V",
+    "IDQLQNet",
     "IDQLVNet",
     "DenseGeneral",
     "DVTransformerBlock",
     "DVHorizonCritic",
+    "SoftLowerBound",
+    "SoftUpperBound",
+    "FeedForward",
+    "MultiHeadAttention",
+    "Transformer",
+    "generate_causal_mask",
+    "dropout",
 ]
 
 Init = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
@@ -346,6 +358,7 @@ class V(_QHead):
         super().__init__(obs_dim, hidden_dim, (F.mish, F.mish), generator)
 
 
+IDQLQNet = TwinQ
 IDQLVNet = V
 
 
@@ -358,23 +371,25 @@ class DenseGeneral(Dense):
     attention query. utils/jax_params.py reshapes between the two."""
 
     def __init__(self, in_features: int, out_features: int, kernel_shape, bias_shape,
-                 device=None):
-        super().__init__(in_features, out_features, device=device)
+                 device=None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, device=device)
         self.jax_shapes = {"weight": tuple(kernel_shape), "bias": tuple(bias_shape)}
 
 
 @torch.no_grad()
 def _dense_general(in_dim: int, out_dim: int, kernel_shape, bias_shape,
                    generator: Optional[torch.Generator] = None,
-                   kernel_init: Optional[Init] = None) -> DenseGeneral:
+                   kernel_init: Optional[Init] = None, bias: bool = True) -> DenseGeneral:
     """flax's default init of a DenseGeneral (lecun normal on the kernel's
-    fan-in, `in_dim`), or `kernel_init`; zero bias."""
-    layer = nn.utils.skip_init(DenseGeneral, in_dim, out_dim, kernel_shape, bias_shape)
+    fan-in, `in_dim`), or `kernel_init`; zero bias (none without `bias`)."""
+    layer = nn.utils.skip_init(DenseGeneral, in_dim, out_dim, kernel_shape, bias_shape,
+                               bias=bias)
     if kernel_init is None:
         lecun_normal_init(layer.weight, generator, fan_in=in_dim)
     else:
         kernel_init(layer.weight, generator)
-    zeros_init(layer.bias)
+    if bias:
+        zeros_init(layer.bias)
     return layer
 
 
@@ -491,3 +506,129 @@ class DVHorizonCritic(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.head(x)[:, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# Bounds and the pre-norm transformer encoder (the early-conv ViT's)
+class SoftLowerBound(nn.Module):
+    """lb + softplus(x - lb)."""
+
+    def __init__(self, lower_bound: float):
+        super().__init__()
+        self.lower_bound = lower_bound
+
+    def forward(self, x):
+        return self.lower_bound + F.softplus(x - self.lower_bound)
+
+
+class SoftUpperBound(nn.Module):
+    """ub - softplus(ub - x)."""
+
+    def __init__(self, upper_bound: float):
+        super().__init__()
+        self.upper_bound = upper_bound
+
+    def forward(self, x):
+        return self.upper_bound - F.softplus(self.upper_bound - x)
+
+
+def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = None):
+    """flax's `nn.Dropout(rate)`: in training each entry kept with
+    probability 1 - rate (its keep-mask drawn from `generator`) and scaled
+    by 1 / (1 - rate); the identity otherwise."""
+    if not train or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class FeedForward(nn.Module):
+    """Dense(hidden_scale * d_model), tanh-GELU (flax's `nn.gelu`), dropout,
+    Dense(d_model), dropout."""
+
+    JAX_NAMES = {"dense1": "Dense_0", "dense2": "Dense_1"}
+
+    def __init__(self, d_model: int, hidden_scale: int = 4, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = int(d_model * hidden_scale)
+        self.dense1 = dense(d_model, hidden, generator=generator)
+        self.dense2 = dense(hidden, d_model, generator=generator)
+        self.rate = dropout
+
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        h = dropout(F.gelu(self.dense1(x), approximate="tanh"), self.rate, train, generator)
+        return dropout(self.dense2(h), self.rate, train, generator)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with separate q, k and v inputs and no output
+    projection: q and k projected without bias (with one under `bias`), v
+    with one, each to (heads, d_model / heads); softmax(q k^T / sqrt(d_k))
+    per head; heads concatenated. `mask` (i, j) or (b, i, j): entries equal
+    to 0 are masked out (-inf before the softmax). Returns the output and
+    the attention map (b, heads, i, j), detached. Distinct from
+    `_MultiHeadAttention`, the counterpart of flax's
+    `MultiHeadDotProductAttention`."""
+
+    JAX_NAMES = {"q": "q_layer", "k": "k_layer", "v": "v_layer"}
+
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0, bias: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if d_model % nhead:
+            raise ValueError(f"d_model {d_model} is not a multiple of nhead {nhead}")
+        d_k = d_model // nhead
+        self.nhead, self.d_k, self.rate = nhead, d_k, dropout
+        shapes = ((d_model, nhead, d_k), (nhead, d_k))
+        self.q = _dense_general(d_model, d_model, *shapes, generator, bias=bias)
+        self.k = _dense_general(d_model, d_model, *shapes, generator, bias=bias)
+        self.v = _dense_general(d_model, d_model, *shapes, generator)
+
+    def forward(self, q, k, v, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        heads = lambda h: h.view(*h.shape[:2], self.nhead, self.d_k)
+        qh, kh, vh = promote(heads(self.q(q)), heads(self.k(k)), heads(self.v(v)))
+        scores = torch.einsum("bihd,bjhd->bhij", qh, kh) * self.d_k**-0.5
+        if mask is not None:
+            mask = mask[None, None] if mask.ndim == 2 else mask[:, None]
+            scores = scores.masked_fill(mask == 0, float("-inf"))
+        attn = dropout(torch.softmax(scores, dim=-1), self.rate, train, generator)
+        out = torch.einsum("bhij,bjhd->bihd", attn, vh)
+        return out.reshape(*out.shape[:2], -1), attn.detach()
+
+
+class Transformer(nn.Module):
+    """Pre-norm transformer encoder: per layer x = MHA(LN(x)) + x, x =
+    FFN(LN(x)) + x. Returns the output and each layer's attention map."""
+
+    JAX_NAMES = {"norms": "LayerNorm_{}", "attns": "MultiHeadAttention_{}",
+                 "ffns": "FeedForward_{}"}
+
+    def __init__(self, d_model: int, nhead: int, num_layers: int, hidden_scale: int = 4,
+                 attn_dropout: float = 0.0, ffn_dropout: float = 0.0, bias: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        # LayerNorm_{2i} before layer i's attention, LayerNorm_{2i+1} before its FFN
+        self.norms = nn.ModuleList(LayerNorm(d_model) for _ in range(2 * num_layers))
+        self.attns = nn.ModuleList(MultiHeadAttention(d_model, nhead, attn_dropout, bias, g)
+                                   for _ in range(num_layers))
+        self.ffns = nn.ModuleList(FeedForward(d_model, hidden_scale, ffn_dropout, g)
+                                  for _ in range(num_layers))
+
+    def forward(self, x, mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        attn_maps = []
+        for i, (attn, ffn) in enumerate(zip(self.attns, self.ffns)):
+            h = self.norms[2 * i](x)
+            h, attn_map = attn(h, h, h, mask, train, generator)
+            attn_maps.append(attn_map)
+            x = h + x
+            x = ffn(self.norms[2 * i + 1](x), train, generator) + x
+        return x, attn_maps
+
+
+def generate_causal_mask(length: int, device=None):
+    """Lower-triangular 1/0 mask (length, length)."""
+    return torch.tril(torch.ones((length, length), device=device))

@@ -3,8 +3,9 @@
 All embeddings accept a (b,) or (...,) timestep tensor and return (..., dim)
 features. Ported so far: the positional embedding (DiT1d's default), the
 Fourier embedding DD's DiT1d uses, the untrainable Fourier features of
-SfBC's U-Net and QGPO's energy net, and the sinusoidal features of DiT1d's
-token positions.
+SfBC's U-Net and QGPO's energy net, the sinusoidal features of DiT1d's
+token positions and `SinusoidalEmbedding`, their module (no pipeline uses
+it).
 """
 
 from __future__ import annotations
@@ -22,7 +23,10 @@ __all__ = [
     "PositionalEmbedding",
     "FourierEmbedding",
     "UntrainableFourierEmbedding",
+    "SinusoidalEmbedding",
+    "UntrainablePositionalEmbedding",
     "SUPPORTED_TIMESTEP_EMBEDDING",
+    "get_timestep_embedding",
     "mish",
     "positional_features",
     "sinusoidal_features",
@@ -78,6 +82,21 @@ class PositionalEmbedding(nn.Module):
         return positional_features(x, self.dim, self.max_positions, self.endpoint)
 
 
+# the reference's "untrainable_positional" is the same parameter-free math
+UntrainablePositionalEmbedding = PositionalEmbedding
+
+
+class SinusoidalEmbedding(nn.Module):
+    """Transformer sinusoidal features [sin | cos] (parameter-free module)."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return sinusoidal_features(x, self.dim)
+
+
 class FourierEmbedding(nn.Module):
     """Random-Fourier embedding followed by a 2-layer Mish MLP: freqs ~
     N(0, scale^2) of size dim//8, [cos | sin] features of size dim//4, then
@@ -126,3 +145,8 @@ SUPPORTED_TIMESTEP_EMBEDDING = {
     "fourier": FourierEmbedding,
     "untrainable_fourier": UntrainableFourierEmbedding,
 }
+
+
+def get_timestep_embedding(kind: str, dim: int, params: Optional[dict] = None,
+                           generator: Optional[torch.Generator] = None) -> nn.Module:
+    return SUPPORTED_TIMESTEP_EMBEDDING[kind](dim=dim, generator=generator, **(params or {}))

@@ -21,6 +21,7 @@ import torch
 from cleandiffuser_tpu.pipelines.adaptdiffuser import AdaptDiffuserPipeline as JaxAdaptDiffuser
 from cleandiffuser_tpu_torch.pipelines import AdaptDiffuserPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -83,7 +84,10 @@ def _assert_tree_close(got, want):
 
 @pytest.fixture(scope="module")
 def pipes():
-    jpipe = JaxAdaptDiffuser(**CFG)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxAdaptDiffuser(**CFG)
     w = [_seeded(t, s) for s, t in enumerate(
         (jpipe.agent.state.params, jpipe.agent.state.ema_params, jpipe.classifier.state.params,
          jpipe.classifier.state.ema_params), start=1)]

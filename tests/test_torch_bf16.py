@@ -47,6 +47,7 @@ from cleandiffuser_tpu_torch.ops.dit_block import dit_block_reference
 from cleandiffuser_tpu_torch.parallel import setup_mesh
 from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, load_agent_params
+from test_torch_bf16_backbones import jit_exact
 
 torch.set_num_threads(1)
 
@@ -55,11 +56,13 @@ DD_CFG = dict(obs_dim=5, act_dim=3, horizon=8, emb_dim=32, d_model=64, n_heads=4
 E = 4
 # the JAX package's bf16-against-f32 bounds (tests/test_bf16_sampling.py:67-70, :105)
 BF16_MAX, BF16_MEAN, BF16_LOSS_RTOL = 0.02, 0.005, 0.05
-# port against JAX, both bf16, the JAX side run op by op (`jax.disable_jit`):
-# under jit, XLA's CPU compiler drops a convert pair f32 -> bf16 -> f32 where
-# it sees one (excess precision), so a jitted JAX program skips some of the
-# bf16 roundings its source asks for, and lands ~1e-3 of scale away from
-# both. Plans, max |diff| / scale (measured 4.8e-7 DD, 2.9e-7 ddpm); losses
+# port against JAX, both bf16, the JAX side compiled with XLA's excess
+# precision off (`jit_exact`, test_torch_bf16_backbones.py): with it on,
+# XLA's CPU compiler drops a convert pair f32 -> bf16 -> f32 where it sees
+# one, so a jitted JAX program skips some of the bf16 roundings its source
+# asks for, and lands ~1e-3 of scale away from both; off, it makes every
+# rounding, as the op-by-op run (`jax.disable_jit`) these limits were first
+# read from does. Plans, max |diff| / scale (measured 4.8e-7 DD, 2.9e-7 ddpm); losses
 # (measured 1.2e-7 relative); the gradient norm (measured 7.1e-6: a bias's
 # gradient, see the update test).
 PLAN_TOL = 1e-5
@@ -133,9 +136,8 @@ def dd_plans():
     try:
         for bf16 in (False, True):
             jpipe.agent.bf16_sampling = tpipe.agent.bf16_sampling = bf16
-            with jax.disable_jit():
-                _, traj_j = jpipe._make_plan_fn(E)(_jt(ema), _jt(inv), rng, jnp.asarray(obs),
-                                                   cond)
+            jargs = (_jt(ema), _jt(inv), rng, jnp.asarray(obs), cond)
+            _, traj_j = jit_exact(jpipe._make_plan_fn(E), *jargs)(*jargs)
             _, info = tpipe.act(obs, noise=noise)
             out[bf16] = (np.asarray(traj_j), info["traj"].numpy())
     finally:
@@ -203,9 +205,10 @@ def test_ddpm_bf16_plan_matches_jax():
     out = {}
     for bf16 in (False, True):
         jeng.bf16_sampling = teng.bf16_sampling = bf16
-        with jax.disable_jit():
-            x_j, _ = jeng.build_sample_fn(**skw)(_jt(ema), None, rng, prior,
-                                                 condition_cfg=jnp.asarray(cond), w_cfg=1.0)
+        fn = jeng.build_sample_fn(**skw)  # a fresh trace per setting: it reads the flag
+        jargs = (_jt(ema), rng, prior, jnp.asarray(cond))
+        x_j, _ = jit_exact(lambda p, r, x, c: fn(p, None, r, x, condition_cfg=c, w_cfg=1.0),
+                           *jargs)(*jargs)
         x_t, _ = teng.build_sample_fn(**skw)(teng.ema_params, None, torch.zeros(prior.shape),
                                              condition_cfg=torch.from_numpy(cond), w_cfg=1.0,
                                              noise=noise)
@@ -236,14 +239,16 @@ def bf16_training():
     try:
         for bf16 in (False, True):
             jpipe.agent.bf16_training = tpipe.agent.bf16_training = bf16
-            with jax.disable_jit():
-                loss_j = float(jpipe.agent.loss_fn(jpipe.agent.state.params, sub, obs, cond))
+            jargs = (jpipe.agent.state.params, sub, obs, cond)
+            loss_j = float(jit_exact(jpipe.agent.loss_fn, *jargs)(*jargs))
             losses[bf16] = (
                 loss_j,
                 float(tpipe.agent.loss_fn(tpipe.agent.params, torch.from_numpy(np.asarray(obs)),
                                           torch.from_numpy(np.asarray(cond)), noise=noise)))
-        with jax.disable_jit():
-            log_j = jpipe.agent.update(obs, cond)
+        # the engine's own update program (`update` jits it), compiled exact
+        jargs = (jpipe.agent.state, obs, cond, None)
+        jpipe.agent.state, log_j = jit_exact(jpipe.agent._make_update_fn(True, False),
+                                             *jargs)(*jargs)
         log_t = tpipe.agent.update(torch.from_numpy(np.asarray(obs)),
                                    torch.from_numpy(np.asarray(cond)), noise=noise)
     finally:
@@ -367,7 +372,6 @@ def diffuser_bf16():
     which promotes as flax's block does). The JAX side is compiled with
     XLA's excess precision off (test_torch_bf16_backbones.py `jit_exact`);
     the f32 plan beside it, for the bf16 against f32 bounds."""
-    from test_torch_bf16_backbones import jit_exact
     from test_torch_diffuser_slice import CFG as PLAN_CFG
     from test_torch_diffuser_slice import E as DE
     from test_torch_diffuser_slice import K as DK

@@ -49,6 +49,7 @@ from cleandiffuser_tpu_torch.cli import (
 from cleandiffuser_tpu_torch.pipelines.data_loading import load_d4rl_dataset
 from cleandiffuser_tpu_torch.utils.config import load_config
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -160,8 +161,12 @@ def test_cli_builds_what_the_jax_cli_builds(family, tmp_path, monkeypatch):
     monkeypatch.setattr(jcli, "D4RLMuJoCoDataset", record("dataset", data_cls))
     monkeypatch.setattr(jcli, "planner_window_fn", lambda *a, **kw: None)
     monkeypatch.setattr(jcli, "train_loop", lambda *a, **kw: None)
-    jcli.pipeline(jax_load_config(CLI[family].CONFIG_DIR, "mujoco",
-                                  ["mode=train", *SMALL[family]]))
+    # the JAX nets' init values are not compared: the build takes their
+    # param shapes without compiling the inits (tests/jax_shaped_init.py),
+    # and seeded weights stand in for them below
+    with shaped_inits():
+        jcli.pipeline(jax_load_config(CLI[family].CONFIG_DIR, "mujoco",
+                                      ["mode=train", *SMALL[family]]))
 
     dataset, pipe = CLI[family].build(_config(family), "cpu")
     jds, jpipe = built["dataset"], built["pipe"]
@@ -171,7 +176,9 @@ def test_cli_builds_what_the_jax_cli_builds(family, tmp_path, monkeypatch):
         np.testing.assert_array_equal(getattr(dataset.get_normalizer(), stat),
                                       getattr(jds.get_normalizer(), stat))
 
-    tree = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), t)
+    rng = np.random.default_rng(0)
+    tree = lambda t: jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(np.shape(a)).astype(np.float32), t)
     if family == "dd":
         weights = (tree(jpipe.agent.state.params), tree(jpipe.agent.state.ema_params),
                    tree(jpipe.invdyn.params))
@@ -347,7 +354,8 @@ def test_suite_cli_builds_what_the_jax_cli_builds(family, suite, tmp_path, monke
     monkeypatch.setattr(jcli, "planner_window_fn", lambda *a, **kw: None)
     monkeypatch.setattr(jcli, "train_loop", lambda *a, **kw: None)
     cli = SUITE_CLI[(family, suite)]
-    jcli.pipeline(jax_load_config(cli.CONFIG_DIR, suite, ["mode=train", *SMALL[family]]))
+    with shaped_inits():  # only the param shapes are compared (tests/jax_shaped_init.py)
+        jcli.pipeline(jax_load_config(cli.CONFIG_DIR, suite, ["mode=train", *SMALL[family]]))
 
     dataset, pipe = cli.build(_suite_config(family, suite), "cpu")
     assert type(pipe).__name__ == pipe_name and type(dataset).__name__ == data_name

@@ -22,6 +22,7 @@ import torch
 from cleandiffuser_tpu.pipelines.dd import DDPipeline as JaxDDPipeline
 from cleandiffuser_tpu_torch.pipelines import DDPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -102,7 +103,10 @@ def _assert_tree_close(got, want):
 
 @pytest.fixture(scope="module")
 def run():
-    jpipe = JaxDDPipeline(**CFG, use_pallas_block=True)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDDPipeline(**CFG, use_pallas_block=True)
     params, ema = _seeded(jpipe.agent.state.params, 1), _seeded(jpipe.agent.state.ema_params, 2)
     inv = _seeded(jpipe.invdyn.params, 3)
     jpipe.agent.state = jpipe.agent.state.replace(params=_jt(params), ema_params=_jt(ema))

@@ -19,6 +19,7 @@ import torch
 from cleandiffuser_tpu.pipelines.dd import DDPipeline as JaxDDPipeline
 from cleandiffuser_tpu_torch.pipelines import DDPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -57,7 +58,10 @@ def _jax_noise(rng, shape, steps):
 @pytest.fixture(scope="module", params=["flat", "nested"])
 def plans(request):
     flat = request.param == "flat"
-    jpipe = JaxDDPipeline(**CFG, use_pallas_block=flat)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDDPipeline(**CFG, use_pallas_block=flat)
     params = _seeded(jpipe.agent.state.params, 1)
     ema = _seeded(jpipe.agent.state.ema_params, 2)
     inv = _seeded(jpipe.invdyn.params, 3)

@@ -37,6 +37,7 @@ from cleandiffuser_tpu_torch.utils.jax_params import (
     jax_params_of,
     load_agent_params,
 )
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -154,7 +155,10 @@ def _assert_state_matches(tpipe, jpipe):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    jpipe = JaxDDPipeline(**CFG, use_pallas_block=True)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDDPipeline(**CFG, use_pallas_block=True)
     # the Fourier frequencies are a stop-gradient param in both packages:
     # the EMA blends them from its own start
     params, ema = _seeded(jpipe.agent.state.params, 1), _seeded(jpipe.agent.state.ema_params, 2)
@@ -229,7 +233,10 @@ def test_state_after_three_steps_matches_jax(run):
 def test_jax_checkpoint_resumes_in_the_port(run):
     """A JAX `save` after 2 steps, loaded into a fresh JAX pipeline and into
     a fresh port pipeline; step 3 on both (the port with the JAX draws)."""
-    jres = JaxDDPipeline(**CFG, use_pallas_block=True)
+    # every leaf is loaded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jres = JaxDDPipeline(**CFG, use_pallas_block=True)
     jres.load(run["ckpt"])
     tres = DDPipeline(**CFG, use_pallas_block=True, device="cpu")
     tres.load_jax_checkpoint(run["ckpt"] + ".diffusion", run["ckpt"] + ".invdyn")

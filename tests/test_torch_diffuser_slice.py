@@ -21,6 +21,7 @@ import torch
 from cleandiffuser_tpu.pipelines.diffuser import DiffuserPipeline as JaxDiffuserPipeline
 from cleandiffuser_tpu_torch.pipelines import DiffuserPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, jax_params_of
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -58,7 +59,10 @@ def _jax_noise(rng, shape, steps):
 @pytest.fixture(scope="module", params=["x0", "eps"])
 def plans(request):
     predict_noise = request.param == "eps"
-    jpipe = JaxDiffuserPipeline(**CFG, predict_noise=predict_noise)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDiffuserPipeline(**CFG, predict_noise=predict_noise)
     weights = dict(params=_seeded(jpipe.agent.state.params, 1),
                    ema_params=_seeded(jpipe.agent.state.ema_params, 2),
                    cls_params=_seeded(jpipe.classifier.state.params, 3),
@@ -155,7 +159,10 @@ def test_discrete_tables_match_jax():
     """DiscreteDiffusionSDE's integer levels, exactly, and its alpha/sigma
     tables to a few ulps: the two libraries' float32 cos may differ by one,
     which sigma = sqrt(1 - alpha^2) amplifies where alpha is near 1."""
-    jpipe = JaxDiffuserPipeline(**CFG)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDiffuserPipeline(**CFG)
     tpipe = DiffuserPipeline(**CFG, device="cpu")
     for steps in (3, 20):
         want = jpipe.agent._sample_tables("uniform", steps, None)

@@ -39,6 +39,7 @@ from cleandiffuser_tpu_torch.utils.jax_params import (
     jax_params_of,
     load_agent_params,
 )
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -155,7 +156,10 @@ def _assert_state_matches(tpipe, jpipe):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    jpipe = JaxDiffuserPipeline(**CFG)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = JaxDiffuserPipeline(**CFG)
     w = [_seeded(t, s) for s, t in enumerate(
         (jpipe.agent.state.params, jpipe.agent.state.ema_params, jpipe.classifier.state.params,
          jpipe.classifier.state.ema_params), start=1)]

@@ -49,6 +49,7 @@ from cleandiffuser_tpu_torch.pipelines import diffuserlite_value as tvalue
 from cleandiffuser_tpu_torch.utils.iql import IQL
 from cleandiffuser_tpu_torch.utils.jax_params import load_agent_params, load_jax_params
 from cleandiffuser_tpu_torch.utils.train_state import read_jax_pickle
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -83,7 +84,10 @@ def _seeded(tree, seed):
 
 @pytest.fixture
 def pair(tmp_path):
-    jp = JaxLite(**CFG, rng=0)
+    # every leaf is seeded below: no compile of the nets' inits
+    # (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jp = JaxLite(**CFG, rng=0)
     for i, d in enumerate(jp.diffusions):
         d.state = d.state.replace(params=_seeded(d.state.params, 10 + i),
                                   ema_params=_seeded(d.state.ema_params, 20 + i))

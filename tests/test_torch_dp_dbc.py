@@ -83,6 +83,7 @@ from test_torch_dql import _np, _sampler_noise, _seeded, _t
 from test_torch_edm_cm import _close_tree, _jt
 from test_torch_imitation_backbones import _FlaxMasks
 from test_torch_sfbc import FLIP_SHARE
+from jax_shaped_init import shaped_inits
 
 import flax.linen.attention as flax_attention
 import flax.linen.stochastic as flax_stochastic
@@ -136,7 +137,10 @@ def _pair(kind, nn, diffusion, x_steps=0):
         J, P = (jdp.DPPipeline, tdp.DPPipeline) if kind == "dp" else (jdbc.DBCPipeline,
                                                                       tdbc.DBCPipeline)
         cfg = _cfg(kind, nn, diffusion, x_steps)
-        _PAIRS[key] = (J(**cfg), P(**cfg, device="cpu"))
+        # every leaf is seeded below: the JAX build takes its nets' param
+        # shapes without compiling their inits (tests/jax_shaped_init.py)
+        with shaped_inits():
+            _PAIRS[key] = (J(**cfg), P(**cfg, device="cpu"))
     jp, tp = _PAIRS[key]
     st = jp.agent.state
     params, ema = _seeded(st.params, 1), _seeded(st.ema_params, 2)

@@ -33,6 +33,7 @@ from cleandiffuser_tpu_torch.nn_condition import MLPCondition
 from cleandiffuser_tpu_torch.nn_diffusion import DiT1d
 from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import agent_params_of, load_agent_params
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -77,7 +78,8 @@ def decay_run():
     rng = np.random.default_rng(0)
     xs = [rng.standard_normal((B, H, X)).astype(np.float32) for _ in range(STEPS)]
     conds = [rng.standard_normal((B, C)).astype(np.float32) for _ in range(STEPS)]
-    jeng.init(jnp.asarray(xs[0]), jnp.asarray(conds[0]))
+    with shaped_inits():  # every leaf is seeded below
+        jeng.init(jnp.asarray(xs[0]), jnp.asarray(conds[0]))
     params, ema = _seeded(jeng.state.params, 1), _seeded(jeng.state.ema_params, 2)
     jeng.state = jeng.state.replace(params=jax.tree_util.tree_map(jnp.asarray, params),
                                     ema_params=jax.tree_util.tree_map(jnp.asarray, ema))
@@ -178,7 +180,10 @@ def test_budget_after_a_jax_checkpoint(name, tmp_path):
     the next step trains no second model; resumed in the JAX package, its
     `train_step` trains it again (its host counter restarts at 0)."""
     cls, jax_cls, cfg, key, suffix = PIPES[name]
-    jpipe = jax_cls(**cfg)
+    # the nets' initial values are not read here: the JAX builds take their
+    # param shapes without compiling the inits (tests/jax_shaped_init.py)
+    with shaped_inits():
+        jpipe = jax_cls(**cfg)
     for i in range(3):
         jpipe.train_step(jax.tree_util.tree_map(jnp.asarray, _batch(cfg, i)))
     path = str(tmp_path / "jax")
@@ -187,6 +192,7 @@ def test_budget_after_a_jax_checkpoint(name, tmp_path):
     port.load_jax_checkpoint(path + ".diffusion", path + suffix)
     assert port.agent.step == 3
     assert key not in port.train_step(_batch(cfg, 9))
-    jres = jax_cls(**cfg)
+    with shaped_inits():
+        jres = jax_cls(**cfg)
     jres.load(path)
     assert key in jres.train_step(jax.tree_util.tree_map(jnp.asarray, _batch(cfg, 9)))

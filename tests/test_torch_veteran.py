@@ -48,6 +48,7 @@ from cleandiffuser_tpu_torch.dataset import D4RLMuJoCoTDDataset, DV_D4RLMuJoCoSe
 from cleandiffuser_tpu_torch.dataset.fake import fake_d4rl_dataset, fake_d4rl_qlearning_dataset
 from cleandiffuser_tpu_torch.pipelines import VeteranPipeline
 from cleandiffuser_tpu_torch.utils.jax_params import load_agent_params, load_jax_params
+from jax_shaped_init import shaped_inits
 
 torch.set_num_threads(1)
 
@@ -134,7 +135,10 @@ def pairs(tmp_path_factory):
     def pair(case):
         cfg = {**BASE, **CASES[case]}
         if case not in built:
-            jp = JaxVeteran(**cfg, rng=0)
+            # every leaf is seeded: the build takes its nets' param shapes
+            # without compiling their inits (tests/jax_shaped_init.py)
+            with shaped_inits():
+                jp = JaxVeteran(**cfg, rng=0)
             _seed_jax(jp)
             path = str(tmp / f"{case}.pkl")
             jp.save(path)
