@@ -18,14 +18,15 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. device    - a CUDA device must be present (there is no CPU path); prints
                the `nvidia-smi` name and power limit.
-2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/film_resblock.cu)
-               with nvcc from the sources in this checkout, one nvcc each, in
-               parallel; prints the seconds and the compiler's register /
-               shared-memory report; counts the tensor-core instructions
-               (HMMA / HGMMA) in the SASS of both and fails if either has
-               none, and the BF16 ones (HMMA.16816.F32.BF16) of K1's and
-               K3's BF16 routes, failing if either has none; compiles the
-               Triton solver-update kernel.
+2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/film_resblock.cu,
+               csrc/film_resblock_bf16.cu) with nvcc from the sources in this
+               checkout, one nvcc each, in parallel; prints the seconds and
+               the compiler's register / shared-memory / spill report;
+               counts the tensor-core instructions (HMMA / HGMMA) in the
+               SASS of each and fails if one has none; fails unless K1's
+               BF16 route holds HMMA.16816.F32.BF16, and unless K3's BF16
+               kernel holds HGMMA BF16 and no HMMA.16816.F32.BF16; compiles
+               the Triton solver-update kernel.
 3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
                (B=100, H=32, D=320, 10 heads, f32), at the 3200-trajectory
                candidate batch and at the antmaze horizon H=64 (a cluster of
@@ -55,8 +56,10 @@ Phases, each of which raises on failure (exit code != 0):
                term, the later blocks' x f32): error within 5e-2 (and the
                share of that limit read), the route's time beside the f32
                route's and the plain version's, TFLOP/s and the share of
-               the BF16 bound, and their sums over the 16 blocks; the build
-               phase counts the route's BF16 MMAs in film_resblock's SASS.
+               the BF16 bound, its tile plan, and their sums over the 16
+               blocks. Then the same at the antmaze U-Net's shapes, and at
+               the MuJoCo U-Net's at the training batch of 64 (error and
+               the route's time).
 5. solver_update - K2 against its plain version at the plan's state shape
                (3200, 32, 23) with a real ddpm step's coefficients: exact
                without noise, N(0, 1) moments of the in-kernel noise over
@@ -505,10 +508,12 @@ from cleandiffuser_tpu_torch.ops.dit_block import (  # noqa: E402
     load_dit_block_library,
 )
 from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
+    bf16_plan,
     film_resblock_op,
     film_resblock_reference,
     fused_film_resblock,
     fused_film_resblock_bf16,
+    load_film_resblock_bf16_library,
     load_film_resblock_library,
 )
 from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
@@ -907,25 +912,39 @@ def check_device() -> str:
 
 def build_kernels(dev):
     phase("build")
-    seconds = build.build_libraries(["dit_block", "film_resblock"])
+    names = ("dit_block", "film_resblock", "film_resblock_bf16")
+    seconds = build.build_libraries(names)
     load_dit_block_library()
     load_film_resblock_library()
-    for name in ("dit_block", "film_resblock"):
+    load_film_resblock_bf16_library()
+    for name in names:
         print(f"{name}.cu built in {seconds[name]:.2f} s (nvcc processes run in parallel)")
         for line in build.build_log(name).splitlines():
-            if any(k in line for k in ("entry function", "registers", "spill", "smem")):
+            # (C7519: ptxas notes each wgmma.fence it adds, one line each)
+            if "C7519" not in line and any(k in line for k in (
+                    "entry function", "registers", "spill", "smem", "wgmma", "arning")):
                 print("  ptxas:", line.strip())
-    for name in ("dit_block", "film_resblock"):
-        mma = [ln for ln in build.sass(name).splitlines() if "HMMA" in ln or "HGMMA" in ln]
+    sass = {name: build.sass(name).splitlines() for name in names}
+    for name in names:
+        mma = [ln for ln in sass[name] if "HMMA" in ln or "HGMMA" in ln]
         print(f"{name} SASS: {len(mma)} tensor-core instructions (HMMA/HGMMA), e.g. "
               f"{mma[0].split(';')[0].split('*/')[-1].strip() if mma else '-'}")
         if not mma:
             raise AssertionError(f"{name}'s SASS has no tensor-core instruction")
-    for name in ("dit_block", "film_resblock"):
-        bf16 = [ln for ln in build.sass(name).splitlines() if "HMMA.16816.F32.BF16" in ln]
-        print(f"{name} SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
-        if not bf16:
-            raise AssertionError(f"{name}'s SASS has no BF16 MMA: the BF16 route is not built")
+    # K1's BF16 route runs mma.sync BF16; K3's runs wgmma BF16 and nothing of
+    # the mma.sync route it replaced
+    bf16 = [ln for ln in sass["dit_block"] if "HMMA.16816.F32.BF16" in ln]
+    print(f"dit_block SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
+    if not bf16:
+        raise AssertionError("dit_block's SASS has no BF16 MMA: the BF16 route is not built")
+    hgmma = [ln for ln in sass["film_resblock_bf16"] if "HGMMA" in ln and ".BF16" in ln]
+    old = [ln for ln in sass["film_resblock_bf16"] if "HMMA.16816.F32.BF16" in ln]
+    shapes = sorted({ln.split("HGMMA.")[1].split()[0] for ln in hgmma})
+    print(f"film_resblock_bf16 SASS: {len(hgmma)} BF16 warpgroup MMAs (HGMMA, shapes "
+          f"{shapes}), {len(old)} HMMA.16816.F32.BF16")
+    if not hgmma or old:
+        raise AssertionError("K3's BF16 kernel must run on HGMMA BF16 and hold no "
+                             "HMMA.16816.F32.BF16")
     x = torch.zeros(1024, device=dev)
     for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
         t0 = time.perf_counter()
@@ -1081,7 +1100,7 @@ def film_args(rng, dev, B, H, Cin, Cout, K, requires_grad=False) -> list:
     return args
 
 
-def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
+def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco", iters: int = 20) -> dict:
     """K3 against its plain version at every distinct block shape of a
     U-Net (`blocks`, in the order the net runs them) at B = 3200: error,
     both times, TFLOP/s and the share of the 3xTF32 bound per shape, the
@@ -1105,7 +1124,7 @@ def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
         max_abs, max_rel = errors(out, ref)
         worst = max(worst, max_abs)
         rows, smem = lib.film_resblock_block_rows(Cout), lib.film_resblock_smem_bytes(
-            B, H, Cin, Cout, K, G, 0)
+            B, H, Cin, Cout, K, G)
         print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}) "
               f"x{blocks.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
               f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); plan: "
@@ -1116,7 +1135,7 @@ def check_film_kernel(dev, blocks=UNET_BLOCKS, net: str = "mujoco") -> dict:
             raise AssertionError(f"film_resblock_smem_bytes {smem} outside (0, {smem_limit}]")
         ms, plain_ms, times = timed[(H, Cin, Cout)] = time_pair(
             lambda: fused_film_resblock(*args, **kw),
-            lambda: film_resblock_reference(*args, **kw), 20)
+            lambda: film_resblock_reference(*args, **kw), iters)
         gf = film_gflop(B, H, Cin, Cout, K)
         print(f"  device time per block: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
               f"({gf:.3f} GFLOP: kernel {gf / ms:.2f}, plain {gf / plain_ms:.2f} TFLOP/s; kernel "
@@ -1146,29 +1165,35 @@ def film_gbytes(B, H, Cin, Cout, K, x_bytes: int = 4, w_bytes: int = 4, out_byte
             + w_bytes * (K * Cin * Cout + K * Cout * Cout + skip + 6 * Cout)) / 1e9
 
 
-def check_film_kernel_bf16(dev, blocks=UNET_BLOCKS) -> dict:
-    """K3's BF16 route against its plain version at every distinct block
-    shape of the shipped U-Net at B = 3200, with the operands the bf16 U-Net
-    hands it (BF16 weights, biases and affine; the first block's x BF16, as
-    the engine casts it, with the f32 FiLM term; every later block's x
-    f32): error within BF16_ATOL / BF16_RTOL (and the share of that limit
-    read), the route's time beside the f32 route's (on the f32 weights) and
-    the plain version's, one CUDA graph each, in turns; TFLOP/s and the
-    share of the BF16 bound; the sums over the net's 16 blocks. Returns the
-    record at the most frequent shape."""
-    phase("film_resblock BF16 route vs plain version (mujoco U-Net)")
-    B, K, G = 3200, 5, 8
-    lib = load_film_resblock_library()
-    smem_limit = lib.film_resblock_max_smem_optin(dev.index or 0)
-    rng = np.random.default_rng(SEED + 12)
-    worst, timed, shares = 0.0, {}, []
-    shapes = list(dict.fromkeys(blocks))
-    most_frequent = max(shapes, key=blocks.count)
+def film_bf16_args(rng, dev, B, H, Cin, Cout, K, first: bool):
+    """`film_args` as the bf16 U-Net hands them to K3's BF16 route: BF16
+    weights, biases and affine; the first block's x BF16 (as the engine
+    casts it) with the f32 FiLM term, every later block's x f32. Returns
+    the f32 operands, then x and the BF16 weights."""
+    args = film_args(rng, dev, B, H, Cin, Cout, K)
+    x = args[0].to(torch.bfloat16) if first else args[0]
+    return args, x, [a.to(torch.bfloat16) for a in args[2:]]
+
+
+def film_bf16_shapes(dev, blocks, B: int, seed: int, iters: int, others: bool = True) -> dict:
+    """K3's BF16 route at every distinct block shape of a U-Net (`blocks`,
+    in the order the net runs them) at batch B, with the operands of
+    `film_bf16_args`: its error against the plain version within BF16_ATOL
+    / BF16_RTOL (and the share of that limit read), its tile plan, its time
+    (with `others`, beside the f32 route's on the f32 weights and the plain
+    version's, one CUDA graph each, in turns), TFLOP/s and the share of the
+    BF16 bound. Returns the worst error, the medians by shape, the sums over
+    the net's blocks and the shares."""
+    K, G = 5, 8
+    smem_limit = load_film_resblock_bf16_library().film_resblock_bf16_max_smem_optin(
+        dev.index or 0)
+    rng = np.random.default_rng(seed)
+    worst, timed, shares = 0.0, {}, {}
     kw = dict(K=K, groups=G, eps=1e-6)
-    for i, (H, Cin, Cout) in enumerate(shapes):
-        args = film_args(rng, dev, B, H, Cin, Cout, K)
-        wb = [a.to(torch.bfloat16) for a in args[2:]]
-        x = args[0].to(torch.bfloat16) if i == 0 else args[0]  # the first block's x is bf16
+    for i, (H, Cin, Cout) in enumerate(dict.fromkeys(blocks)):
+        args, x, wb = film_bf16_args(rng, dev, B, H, Cin, Cout, K, i == 0)
+        label = (f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}, x "
+                 f"{str(x.dtype)[6:]}) x{blocks.count((H, Cin, Cout))}")
         out = fused_film_resblock_bf16(x, args[1], *wb, **kw)
         ref = film_resblock_reference(x, args[1], *wb, **kw)
         torch.cuda.synchronize()
@@ -1178,39 +1203,59 @@ def check_film_kernel_bf16(dev, blocks=UNET_BLOCKS) -> dict:
         max_abs, max_rel = errors(out, ref)
         worst = max(worst, max_abs)
         used = ((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max().item()
-        smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, G, 1)
-        print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}{', skip' if Cin != Cout else ''}, x "
-              f"{str(x.dtype)[6:]}) x{blocks.count((H, Cin, Cout))}: max_abs_err {max_abs:.3e} "
-              f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); {used:.1%} "
-              f"of the limit ({BF16_ATOL} abs + {BF16_RTOL} rel); {smem} B of shared memory "
-              f"(device limit {smem_limit})", flush=True)
+        plan = bf16_plan(B, H, Cin, Cout, K, G)
+        print(f"{label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} (max |ref| "
+              f"{ref.abs().max().item():.3f}); {used:.1%} of the limit ({BF16_ATOL} abs + "
+              f"{BF16_RTOL} rel); plan {plan} (device limit {smem_limit} B)", flush=True)
         torch.testing.assert_close(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL)
-        if not 0 < smem <= smem_limit:
-            raise AssertionError(f"film_resblock_smem_bytes {smem} outside (0, {smem_limit}]")
-        med, times = time_in_turns(
-            {"plain": lambda: film_resblock_reference(x, args[1], *wb, **kw),
-             "bf16": lambda: fused_film_resblock_bf16(x, args[1], *wb, **kw),
-             "f32": lambda: fused_film_resblock(*args, **kw)}, 20)
+        if not 0 < plan["smem"] <= smem_limit:
+            raise AssertionError(f"the plan's {plan['smem']} B of shared memory outside "
+                                 f"(0, {smem_limit}]")
+        fns = {"bf16": lambda: fused_film_resblock_bf16(x, args[1], *wb, **kw)}
+        if others:
+            fns = {"plain": lambda: film_resblock_reference(x, args[1], *wb, **kw), **fns,
+                   "f32": lambda: fused_film_resblock(*args, **kw)}
+        med, times = time_in_turns(fns, iters)
         timed[(H, Cin, Cout)] = med
         gf = film_gflop(B, H, Cin, Cout, K)
         b = bound(gf / BF16_TFLOPS, film_gbytes(B, H, Cin, Cout, K, x.element_size(), 2))
-        shares.append(b["bound_ms"] / med["bf16"])
-        print(f"  device time per block: BF16 route {med['bf16']:.4f} ms, f32 route "
-              f"{med['f32']:.4f} ms, plain {med['plain']:.4f} ms ({gf:.3f} GFLOP: "
-              f"{gf / med['bf16']:.2f} / {gf / med['f32']:.2f} / {gf / med['plain']:.2f} "
-              f"TFLOP/s); BF16 bound {b['bound_ms']:.4f} ms by {b['bound_by']} (at "
-              f"{BF16_TFLOPS:.0f} TFLOP/s): BF16 route at {shares[-1]:.1%} of it (runs {times})",
-              flush=True)
-    total = {k: sum(timed[s_][k] for s_ in blocks) for k in ("bf16", "f32", "plain")}
+        shares[(H, Cin, Cout)] = b["bound_ms"] / med["bf16"]
+        vs = (f", f32 route {med['f32']:.4f} ms, plain {med['plain']:.4f} ms ({gf:.3f} GFLOP: "
+              f"{gf / med['bf16']:.2f} / {gf / med['f32']:.2f} / {gf / med['plain']:.2f} TFLOP/s)"
+              if others else f" ({gf:.3f} GFLOP: {gf / med['bf16']:.2f} TFLOP/s)")
+        print(f"  device time per block: BF16 route "
+              f"{med['bf16']:.4f} ms{vs}; BF16 bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"(at {BF16_TFLOPS:.0f} TFLOP/s): BF16 route at {shares[(H, Cin, Cout)]:.1%} of it"
+              + (f", {med['bf16'] / med['f32']:.3f} of the f32 route" if others else "")
+              + f" (runs {times})", flush=True)
+    total = {k: sum(timed[s_][k] for s_ in blocks) for k in timed[blocks[0]]}
     gf = sum(film_gflop(B, *s_, K) for s_ in blocks)
-    print(f"sum over the {len(blocks)} blocks of one U-Net call ({gf:.2f} GFLOP; BF16 bound of "
-          f"the flops {gf / BF16_TFLOPS:.4f} ms): BF16 route {total['bf16']:.4f} ms "
+    vs = (f", f32 route {total['f32']:.4f} ms, plain {total['plain']:.4f} ms; BF16 / f32 "
+          f"{total['bf16'] / total['f32']:.3f}" if others else "")
+    print(f"sum over the {len(blocks)} blocks of one U-Net call at B = {B} ({gf:.2f} GFLOP; BF16 "
+          f"bound of the flops {gf / BF16_TFLOPS:.4f} ms): BF16 route {total['bf16']:.4f} ms "
           f"({gf / total['bf16']:.2f} TFLOP/s, {gf / BF16_TFLOPS / total['bf16']:.1%} of the "
-          f"bound), f32 route {total['f32']:.4f} ms, plain {total['plain']:.4f} ms; most "
-          f"frequent shape {most_frequent}", flush=True)
-    H, Cin, Cout = most_frequent
-    med = timed[most_frequent]
-    return {"max_abs_err": worst, "ms": med["bf16"], "plain_ms": med["plain"],
+          f"bound){vs}", flush=True)
+    return {"worst": worst, "timed": timed, "total": total, "shares": shares}
+
+
+def check_film_kernel_bf16(dev, blocks=UNET_BLOCKS) -> dict:
+    """K3's BF16 route against its plain version (`film_bf16_shapes`) at
+    every distinct block shape of the shipped MuJoCo U-Net at B = 3200,
+    then of the antmaze U-Net (errors, and the per-call sums of the three
+    versions; 4 calls per timing), then the MuJoCo U-Net's blocks at the
+    training batch of 64 (errors, and the route's time). Returns the record
+    at the MuJoCo net's most frequent shape."""
+    phase("film_resblock BF16 route vs plain version (mujoco U-Net)")
+    B, K = 3200, 5
+    mujoco = film_bf16_shapes(dev, blocks, B, SEED + 12, 10)
+    phase("film_resblock BF16 route vs plain version (antmaze U-Net)")
+    film_bf16_shapes(dev, ANTMAZE_UNET_BLOCKS, B, SEED + 13, 4)
+    phase("film_resblock BF16 route, MuJoCo U-Net at the training batch (B = 64)")
+    film_bf16_shapes(dev, blocks, 64, SEED + 14, 10, others=False)
+    H, Cin, Cout = most_frequent = max(dict.fromkeys(blocks), key=blocks.count)
+    med = mujoco["timed"][most_frequent]
+    return {"max_abs_err": mujoco["worst"], "ms": med["bf16"], "plain_ms": med["plain"],
             **bound(film_gflop(B, H, Cin, Cout, K) / BF16_TFLOPS,
                     film_gbytes(B, H, Cin, Cout, K, 4, 2))}
 
@@ -4238,7 +4283,7 @@ def main() -> int:
     k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
     k3_bf16 = check_film_kernel_bf16(dev)
-    check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze")
+    check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze", 10)  # 10: the script's time
     k2 = check_solver_kernel(dev)
     k1_launches = check_slice(dev)
     check_slice(dev, "antmaze", 1)  # horizon 64: K1 on clusters of two thread blocks
@@ -4335,7 +4380,8 @@ def main() -> int:
                "cleandiffuser_tpu/ops/film_resblock.py:159", k3_launches, k3_train, k3),
         # the same TPU kernel with bf16 weights: the launches of the bf16
         # Diffuser CLI's requests and of its training steps
-        record("film_resblock_bf16", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",
+        record("film_resblock_bf16", "cuda",
+               "cleandiffuser_tpu_torch/csrc/film_resblock_bf16.cu",
                "cleandiffuser_tpu/ops/film_resblock.py:159",
                cli["film_resblock_bf16"]["diffuser_bf16_serve"],
                cli["film_resblock_bf16"]["diffuser_bf16_train"], k3_bf16),

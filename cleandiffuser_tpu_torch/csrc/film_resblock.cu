@@ -1,6 +1,6 @@
-// Fused FiLM Conv1d residual block, forward, for NVIDIA Hopper (sm_90a). Two
-// routes: float32 (`film_resblock_forward_f32`) and BF16 weights
-// (`film_resblock_forward_bf16`, section "The BF16 route" below).
+// Fused FiLM Conv1d residual block, forward, float32, for NVIDIA Hopper
+// (sm_90a): `film_resblock_forward_f32`. The BF16 route is
+// csrc/film_resblock_bf16.cu.
 //
 // Replaces the Pallas TPU kernel cleandiffuser_tpu/ops/film_resblock.py
 // (`film_resblock`, body `_kernel`). Same math as `film_resblock_reference`
@@ -79,35 +79,6 @@
 //   Tile rows are strided by an odd multiple of 8 floats, weight rows by
 //   Cout + 4: every fragment load is conflict-free when H is a multiple
 //   of 4.
-//
-// The BF16 route: weights, conv biases and the GroupNorm affine in BF16 (the
-// U-Net's copy cast by `bf16_sampling` / `bf16_training`); x and emb each in
-// f32 or BF16, as the U-Net hands them over (its first block gets the
-// engine's BF16 x with an f32 FiLM term; every later block f32 activations);
-// the output in f32, or in BF16 when x and emb both are (the type flax's
-// block returns: the promoted type of its operands). The same kernel,
-// templated on the weights' storage type:
-// - Both convs and the skip run on `mma.sync.m16n8k16` BF16 with f32
-//   accumulators, one MMA per product (against three for 3xTF32), in k steps
-//   of 16 channels: a C that is not a multiple of 16 (Cin = 23 in the first
-//   block) is zero-padded in shared memory, where the copies zero-fill the
-//   channels past C. The A operand is the f32 activations rounded to BF16 as
-//   the fragment is loaded (`cvt.rn.bf16x2.f32`). The plain version, as the
-//   reference on a CPU, multiplies f32 activations exactly on the
-//   BF16-rounded weights (every block but the first), so that rounding is
-//   the route's error (a few 1e-3 relative); a TPU's default-precision f32
-//   products round their operands to BF16 the same way.
-// - The weights stay (K, Cin, Cout), N-major: `ldmatrix.trans` gathers a B
-//   fragment's two consecutive k from the staged tile, whose rows are Cp + 8
-//   BF16 apart (16 mod 128 bytes: conflict-free). A stage holds at least one
-//   k16 step of channels (16 where the f32 route stages 8); a BF16 tile takes
-//   half the f32 tile's bytes.
-// - x in BF16 is widened to f32 as it is staged, by plain loads (cp.async
-//   copies bytes and cannot convert). The hidden tile, the GroupNorm
-//   statistics (two-pass), the affine, Mish, the FiLM add and the residual
-//   add stay f32 in shared memory and registers; the output is rounded once,
-//   on store.
-
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,18 +90,10 @@ namespace {
 constexpr int kStages = 3;  // cp.async ring depth
 constexpr int kMaxCout = 512;
 
-// BF16 values are carried as their bits
-using bf16_t = uint16_t;
-
-// TW: the storage type of weights, biases and the GroupNorm affine (float or
-// bf16_t). x, emb and out are f32 or BF16 by the flags.
-template <typename TW>
 struct Params {
-  const void *x, *emb;
-  const TW *w1, *b1, *g1s, *g1b, *w2, *b2, *g2s, *g2b, *wskip, *bskip;
-  void* out;
+  const float *x, *emb, *w1, *b1, *g1s, *g1b, *w2, *b2, *g2s, *g2b, *wskip, *bskip;
+  float* out;
   int B, H, Cin, Cout, K, G, film_scale;
-  int x_bf16, emb_bf16, out_bf16;
   float eps;
   int S, rows;  // samples per block, rows of the halo tile: S * (H + P) + P
 };
@@ -144,28 +107,22 @@ __host__ __device__ constexpr int odd8_stride(int C) {
 }
 
 // The tile geometry of one instantiation: MT m16 tiles and NT n8 tiles per
-// warp, NW warps of which WN along N; weights of type TW.
-template <typename TW, int MT, int NT, int WN, int NW>
+// warp, NW warps of which WN along N.
+template <int MT, int NT, int WN, int NW>
 struct Tile {
-  static constexpr bool kBF16 = sizeof(TW) == 2;
   static constexpr int kThreads = 32 * NW;
   static constexpr int BM = 16 * MT * (NW / WN);  // output rows of a block
   static constexpr int Cp = 8 * NT * WN;          // Cout padded to the warp grid
-  static constexpr int KS = kBF16 ? 16 : 8;       // channels of one MMA step
-  // input channels per stage: f32 weight tiles of 8-16 KB, so that every Cout
-  // but 256 and 512 fits two blocks per SM (at most 113 KB of shared memory
-  // each; at Cout = 128 and 64 that was 1.2-1.4x faster than 32-64 KB tiles);
-  // the BF16 route stages the same channels, at least one k16 step
-  static constexpr int CK32 = Cp >= 512 ? 8 : Cp >= 128 ? 16 : Cp >= 64 ? 32 : 64;
-  static constexpr int CK = CK32 < KS ? KS : CK32;
-  // weight tile rows: conflict-free b loads (f32) and ldmatrix rows (BF16)
-  static constexpr int ldw = Cp + (kBF16 ? 8 : 4);
-  static constexpr int ldx = odd8_stride(CK);    // x chunk rows (f32)
-  static constexpr int ldh = odd8_stride(Cp);    // hidden tile rows (f32)
+  // input channels per stage: weight tiles of 8-16 KB, so that every Cout but
+  // 256 and 512 fits two blocks per SM (at most 113 KB of shared memory each;
+  // at Cout = 128 and 64 that was 1.2-1.4x faster than 32-64 KB tiles)
+  static constexpr int CK = Cp >= 512 ? 8 : Cp >= 128 ? 16 : Cp >= 64 ? 32 : 64;
+  static constexpr int ldw = Cp + 4;             // weight tile rows: conflict-free b loads
+  static constexpr int ldx = odd8_stride(CK);    // x chunk rows
+  static constexpr int ldh = odd8_stride(Cp);    // hidden tile rows
   static size_t smem_bytes(int S, int rows, int G) {
     return sizeof(float) * ((size_t)rows * ldh + round_up(2 * S * G, 4) +
-                            (size_t)kStages * rows * ldx) +
-           sizeof(TW) * (size_t)kStages * CK * ldw;
+                            (size_t)kStages * CK * ldw + (size_t)kStages * rows * ldx);
   }
 };
 
@@ -205,7 +162,11 @@ constexpr int tile_key(int MT, int NT, int WN, int NW) {
   return ((MT * 16 + NT) * 16 + WN) * 32 + NW;
 }
 
-template <typename TW>
+template <int MT, int NT, int WN, int NW>
+size_t smem_of(const Plan& pl, int G) {
+  return Tile<MT, NT, WN, NW>::smem_bytes(pl.S, pl.rows, G);
+}
+
 bool make_plan(int B, int H, int Cin, int Cout, int K, int G, Plan* pl) {
   if (B <= 0 || H <= 0 || Cin <= 0 || K <= 0 || K % 2 == 0 || G <= 0 || Cout <= 0 ||
       Cout % 8 != 0 || Cout > kMaxCout || Cout % G != 0)
@@ -215,10 +176,8 @@ bool make_plan(int B, int H, int Cin, int Cout, int K, int G, Plan* pl) {
   pl->S = pl->BM / H;
   pl->rows = pl->S * (H + K / 2) + K / 2;
   switch (tile_key(pl->MT, pl->NT, pl->WN, pl->NW)) {
-#define FILM_SMEM(MT, NT, WN, NW)                                             \
-  case tile_key(MT, NT, WN, NW):                                              \
-    pl->smem = Tile<TW, MT, NT, WN, NW>::smem_bytes(pl->S, pl->rows, G); \
-    return true;
+#define FILM_SMEM(MT, NT, WN, NW) \
+  case tile_key(MT, NT, WN, NW): pl->smem = smem_of<MT, NT, WN, NW>(*pl, G); return true;
     FILM_TILES(FILM_SMEM)
 #undef FILM_SMEM
     default: return false;
@@ -233,7 +192,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; zero-fills when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(full ? 16 : 0)
                : "memory");
@@ -272,40 +231,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x16, row) * b (16x8, col), BF16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// lo and hi rounded to BF16 (to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// Two 8 x 8 BF16 matrices, transposed: lanes 0-7 give the addresses of the
-// first's rows, lanes 8-15 the second's; r0 / r1 get (rows 2q, 2q + 1;
-// column g) of each.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(row))
-               : "memory");
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16_t v) { return __uint_as_float((uint32_t)v << 16); }
-
-// element i of an activation tensor stored in f32 or (bf16) in BF16
-__device__ __forceinline__ float load_act(const void* p, size_t i, int bf16) {
-  return bf16 ? to_f32(static_cast<const bf16_t*>(p)[i]) : static_cast<const float*>(p)[i];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -355,68 +280,28 @@ __device__ __forceinline__ void mma_step(const float* A, const int (&aoff)[MT][2
   }
 }
 
-// One 16-channel step of the implicit GEMM in BF16, all NT n-tiles. A and
-// aoff as in mma_step (rows g, g + 8 at channels 2q, 2q + 1 and 2q + 8,
-// 2q + 9, in their natural order); W: row 0 of this step in the staged BF16
-// weight tile, at the warp's first column.
-template <int MT, int NT, int LDW>
-__device__ __forceinline__ void mma_step_bf16(const float* A, const int (&aoff)[MT][2],
-                                              const bf16_t* W, float (&acc)[MT][NT][4]) {
-  const bf16_t* w = W + (threadIdx.x & 15) * LDW;  // lane l < 16: row l of the step
-  uint32_t b[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) ldmatrix_x2_trans(b[j][0], b[j][1], w + 8 * j);
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const float2 u0 = *reinterpret_cast<const float2*>(A + aoff[i][0]);
-    const float2 u1 = *reinterpret_cast<const float2*>(A + aoff[i][1]);
-    const float2 u2 = *reinterpret_cast<const float2*>(A + aoff[i][0] + 8);
-    const float2 u3 = *reinterpret_cast<const float2*>(A + aoff[i][1] + 8);
-    const uint32_t a[4] = {bf16x2(u0.x, u0.y), bf16x2(u1.x, u1.y), bf16x2(u2.x, u2.y),
-                           bf16x2(u3.x, u3.y)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
-  }
-}
-
 // Stage of a conv pass: input channels [c0, c0 + ncols) of tap t. Stages
-// weights W[t, c0:c0+ncols, :Cout] into wslot (rows past C zero) by
-// cp.async and, when load_x, x[:, :, c0:c0+ncols] of the block's samples
-// into xslot with the halo layout (gaps and missing samples zero): f32 x by
-// cp.async, BF16 x widened to f32 by plain loads.
-template <typename TW, int MT, int NT, int WN, int NW>
-__device__ __forceinline__ void issue_stage(const Params<TW>& p, const TW* __restrict__ W, int C,
+// weights W[t, c0:c0+ncols, :Cout] into wslot (rows past C zero) and, when
+// load_x, x[:, :, c0:c0+ncols] of the block's samples into xslot with the
+// halo layout (gaps and missing samples zero), by cp.async.
+template <int MT, int NT, int WN, int NW>
+__device__ __forceinline__ void issue_stage(const Params& p, const float* __restrict__ W, int C,
                                             int t, int c0, int ncols, bool load_x, int b0,
-                                            int nS, TW* wslot, float* xslot) {
-  using T = Tile<TW, MT, NT, WN, NW>;
-  constexpr int kPiece = 16 / sizeof(TW);  // weights per 16-byte copy
+                                            int nS, float* wslot, float* xslot) {
+  using T = Tile<MT, NT, WN, NW>;
   // weights: a thread copies one 16-byte piece of every rstep-th row
-  const int per_row = p.Cout / kPiece, rstep = T::kThreads / per_row;
-  const int r0 = threadIdx.x / per_row, cc = kPiece * (threadIdx.x - r0 * per_row);
+  const int per_row = p.Cout / 4, rstep = T::kThreads / per_row;
+  const int r0 = threadIdx.x / per_row, cc = 4 * (threadIdx.x - r0 * per_row);
   if (r0 < rstep) {
     for (int r = r0; r < ncols; r += rstep) {
       const int c = c0 + r;
       const bool full = c < C;
-      const TW* src = full ? W + ((size_t)t * C + c) * p.Cout + cc : W;
+      const float* src = full ? W + ((size_t)t * C + c) * p.Cout + cc : W;
       cp_async16(wslot + r * T::ldw + cc, src, full);
     }
   }
   if (!load_x) return;
   const int P = p.K / 2, SP = p.H + P;
-  if (p.x_bf16) {
-    const bf16_t* x = static_cast<const bf16_t*>(p.x);
-    for (int e = threadIdx.x; e < p.rows * ncols; e += T::kThreads) {
-      const int tr = e / ncols, xc = e - tr * ncols;
-      const int tt = tr - P;
-      const int s = tt / SP, h = tt - s * SP;
-      const int c = c0 + xc;
-      const bool full = tt >= 0 && h < p.H && s < nS && c < p.Cin;
-      xslot[tr * T::ldx + xc] =
-          full ? to_f32(x[((size_t)(b0 + s) * p.H + h) * p.Cin + c]) : 0.0f;
-    }
-    return;
-  }
-  const float* x = static_cast<const float*>(p.x);
   const bool vec = p.Cin % 4 == 0;  // 16-byte copies need 16-byte aligned rows
   const int per_x = vec ? ncols / 4 : ncols;
   for (int e = threadIdx.x; e < p.rows * per_x; e += T::kThreads) {
@@ -425,7 +310,7 @@ __device__ __forceinline__ void issue_stage(const Params<TW>& p, const TW* __res
     const int s = tt / SP, h = tt - s * SP;
     const int c = c0 + xc;
     const bool full = tt >= 0 && h < p.H && s < nS && c < p.Cin;
-    const float* src = full ? x + ((size_t)(b0 + s) * p.H + h) * p.Cin + c : x;
+    const float* src = full ? p.x + ((size_t)(b0 + s) * p.H + h) * p.Cin + c : p.x;
     if (vec)
       cp_async16(xslot + tr * T::ldx + xc, src, full);
     else
@@ -439,11 +324,11 @@ __device__ __forceinline__ void issue_stage(const Params<TW>& p, const TW* __res
 // CK-channel chunks (kStream) or is the resident hidden tile hs. Ends with
 // every copy landed and a block barrier, so the ring is free for the next
 // pass.
-template <typename TW, int MT, int NT, int WN, int NW, bool kStream>
-__device__ void conv_pass(const Params<TW>& p, const TW* __restrict__ W, int C, int taps,
+template <int MT, int NT, int WN, int NW, bool kStream>
+__device__ void conv_pass(const Params& p, const float* __restrict__ W, int C, int taps,
                           int shift, const float* hs, const int (&orow)[MT][2], int ncol0, int b0,
-                          int nS, TW* wring, float* xring, float (&acc)[MT][NT][4]) {
-  using T = Tile<TW, MT, NT, WN, NW>;
+                          int nS, float* wring, float* xring, float (&acc)[MT][NT][4]) {
+  using T = Tile<MT, NT, WN, NW>;
   constexpr int lda = kStream ? T::ldx : T::ldh;
   const int lane = threadIdx.x & 31, q = lane & 3, g = lane >> 2;
 #pragma unroll
@@ -458,15 +343,15 @@ __device__ void conv_pass(const Params<TW>& p, const TW* __restrict__ W, int C, 
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) aoff[i][hf] = (orow[i][hf] - shift) * lda + 2 * q;
 
-  const int Cs = round_up(C, T::KS);  // C in whole MMA steps (zero-padded)
-  const int nchunks = (Cs + T::CK - 1) / T::CK;
+  const int C8 = round_up(C, 8);
+  const int nchunks = (C8 + T::CK - 1) / T::CK;
   const int nst = nchunks * taps;
   const int xslot_floats = p.rows * T::ldx;
   auto issue = [&](int st) {
     const int j = st / taps, t = st - j * taps, c0 = j * T::CK;
-    issue_stage<TW, MT, NT, WN, NW>(p, W, C, t, c0, min(T::CK, Cs - c0), kStream && t == 0, b0,
-                                    nS, wring + (st % kStages) * T::CK * T::ldw,
-                                    xring + (j % kStages) * xslot_floats);
+    issue_stage<MT, NT, WN, NW>(p, W, C, t, c0, min(T::CK, C8 - c0), kStream && t == 0, b0,
+                                nS, wring + (st % kStages) * T::CK * T::ldw,
+                                xring + (j % kStages) * xslot_floats);
   };
 #pragma unroll 1
   for (int st = 0; st < kStages - 1; ++st) {
@@ -481,30 +366,15 @@ __device__ void conv_pass(const Params<TW>& p, const TW* __restrict__ W, int C, 
     const int j = st / taps, t = st - j * taps, c0 = j * T::CK;
     const float* A =
         kStream ? xring + (j % kStages) * xslot_floats + t * lda : hs + c0 + t * lda;
-    const TW* slot = wring + (st % kStages) * T::CK * T::ldw;
-    const int steps = min(T::CK, Cs - c0) / T::KS;
-    if constexpr (T::kBF16) {
-      const TW* Wt = slot + ncol0;
-      if (steps == T::CK / T::KS) {
+    const float* Wt = wring + (st % kStages) * T::CK * T::ldw + 2 * q * T::ldw + ncol0 + g;
+    if (C8 - c0 >= T::CK) {
 #pragma unroll
-        for (int ks = 0; ks < T::CK / T::KS; ++ks)
-          mma_step_bf16<MT, NT, T::ldw>(A + 16 * ks, aoff, Wt + 16 * ks * T::ldw, acc);
-      } else {  // the last, partial chunk
+      for (int ks = 0; ks < T::CK / 8; ++ks)
+        mma_step<MT, NT, T::ldw>(A + 8 * ks, aoff, Wt + 8 * ks * T::ldw, acc);
+    } else {  // the last, partial chunk
 #pragma unroll 1
-        for (int ks = 0; ks < steps; ++ks)
-          mma_step_bf16<MT, NT, T::ldw>(A + 16 * ks, aoff, Wt + 16 * ks * T::ldw, acc);
-      }
-    } else {
-      const TW* Wt = slot + 2 * q * T::ldw + ncol0 + g;
-      if (steps == T::CK / T::KS) {
-#pragma unroll
-        for (int ks = 0; ks < T::CK / T::KS; ++ks)
-          mma_step<MT, NT, T::ldw>(A + 8 * ks, aoff, Wt + 8 * ks * T::ldw, acc);
-      } else {  // the last, partial chunk
-#pragma unroll 1
-        for (int ks = 0; ks < steps; ++ks)
-          mma_step<MT, NT, T::ldw>(A + 8 * ks, aoff, Wt + 8 * ks * T::ldw, acc);
-      }
+      for (int ks = 0; ks < (C8 - c0) / 8; ++ks)
+        mma_step<MT, NT, T::ldw>(A + 8 * ks, aoff, Wt + 8 * ks * T::ldw, acc);
     }
     // the next copies go out behind this stage's MMAs, not all at once after
     // the barrier
@@ -519,8 +389,8 @@ __device__ void conv_pass(const Params<TW>& p, const TW* __restrict__ W, int C, 
 // group): st[2 * (s*G + g)] = mean, st[2 * (s*G + g) + 1] = 1/sqrt(var + eps).
 // Lane l reads elements l, l + 32, ... of the group's H x Cg block; their
 // (row, column) advance by 32 = qs * Cg + rs without a division.
-template <typename TW, int LDH, int NW>
-__device__ void group_stats(const Params<TW>& p, const float* hs, float* st) {
+template <int LDH, int NW>
+__device__ void group_stats(const Params& p, const float* hs, float* st) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int P = p.K / 2, SP = p.H + P;
   const int Cg = p.Cout / p.G, n = p.H * Cg;
@@ -551,17 +421,16 @@ __device__ void group_stats(const Params<TW>& p, const float* hs, float* st) {
 }
 
 // Accumulators plus bias into the interior rows of hs (columns < Cout).
-template <typename TW, int MT, int NT, int LDH>
-__device__ __forceinline__ void store_tile(const Params<TW>& p, float* hs,
-                                           const int (&orow)[MT][2], int ncol0,
-                                           const TW* __restrict__ bias,
+template <int MT, int NT, int LDH>
+__device__ __forceinline__ void store_tile(const Params& p, float* hs, const int (&orow)[MT][2],
+                                           int ncol0, const float* __restrict__ bias,
                                            const float (&acc)[MT][NT][4]) {
   const int q = threadIdx.x & 3;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     const int n = ncol0 + j * 8 + 2 * q;
     if (n >= p.Cout) continue;
-    const float bx = to_f32(bias[n]), by = to_f32(bias[n + 1]);
+    const float bx = bias[n], by = bias[n + 1];
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -571,15 +440,15 @@ __device__ __forceinline__ void store_tile(const Params<TW>& p, float* hs,
   }
 }
 
-template <typename TW, int MT, int NT, int WN, int NW>
+template <int MT, int NT, int WN, int NW>
 __global__ void __launch_bounds__(32 * NW)
-film_resblock_kernel(const Params<TW> p) {
-  using T = Tile<TW, MT, NT, WN, NW>;
+film_resblock_kernel(const Params p) {
+  using T = Tile<MT, NT, WN, NW>;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;                                                  // rows x ldh hidden tile
-  float* st = hs + p.rows * T::ldh;                                  // S x G x 2 statistics
-  TW* wring = reinterpret_cast<TW*>(st + round_up(2 * p.S * p.G, 4));  // kStages x CK x ldw
-  float* xring = reinterpret_cast<float*>(wring + kStages * T::CK * T::ldw);  // kStages x rows x ldx
+  float* hs = smem;                                    // rows x ldh hidden tile
+  float* st = hs + p.rows * T::ldh;                    // S x G x 2 statistics
+  float* wring = st + round_up(2 * p.S * p.G, 4);      // kStages x CK x ldw
+  float* xring = wring + kStages * T::CK * T::ldw;     // kStages x rows x ldx
   const int P = p.K / 2, SP = p.H + P;
   const int b0 = blockIdx.x * p.S;
   const int nS = min(p.S, p.B - b0);  // samples of this block that exist
@@ -606,17 +475,17 @@ film_resblock_kernel(const Params<TW> p) {
     const int pad = T::Cp - p.Cout;
     for (int e = threadIdx.x; e < kStages * T::CK * pad; e += T::kThreads) {
       const int r = e / pad;
-      wring[r * T::ldw + p.Cout + (e - r * pad)] = TW(0);
+      wring[r * T::ldw + p.Cout + (e - r * pad)] = 0.0f;
     }
   }
 
   float acc[MT][NT][4];
   // ---- conv1 -> hs
-  conv_pass<TW, MT, NT, WN, NW, true>(p, p.w1, p.Cin, p.K, P, nullptr, orow, ncol0, b0, nS,
-                                      wring, xring, acc);
-  store_tile<TW, MT, NT, T::ldh>(p, hs, orow, ncol0, p.b1, acc);
+  conv_pass<MT, NT, WN, NW, true>(p, p.w1, p.Cin, p.K, P, nullptr, orow, ncol0, b0, nS, wring,
+                                  xring, acc);
+  store_tile<MT, NT, T::ldh>(p, hs, orow, ncol0, p.b1, acc);
   __syncthreads();
-  group_stats<TW, T::ldh, NW>(p, hs, st);
+  group_stats<T::ldh, NW>(p, hs, st);
   __syncthreads();
 
   // ---- GN affine, mish, FiLM, in place: lanes over channels, warps over
@@ -626,14 +495,13 @@ film_resblock_kernel(const Params<TW> p) {
   const int qh = NW / p.H, rh = NW - qh * p.H, s0 = warp / p.H, h0 = warp - s0 * p.H;
   for (int c = lane; c < p.Cout; c += 32) {
     const float* stat = st + 2 * (c / Cg);
-    const float gs = to_f32(p.g1s[c]), gb = to_f32(p.g1b[c]);
+    const float gs = p.g1s[c], gb = p.g1b[c];
     for (int s = s0, h = h0; s < nS;) {
       float* v = hs + (P + s * SP + h) * T::ldh + c;
       const float* sg = stat + 2 * s * p.G;
       const float m = mish((*v - sg[0]) * sg[1] * gs + gb);
-      const size_t ei = (size_t)(b0 + s) * ld_emb + c;
-      const float e0 = load_act(p.emb, ei, p.emb_bf16);
-      *v = p.film_scale ? fmaf(e0, m, load_act(p.emb, ei + p.Cout, p.emb_bf16)) : m + e0;
+      const float* e_row = p.emb + (size_t)(b0 + s) * ld_emb + c;
+      *v = p.film_scale ? fmaf(e_row[0], m, e_row[p.Cout]) : m + e_row[0];
       s += qh, h += rh;
       if (h >= p.H) h -= p.H, ++s;
     }
@@ -641,17 +509,17 @@ film_resblock_kernel(const Params<TW> p) {
   __syncthreads();
 
   // ---- conv2 from hs; its output replaces hs once every warp has read it
-  conv_pass<TW, MT, NT, WN, NW, false>(p, p.w2, p.Cout, p.K, P, hs, orow, ncol0, b0, nS, wring,
-                                       xring, acc);
-  store_tile<TW, MT, NT, T::ldh>(p, hs, orow, ncol0, p.b2, acc);
+  conv_pass<MT, NT, WN, NW, false>(p, p.w2, p.Cout, p.K, P, hs, orow, ncol0, b0, nS, wring,
+                                   xring, acc);
+  store_tile<MT, NT, T::ldh>(p, hs, orow, ncol0, p.b2, acc);
   __syncthreads();
-  group_stats<TW, T::ldh, NW>(p, hs, st);
+  group_stats<T::ldh, NW>(p, hs, st);
   __syncthreads();
 
   // ---- skip: a 1x1 conv over the centre rows, x streamed again
   if (p.wskip != nullptr)
-    conv_pass<TW, MT, NT, WN, NW, true>(p, p.wskip, p.Cin, 1, 0, nullptr, orow, ncol0, b0, nS,
-                                        wring, xring, acc);
+    conv_pass<MT, NT, WN, NW, true>(p, p.wskip, p.Cin, 1, 0, nullptr, orow, ncol0, b0, nS,
+                                    wring, xring, acc);
 
   // ---- out = mish(GN(h)) + skip
 #pragma unroll
@@ -659,10 +527,8 @@ film_resblock_kernel(const Params<TW> p) {
     const int n = ncol0 + j * 8 + 2 * q;
     if (n >= p.Cout) continue;
     const int gi[2] = {n / Cg, (n + 1) / Cg};
-    const float gs[2] = {to_f32(p.g2s[n]), to_f32(p.g2s[n + 1])};
-    const float gb[2] = {to_f32(p.g2b[n]), to_f32(p.g2b[n + 1])};
-    const float bk[2] = {p.wskip ? to_f32(p.bskip[n]) : 0.0f,
-                         p.wskip ? to_f32(p.bskip[n + 1]) : 0.0f};
+    const float gs[2] = {p.g2s[n], p.g2s[n + 1]}, gb[2] = {p.g2b[n], p.g2b[n + 1]};
+    const float bk[2] = {p.wskip ? p.bskip[n] : 0.0f, p.wskip ? p.bskip[n + 1] : 0.0f};
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -680,25 +546,19 @@ film_resblock_kernel(const Params<TW> p) {
         if (p.wskip != nullptr) {
           v[0] += acc[i][j][2 * hf] + bk[0];
           v[1] += acc[i][j][2 * hf + 1] + bk[1];
-        } else if (p.x_bf16) {
-          v[0] += load_act(p.x, o, 1);
-          v[1] += load_act(p.x, o + 1, 1);
         } else {
-          const float2 xv = *reinterpret_cast<const float2*>(static_cast<const float*>(p.x) + o);
+          const float2 xv = *reinterpret_cast<const float2*>(p.x + o);
           v[0] += xv.x;
           v[1] += xv.y;
         }
-        if (p.out_bf16)
-          *reinterpret_cast<uint32_t*>(static_cast<bf16_t*>(p.out) + o) = bf16x2(v[0], v[1]);
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) = make_float2(v[0], v[1]);
+        *reinterpret_cast<float2*>(p.out + o) = make_float2(v[0], v[1]);
       }
   }
 }
 
-template <typename TW, int MT, int NT, int WN, int NW>
-cudaError_t launch(const Params<TW>& p, const Plan& pl, cudaStream_t stream) {
-  auto kernel = film_resblock_kernel<TW, MT, NT, WN, NW>;
+template <int MT, int NT, int WN, int NW>
+cudaError_t launch(const Params& p, const Plan& pl, cudaStream_t stream) {
+  auto kernel = film_resblock_kernel<MT, NT, WN, NW>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return err;
@@ -707,48 +567,12 @@ cudaError_t launch(const Params<TW>& p, const Plan& pl, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TW>
-int forward(const void* x, const void* emb, const void* w1, const void* b1, const void* g1s,
-            const void* g1b, const void* w2, const void* b2, const void* g2s, const void* g2b,
-            const void* wskip, const void* bskip, void* out, int B, int H, int Cin, int Cout,
-            int K, int G, int film_scale, int x_bf16, int emb_bf16, float eps, void* stream) {
-  Plan pl;
-  if (!make_plan<TW>(B, H, Cin, Cout, K, G, &pl) || (wskip == nullptr && Cin != Cout))
-    return (int)cudaErrorInvalidValue;
-  Params<TW> p;
-  p.x = x;
-  p.emb = emb;
-  p.w1 = static_cast<const TW*>(w1);
-  p.b1 = static_cast<const TW*>(b1);
-  p.g1s = static_cast<const TW*>(g1s);
-  p.g1b = static_cast<const TW*>(g1b);
-  p.w2 = static_cast<const TW*>(w2);
-  p.b2 = static_cast<const TW*>(b2);
-  p.g2s = static_cast<const TW*>(g2s);
-  p.g2b = static_cast<const TW*>(g2b);
-  p.wskip = static_cast<const TW*>(wskip);
-  p.bskip = static_cast<const TW*>(bskip);
-  p.out = out;
-  p.B = B, p.H = H, p.Cin = Cin, p.Cout = Cout, p.K = K, p.G = G, p.film_scale = film_scale;
-  p.x_bf16 = x_bf16, p.emb_bf16 = emb_bf16, p.out_bf16 = x_bf16 && emb_bf16;
-  p.eps = eps;
-  p.S = pl.S, p.rows = pl.rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tile_key(pl.MT, pl.NT, pl.WN, pl.NW)) {
-#define FILM_LAUNCH(MT, NT, WN, NW) \
-  case tile_key(MT, NT, WN, NW): return (int)launch<TW, MT, NT, WN, NW>(p, pl, st);
-    FILM_TILES(FILM_LAUNCH)
-#undef FILM_LAUNCH
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
 // Output rows one thread block owns for this Cout (its samples are BM / H),
-// or -1 if the kernel does not take the Cout. The same for both routes.
+// or -1 if the kernel does not take the Cout.
 int film_resblock_block_rows(int Cout) {
   if (Cout <= 0 || Cout % 8 != 0 || Cout > kMaxCout) return -1;
   int MT, NT, WN, NW, BM;
@@ -756,14 +580,12 @@ int film_resblock_block_rows(int Cout) {
   return BM;
 }
 
-// Dynamic shared memory one block needs for this shape on the f32 route
-// (bf16_weights 0) or the BF16 one (1), or -1 if the kernel does not take it.
-long long film_resblock_smem_bytes(int B, int H, int Cin, int Cout, int K, int G,
-                                   int bf16_weights) {
+// Dynamic shared memory one block needs for this shape, or -1 if the
+// kernel does not take it.
+long long film_resblock_smem_bytes(int B, int H, int Cin, int Cout, int K, int G) {
   Plan pl;
-  const bool ok = bf16_weights ? make_plan<bf16_t>(B, H, Cin, Cout, K, G, &pl)
-                               : make_plan<float>(B, H, Cin, Cout, K, G, &pl);
-  return ok ? (long long)pl.smem : -1;
+  if (!make_plan(B, H, Cin, Cout, K, G, &pl)) return -1;
+  return (long long)pl.smem;
 }
 
 // Most dynamic shared memory a block may opt in to on `device`, or -1.
@@ -788,22 +610,34 @@ int film_resblock_forward_f32(const void* x, const void* emb, const void* w1, co
                               const void* g2s, const void* g2b, const void* wskip,
                               const void* bskip, void* out, int B, int H, int Cin, int Cout,
                               int K, int G, int film_scale, float eps, void* stream) {
-  return forward<float>(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip, out, B, H, Cin,
-                        Cout, K, G, film_scale, 0, 0, eps, stream);
-}
-
-// The BF16 route: weights, biases and the GroupNorm affine BF16; x f32
-// (x_bf16 0) or BF16 (1), emb f32 (emb_bf16 0) or BF16 (1); out BF16 when x
-// and emb both are, else f32. Shapes, alignment and the launch as for the
-// f32 route.
-int film_resblock_forward_bf16(const void* x, const void* emb, const void* w1, const void* b1,
-                               const void* g1s, const void* g1b, const void* w2, const void* b2,
-                               const void* g2s, const void* g2b, const void* wskip,
-                               const void* bskip, void* out, int B, int H, int Cin, int Cout,
-                               int K, int G, int film_scale, int x_bf16, int emb_bf16, float eps,
-                               void* stream) {
-  return forward<bf16_t>(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip, bskip, out, B, H,
-                         Cin, Cout, K, G, film_scale, x_bf16, emb_bf16, eps, stream);
+  Plan pl;
+  if (!make_plan(B, H, Cin, Cout, K, G, &pl) || (wskip == nullptr && Cin != Cout))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.x = static_cast<const float*>(x);
+  p.emb = static_cast<const float*>(emb);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.g1s = static_cast<const float*>(g1s);
+  p.g1b = static_cast<const float*>(g1b);
+  p.w2 = static_cast<const float*>(w2);
+  p.b2 = static_cast<const float*>(b2);
+  p.g2s = static_cast<const float*>(g2s);
+  p.g2b = static_cast<const float*>(g2b);
+  p.wskip = static_cast<const float*>(wskip);
+  p.bskip = static_cast<const float*>(bskip);
+  p.out = static_cast<float*>(out);
+  p.B = B, p.H = H, p.Cin = Cin, p.Cout = Cout, p.K = K, p.G = G, p.film_scale = film_scale;
+  p.eps = eps;
+  p.S = pl.S, p.rows = pl.rows;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile_key(pl.MT, pl.NT, pl.WN, pl.NW)) {
+#define FILM_LAUNCH(MT, NT, WN, NW) \
+  case tile_key(MT, NT, WN, NW): return (int)launch<MT, NT, WN, NW>(p, pl, st);
+    FILM_TILES(FILM_LAUNCH)
+#undef FILM_LAUNCH
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 plain PyTorch version.
 
 Counterpart of cleandiffuser_tpu/ops/film_resblock.py, whose Pallas TPU
-kernel `film_resblock` is replaced by the CUDA C++ kernel in
-`csrc/film_resblock.cu` (built for sm_90a, bound with ctypes). The math of
+kernel `film_resblock` is replaced by two CUDA C++ kernels, one per route:
+`csrc/film_resblock.cu` (float32) and `csrc/film_resblock_bf16.cu` (BF16
+weights), each built for sm_90a as a library of its own and bound with
+ctypes. The math of
 `ResidualBlock1d` (nn_diffusion/jannerunet.py), channels-last:
 
     h   = mish(GN(conv1(x)))                    conv: K taps, SAME padding
@@ -15,8 +17,8 @@ GroupNorm takes its statistics per sample over (H, C/groups), two-pass.
 Its eps is an argument: the TPU kernel hard-codes 1e-5, while the flax
 `nn.GroupNorm` of the U-Net uses 1e-6. The FiLM projection
 `Dense(mish(t_emb))` is computed outside, as in the reference. Weights keep
-the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout): the kernel
-stages them into shared memory as they are stored.
+the JAX layouts, conv (K, Cin, Cout) and skip (Cin, Cout): the kernels
+stage them into shared memory as they are stored.
 
 Two routes, each with its wrapper and launch count, chosen by the weights'
 type (`kernel_route` admits exactly these):
@@ -28,16 +30,19 @@ type (`kernel_route` admits exactly these):
   keeps f32-class accuracy.
 - `fused_film_resblock_bf16`: BF16 weights, biases and GroupNorm affine
   (the U-Net's copy under `bf16_sampling` / `bf16_training`), with x and
-  emb each f32 or BF16; the products in BF16 on `mma.sync` with f32
-  accumulation (the f32 activations rounded to BF16 at the MMA's input),
-  GroupNorm statistics, Mish, FiLM and the residual in f32. The output is
-  BF16 when x and emb both are, else f32: the promoted type of the
-  operands, which the flax block returns.
+  emb each f32 or BF16; the products in BF16 on `wgmma` with f32
+  accumulation (x and the hidden layer held in BF16 in shared memory, the
+  weights brought by TMA), GroupNorm statistics from the f32 accumulators,
+  Mish, FiLM and the residual in f32. The output is BF16 when x and emb
+  both are, else f32: the promoted type of the operands, which the flax
+  block returns.
 
-A thread block owns the output rows of whole samples (64 rows, 32 when
-Cout > 256) and every output channel; the source note says what bounds it
-on the card and how the design answers that. So the kernel takes Cout a
-multiple of 8 and of groups, at most 512, and H dividing the block's rows.
+A thread block owns the output rows of whole samples (f32 route: 64 rows,
+32 when Cout > 256; BF16 route: 64 rows, one `wgmma` M) and every output
+channel; the sources' notes say what bounds each on the card and how the
+design answers that. So both take Cout a multiple of 8 and of groups, at
+most 512, and H dividing the block's rows; a shape whose block does not
+fit the device's shared memory is refused.
 
 The plain version `film_resblock_reference` takes the same types and
 promotes as flax's `ResidualBlock1d` does (utils/blocks.py `promote`,
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -69,9 +75,13 @@ from .build import load_library
 from .vjp import plain_vjp
 
 __all__ = ["fused_film_resblock", "fused_film_resblock_bf16", "film_resblock_op",
-           "film_resblock_reference", "kernel_route", "load_film_resblock_library"]
+           "film_resblock_reference", "kernel_route", "load_film_resblock_library",
+           "load_film_resblock_bf16_library", "bf16_plan", "BF16_PLAN_FIELDS"]
 
-_LIB_NAME = "film_resblock"
+_LIB_NAME, _LIB_NAME_BF16 = "film_resblock", "film_resblock_bf16"
+# the fields of film_resblock_bf16_plan, in its order
+BF16_PLAN_FIELDS = ("channels", "warpgroups", "samples", "tile_rows", "row_stride", "fill_width",
+                    "fills", "stages", "stage_channels", "smem", "blocks_per_sm")
 
 
 def film_resblock_reference(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=None, bskip=None,
@@ -102,17 +112,15 @@ def film_resblock_reference(x, emb, w1, b1, g1s, g1b, w2, b2, g2s, g2b, wskip=No
 # The kernel
 @functools.lru_cache(maxsize=None)
 def load_film_resblock_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library; set its C types.
-    Cached: a launch must not re-read and re-hash the source."""
+    """Build (at first use) and load the f32 route's library; set its C
+    types. Cached: a launch must not re-read and re-hash the source."""
     lib = load_library(_LIB_NAME)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.film_resblock_forward_f32.argtypes = [vp] * 13 + [ci] * 7 + [ctypes.c_float, vp]
     lib.film_resblock_forward_f32.restype = ci
-    lib.film_resblock_forward_bf16.argtypes = [vp] * 13 + [ci] * 9 + [ctypes.c_float, vp]
-    lib.film_resblock_forward_bf16.restype = ci
     lib.film_resblock_block_rows.argtypes = [ci]
     lib.film_resblock_block_rows.restype = ci
-    lib.film_resblock_smem_bytes.argtypes = [ci] * 7
+    lib.film_resblock_smem_bytes.argtypes = [ci] * 6
     lib.film_resblock_smem_bytes.restype = ctypes.c_longlong
     lib.film_resblock_max_smem_optin.argtypes = [ci]
     lib.film_resblock_max_smem_optin.restype = ci
@@ -122,8 +130,71 @@ def load_film_resblock_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_smem_optin(lib, device_index: int) -> int:
-    return lib.film_resblock_max_smem_optin(device_index)
+def load_film_resblock_bf16_library() -> ctypes.CDLL:
+    """The same for the BF16 route's library."""
+    lib = load_library(_LIB_NAME_BF16)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.film_resblock_forward_bf16.argtypes = [vp] * 13 + [ci] * 9 + [ctypes.c_float, vp]
+    lib.film_resblock_forward_bf16.restype = ci
+    lib.film_resblock_bf16_block_rows.argtypes = [ci]
+    lib.film_resblock_bf16_block_rows.restype = ci
+    lib.film_resblock_bf16_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.film_resblock_bf16_plan.restype = ci
+    lib.film_resblock_bf16_max_smem_optin.argtypes = [ci]
+    lib.film_resblock_bf16_max_smem_optin.restype = ci
+    lib.film_resblock_bf16_error_string.argtypes = [ci]
+    lib.film_resblock_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bf16_plan(B: int, H: int, Cin: int, Cout: int, K: int, groups: int):
+    """The BF16 route's tile plan for a shape (BF16_PLAN_FIELDS: output
+    channels of a tile, consumer warpgroups, samples per tile, tile rows,
+    x fill width and count, ring stages, shared memory bytes, blocks per
+    SM), or None if the kernel does not take the shape."""
+    out = (ctypes.c_longlong * len(BF16_PLAN_FIELDS))()
+    if load_film_resblock_bf16_library().film_resblock_bf16_plan(B, H, Cin, Cout, K, groups,
+                                                                 out) != 0:
+        return None
+    return dict(zip(BF16_PLAN_FIELDS, out))
+
+
+class _Route(NamedTuple):
+    """What the wrapper needs of a route's library: the one place that
+    knows how the two libraries' C interfaces differ."""
+    block_rows: Callable[[int], int]  # output rows of a thread block at Cout
+    smem_bytes: Callable[..., int]  # (B, H, Cin, Cout, K, groups) -> bytes, < 0 if not taken
+    max_smem_optin: Callable[[int], int]  # device index -> bytes
+    forward: Callable[..., int]  # (args, x, emb, eps, stream) -> error code
+    error_string: Callable[[int], bytes]
+
+
+def _bf16_smem_bytes(*shape) -> int:
+    plan = bf16_plan(*shape)
+    return -1 if plan is None else plan["smem"]
+
+
+@functools.lru_cache(maxsize=None)
+def _route(route: str) -> _Route:
+    if route == "f32":
+        lib = load_film_resblock_library()
+        return _Route(lib.film_resblock_block_rows, lib.film_resblock_smem_bytes,
+                      lib.film_resblock_max_smem_optin,
+                      lambda args, x, emb, eps, stream: lib.film_resblock_forward_f32(
+                          *args, eps, stream),
+                      lib.film_resblock_error_string)
+    lib = load_film_resblock_bf16_library()
+    return _Route(lib.film_resblock_bf16_block_rows, _bf16_smem_bytes,
+                  lib.film_resblock_bf16_max_smem_optin,
+                  lambda args, x, emb, eps, stream: lib.film_resblock_forward_bf16(
+                      *args, int(x.dtype == torch.bfloat16), int(emb.dtype == torch.bfloat16),
+                      eps, stream),
+                  lib.film_resblock_bf16_error_string)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_smem_optin(route: str, device_index: int) -> int:
+    return _route(route).max_smem_optin(device_index)
 
 
 def kernel_route(x, emb, ws) -> str:
@@ -142,7 +213,7 @@ def kernel_route(x, emb, ws) -> str:
         f"{sorted(str(t) for t in w_types)}")
 
 
-def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale) -> str:
+def _check_kernel_args(x, emb, ws, skip, K, groups, film_scale) -> str:
     """Raises on what the kernel does not take; returns the route."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, H, Cin), got {tuple(x.shape)}")
@@ -177,15 +248,15 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale) -> str:
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *named.values())):
         raise RuntimeError("fused_film_resblock has no backward: call it under "
                            "torch.no_grad(), or use film_resblock_reference to differentiate")
-    rows = lib.film_resblock_block_rows(Cout)
+    rows = _route(route).block_rows(Cout)
     if rows % H:
         raise ValueError(f"H={H} must divide the {rows} output rows of a thread block at "
                          f"Cout={Cout}: a block owns whole samples")
-    smem = lib.film_resblock_smem_bytes(B, H, Cin, Cout, K, groups, int(route == "bf16"))
+    smem = _route(route).smem_bytes(B, H, Cin, Cout, K, groups)
     if smem < 0:
         raise ValueError(f"the kernel does not take (H={H}, Cin={Cin}, Cout={Cout}, K={K}, "
                          f"groups={groups})")
-    limit = _max_smem_optin(lib, x.device.index)
+    limit = _max_smem_optin(route, x.device.index)
     if smem > limit:
         raise ValueError(f"(H={H}, Cin={Cin}, Cout={Cout}) needs {smem} bytes of shared "
                          f"memory per block; the device allows {limit}")
@@ -195,8 +266,7 @@ def _check_kernel_args(lib, x, emb, ws, skip, K, groups, film_scale) -> str:
 def _launch(route_wanted, x, emb, ws, wskip, bskip, K, groups, film_scale, eps):
     if x.device.type != "cuda":
         raise ValueError(f"fused_film_resblock runs on CUDA tensors, got {x.device}")
-    lib = load_film_resblock_library()
-    route = _check_kernel_args(lib, x, emb, ws, (wskip, bskip), K, groups, film_scale)
+    route = _check_kernel_args(x, emb, ws, (wskip, bskip), K, groups, film_scale)
     if route != route_wanted:
         other = "fused_film_resblock_bf16" if route == "bf16" else "fused_film_resblock"
         raise TypeError(f"{route} inputs go to {other}")
@@ -208,15 +278,11 @@ def _launch(route_wanted, x, emb, ws, wskip, bskip, K, groups, film_scale, eps):
     args = (x.data_ptr(), emb.data_ptr(), *(w.data_ptr() for w in ws), ptr(wskip), ptr(bskip),
             out.data_ptr(), B, H, Cin, Cout, K, groups, int(film_scale))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "f32":
-            err = lib.film_resblock_forward_f32(*args, eps, stream)
-        else:
-            err = lib.film_resblock_forward_bf16(*args, int(x.dtype == torch.bfloat16),
-                                                 int(emb.dtype == torch.bfloat16), eps, stream)
+        err = _route(route).forward(args, x, emb, eps,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"film_resblock kernel launch failed: "
-                           f"{lib.film_resblock_error_string(err).decode()} ({err})")
+        message = _route(route).error_string(err).decode()
+        raise RuntimeError(f"film_resblock kernel launch failed: {message} ({err})")
     return out
 
 

@@ -568,8 +568,14 @@ BF16_TOL = 5e-2
 @pytest.mark.parametrize("types", [("f32", "f32"), ("bf16", "f32"), ("bf16", "bf16"),
                                    ("f32", "bf16")])
 @pytest.mark.parametrize("shape", [(7, 32, 23, 32, False), (9, 4, 256, 256, False),
-                                   (5, 4, 512, 128, False), (5, 16, 23, 48, True)],
-                         ids=["cin23", "c256", "cin512", "cout48-film-scale"])
+                                   (5, 4, 512, 128, False), (5, 16, 23, 48, True),
+                                   (3, 8, 1024, 256, False), (2, 64, 37, 64, False),
+                                   (64, 4, 256, 256, False), (19, 4, 128, 256, False),
+                                   (5, 4, 1024, 256, False), (3, 8, 512, 512, False),
+                                   (4, 8, 256, 320, False)],
+                         ids=["cin23", "c256", "cin512", "cout48-film-scale", "antmaze-cin1024",
+                              "antmaze-h64", "batch64", "ragged-last-tile", "x-in-two-fills",
+                              "cout512-two-warpgroups", "cout320-groups-across-warpgroups"])
 def test_film_resblock_bf16_route_matches_plain(cuda, shape, types):
     """The U-Net's calls (its first block: BF16 x with an f32 FiLM term; the
     others f32 x) and all-BF16, against the plain version on the same
@@ -604,6 +610,29 @@ def test_film_resblock_bf16_route_rejects_other_types(cuda):
         film.fused_film_resblock_bf16(x, emb, *wb[:-1], skip[1], **kw)  # one f32 bias
     with pytest.raises(TypeError, match="bfloat16 weights"):
         film.fused_film_resblock_bf16(x.half(), emb, *wb, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 32, 32), (2, 4, 32, 520)], ids=["h3", "cout520"])
+def test_film_resblock_bf16_route_raises_on_a_shape_it_does_not_take(cuda, shape, monkeypatch):
+    """A CUDA tensor the kernel does not take (H not dividing a tile's 64
+    rows; Cout past 512) raises, from the kernel's wrapper and from the
+    model's dispatcher alike, and never runs the plain version."""
+    B, H, Cin, Cout = shape
+    x, emb, ws, skip = _film_inputs(cuda, B, H, Cin, Cout, 5, False)
+    wb = [None if w is None else w.to(torch.bfloat16) for w in (*ws, *skip)]
+    kw = dict(K=5, groups=8)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(film, "film_resblock_reference", plain)
+    before = film.fused_film_resblock_bf16.launches
+    with pytest.raises(ValueError):
+        film.fused_film_resblock_bf16(x, emb, *wb, **kw)
+    with torch.no_grad(), pytest.raises(ValueError):
+        film.film_resblock_op(x, emb, *wb, **kw)
+    assert film.fused_film_resblock_bf16.launches == before
 
 
 @pytest.mark.gpu

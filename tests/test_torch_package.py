@@ -15,8 +15,8 @@ PORT = ROOT / "cleandiffuser_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "cleandiffuser_tpu"}
 # the port's sources and the scripts that drive it on the card
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools/dit_block_variants.py", ROOT / "tools/profile_dd_plan.py",
-    ROOT / "tools/profile_train_step.py"]
+    ROOT / "chip_smoke.py", ROOT / "film_bf16_compare.py", ROOT / "tools/dit_block_variants.py",
+    ROOT / "tools/profile_dd_plan.py", ROOT / "tools/profile_train_step.py"]
 
 
 def _imported_roots(path: Path):
@@ -111,14 +111,15 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
-def _load_tool(name: str):
-    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+def _load_script(path: str):
+    spec = importlib.util.spec_from_file_location(Path(path).stem, ROOT / path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-DIT_BLOCK_VARIANTS = _load_tool("dit_block_variants")
+DIT_BLOCK_VARIANTS = _load_script("tools/dit_block_variants.py")
+FILM_BF16_COMPARE = _load_script("film_bf16_compare.py")
 
 
 @pytest.mark.parametrize("variant", sorted(DIT_BLOCK_VARIANTS.VARIANTS))
@@ -127,6 +128,16 @@ def test_dit_block_variant_applies_to_the_kernel_source(variant):
     a variant must find its text once in the kernel as it stands."""
     src = (PORT / "csrc" / "dit_block.cu").read_text()
     for old, _ in DIT_BLOCK_VARIANTS.VARIANTS[variant]:
+        assert src.count(old) == 1, old
+
+
+@pytest.mark.parametrize("variant", sorted(FILM_BF16_COMPARE.VARIANTS))
+def test_film_bf16_variant_applies_to_the_kernel_source(variant):
+    """film_bf16_compare.py edits csrc/film_resblock_bf16.cu by exact text:
+    each edit of a variant must find its text once in the kernel as it
+    stands."""
+    src = (PORT / FILM_BF16_COMPARE.SOURCE).read_text()
+    for old, _ in FILM_BF16_COMPARE.VARIANTS[variant]:
         assert src.count(old) == 1, old
 
 
