@@ -18,28 +18,35 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. device    - a CUDA device must be present (there is no CPU path); prints
                the `nvidia-smi` name and power limit.
-2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/film_resblock.cu,
-               csrc/film_resblock_bf16.cu) with nvcc from the sources in this
-               checkout, one nvcc each, in parallel; prints the seconds and
-               the compiler's register / shared-memory / spill report;
-               counts the tensor-core instructions (HMMA / HGMMA) in the
-               SASS of each and fails if one has none; fails unless K1's
-               BF16 route holds HMMA.16816.F32.BF16, and unless K3's BF16
-               kernel holds HGMMA BF16 and no HMMA.16816.F32.BF16; compiles
-               the Triton solver-update kernel.
+2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/dit_block_bf16.cu,
+               csrc/film_resblock.cu, csrc/film_resblock_bf16.cu) with nvcc
+               from the sources in this checkout, one nvcc each, in
+               parallel: the nvcc processes start first, phase 16 (the DQL
+               Goal2D gate, which launches no kernel) runs while they
+               compile, and the phase then waits for them; prints the seconds and the compiler's register /
+               shared-memory / spill report; counts the tensor-core
+               instructions (HMMA / HGMMA) in the SASS of each and fails if
+               one has none; fails unless K1's and K3's BF16 kernels each
+               hold HGMMA BF16 and no HMMA.16816.F32.BF16; compiles the
+               Triton solver-update kernel.
 3. dit_block - K1 against its plain PyTorch version at the DD plan's shape
                (B=100, H=32, D=320, 10 heads, f32), at the 3200-trajectory
                candidate batch and at the antmaze horizon H=64 (a cluster of
                two thread blocks per trajectory): error, both times, TFLOP/s
                (flops from the shape) and the kernel's share of its bound.
-   dit_block BF16 - K1's BF16 route (BF16 weights and biases) against its
-               plain version (which promotes as jnp does) at (100, 32, 320)
-               mixed (f32 x and mod) and all-BF16, (3200, 32, 320) mixed,
-               (100, 64, 320) mixed on the cluster, and (64, 32, 320)
-               all-BF16 (the forward of a `bf16_training` step): error
-               within 5e-2 (and the share of that limit read), the route's
-               time beside the f32 route's and the plain version's in one
-               call, TFLOP/s and the share of the BF16 bound.
+   dit_block BF16 - K1's BF16 route (BF16 weights and biases; `wgmma`,
+               a TMA weight ring, 64-row tiles) against its plain version
+               (which promotes as jnp does) at (100, 32, 320) mixed (f32 x
+               and mod) and all-BF16, (3200, 32, 320) mixed, (100, 64, 320)
+               mixed, and (64, 32, 320) all-BF16 (the forward of a
+               `bf16_training` step): error within 5e-2 (and the share of
+               that limit read), the tile plan (rows and trajectories per
+               tile, tiles, thread blocks, cluster, stages, shared memory
+               against the device's limit), the route's time beside the f32
+               route's and the plain version's in one call, TFLOP/s and the
+               share of the BF16 bound; then, error and plan only, a ragged
+               last tile (B = 101 at H = 32) and H = 20 (three trajectories
+               per tile, four rows to spare), mixed and all-BF16.
 4. film_resblock - K3 against its plain version at every distinct block
                shape of the shipped Diffuser U-Net (B=3200 candidate
                trajectories, K=5, 8 groups, eps 1e-6): error, both times
@@ -60,6 +67,12 @@ Phases, each of which raises on failure (exit code != 0):
                blocks. Then the same at the antmaze U-Net's shapes, and at
                the MuJoCo U-Net's at the training batch of 64 (error and
                the route's time).
+   BF16 repeats - both BF16 routes launched BF16_REPEATS times back to
+               back on the same inputs, K3's at every distinct MuJoCo U-Net
+               block shape (B = 3200), K1's at the phase's shapes and an odd
+               head count (101, 33, 96, 3 heads): every output must equal
+               the first bit for bit (a race that spoils some launches),
+               and the first the plain version within 5e-2.
 5. solver_update - K2 against its plain version at the plan's state shape
                (3200, 32, 23) with a real ddpm step's coefficients: exact
                without noise, N(0, 1) moments of the in-kernel noise over
@@ -80,8 +93,10 @@ Phases, each of which raises on failure (exit code != 0):
                against the f32 plan with the same explicit noise (max and
                mean |diff| within 0.02 and 0.005 of the plan's scale, the
                JAX package's bounds; the gap with the Fourier frequencies at
-               their N(0, 16^2) init scale is printed beside it); then one
-               antmaze request (H = 64), its gap printed.
+               their N(0, 16^2) init scale is printed beside it); one bf16
+               and one f32 request under `torch.profiler` (device busy ms and
+               idle share of each); then one antmaze request (H = 64), its
+               gap printed.
 7. Diffuser slice - builds DiffuserPipeline on the GPU from
                configs/diffuser/mujoco (halfcheetah-medium-v2) with the fused
                block on, loads seeded non-zero weights (U-Net, classifier and
@@ -174,7 +189,8 @@ Phases, each of which raises on failure (exit code != 0):
                observations standing in for the envs': actions finite, in
                [-1, 1], (50, 6), the median latency. No kernel launches in
                these phases (all four counts read 0).
-16. DQL Goal2D - the hermetic DQL of tests/test_hermetic_parity.py:101-108
+16. DQL Goal2D (run during phase 2's build) - the hermetic DQL of
+               tests/test_hermetic_parity.py:101-108
                (emb 32, critic 128, discount 0.95) trained 3000 steps at
                batch 128 on the Goal2D behavior data on the card, with grad
                through the 5-step sampler; 128 episodes with 50 candidates
@@ -406,6 +422,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -500,11 +517,13 @@ from cleandiffuser_tpu_torch.env.pusht_expert import (  # noqa: E402
     generate_pusht_expert_trajectories,
 )
 from cleandiffuser_tpu_torch.ops import build  # noqa: E402
+from cleandiffuser_tpu_torch.ops.dit_block import bf16_plan as dit_bf16_plan  # noqa: E402
 from cleandiffuser_tpu_torch.ops.dit_block import (  # noqa: E402
     dit_block_op,
     dit_block_reference,
     fused_dit_block,
     fused_dit_block_bf16,
+    load_dit_block_bf16_library,
     load_dit_block_library,
 )
 from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
@@ -577,6 +596,7 @@ DD_TRAIN_STEPS, DIFFUSER_TRAIN_STEPS, TIMED_STEPS = 20, 10, 12
 # bf16 kernel (tests/test_pallas_ops.py:136). The route rounds each product's
 # activations to bf16, which the mixed plain version does not.
 BF16_ATOL = BF16_RTOL = 5e-2
+BF16_REPEATS = 30  # launches per shape in the BF16 routes' repeated-launch check
 # bf16 against f32 with the same weights and noise: plans (max and mean |diff|
 # over the plan's scale) and losses, the JAX package's bounds
 # (tests/test_bf16_sampling.py:67-70, :105)
@@ -910,41 +930,52 @@ def check_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
-def build_kernels(dev):
+KERNEL_SOURCES = ("dit_block", "dit_block_bf16", "film_resblock", "film_resblock_bf16")
+
+
+def start_build() -> "build.Builds":
+    """Start nvcc on every kernel source, one process each, and return at
+    once: the phases before `build_kernels` launch no kernel and run on
+    the host while the card's machine compiles on its other cores."""
+    phase("build started: one nvcc process per kernel source, in the background")
+    return build.Builds(KERNEL_SOURCES)
+
+
+def build_kernels(dev, builds: "build.Builds"):
     phase("build")
-    names = ("dit_block", "film_resblock", "film_resblock_bf16")
-    seconds = build.build_libraries(names)
+    names = KERNEL_SOURCES
+    seconds = builds.wait()
     load_dit_block_library()
+    load_dit_block_bf16_library()
     load_film_resblock_library()
     load_film_resblock_bf16_library()
     for name in names:
-        print(f"{name}.cu built in {seconds[name]:.2f} s (nvcc processes run in parallel)")
+        print(f"{name}.cu built in {seconds[name]:.2f} s from the build's start (nvcc "
+              "processes run in parallel)")
         for line in build.build_log(name).splitlines():
             # (C7519: ptxas notes each wgmma.fence it adds, one line each)
             if "C7519" not in line and any(k in line for k in (
                     "entry function", "registers", "spill", "smem", "wgmma", "arning")):
                 print("  ptxas:", line.strip())
-    sass = {name: build.sass(name).splitlines() for name in names}
+    with ThreadPoolExecutor(len(names)) as pool:  # one cuobjdump process each
+        sass = dict(zip(names, (s.splitlines() for s in pool.map(build.sass, names))))
     for name in names:
         mma = [ln for ln in sass[name] if "HMMA" in ln or "HGMMA" in ln]
         print(f"{name} SASS: {len(mma)} tensor-core instructions (HMMA/HGMMA), e.g. "
               f"{mma[0].split(';')[0].split('*/')[-1].strip() if mma else '-'}")
         if not mma:
             raise AssertionError(f"{name}'s SASS has no tensor-core instruction")
-    # K1's BF16 route runs mma.sync BF16; K3's runs wgmma BF16 and nothing of
-    # the mma.sync route it replaced
-    bf16 = [ln for ln in sass["dit_block"] if "HMMA.16816.F32.BF16" in ln]
-    print(f"dit_block SASS: {len(bf16)} BF16 MMAs (HMMA.16816.F32.BF16, the BF16 route)")
-    if not bf16:
-        raise AssertionError("dit_block's SASS has no BF16 MMA: the BF16 route is not built")
-    hgmma = [ln for ln in sass["film_resblock_bf16"] if "HGMMA" in ln and ".BF16" in ln]
-    old = [ln for ln in sass["film_resblock_bf16"] if "HMMA.16816.F32.BF16" in ln]
-    shapes = sorted({ln.split("HGMMA.")[1].split()[0] for ln in hgmma})
-    print(f"film_resblock_bf16 SASS: {len(hgmma)} BF16 warpgroup MMAs (HGMMA, shapes "
-          f"{shapes}), {len(old)} HMMA.16816.F32.BF16")
-    if not hgmma or old:
-        raise AssertionError("K3's BF16 kernel must run on HGMMA BF16 and hold no "
-                             "HMMA.16816.F32.BF16")
+    # K1's and K3's BF16 routes run wgmma BF16 and nothing of the mma.sync
+    # routes they replaced
+    for name in ("dit_block_bf16", "film_resblock_bf16"):
+        hgmma = [ln for ln in sass[name] if "HGMMA" in ln and ".BF16" in ln]
+        old = [ln for ln in sass[name] if "HMMA.16816.F32.BF16" in ln]
+        shapes = sorted({ln.split("HGMMA.")[1].split()[0] for ln in hgmma})
+        print(f"{name} SASS: {len(hgmma)} BF16 warpgroup MMAs (HGMMA, shapes {shapes}), "
+              f"{len(old)} HMMA.16816.F32.BF16")
+        if not hgmma or old:
+            raise AssertionError(f"{name}'s kernel must run on HGMMA BF16 and hold no "
+                                 "HMMA.16816.F32.BF16")
     x = torch.zeros(1024, device=dev)
     for c_noise in (0.0, 1.0):  # two specialisations: with and without noise
         t0 = time.perf_counter()
@@ -977,8 +1008,9 @@ def dit_gbytes(B, H, D, x_bytes: int = 4, w_bytes: int = 4) -> float:
 
 def dit_bf16_ops_ms(B, H, D) -> float:
     """The BF16 route's operations at their peaks: the four weight products
-    in BF16, attention's two in 3xTF32."""
-    return B * H * 24 * D * D / 1e9 / BF16_TFLOPS + B * H * 4 * H * D / 1e9 / TF32X3_TFLOPS
+    in BF16, attention's two in TF32 (one MMA a product: q, k and v are BF16
+    values, which TF32 holds exactly)."""
+    return B * H * 24 * D * D / 1e9 / BF16_TFLOPS + B * H * 4 * H * D / 1e9 / TF32_TFLOPS
 
 
 def block_inputs(rng, dev, B, H, D, requires_grad=False):
@@ -1000,7 +1032,7 @@ def check_kernel(dev) -> dict:
     rng = np.random.default_rng(SEED)
     record = None
     # the DD plan's CFG batch; candidate evaluation; the antmaze configs' horizon
-    for B, H, iters in ((100, 32, 50), (3200, 32, 5), (100, 64, 25)):
+    for B, H, iters in ((100, 32, 30), (3200, 32, 3), (100, 64, 15)):
         x, mod, ws = block_inputs(rng, dev, B, H, D)
         out = fused_dit_block(x, mod, *ws, n_heads=NH)
         ref = dit_block_reference(x, mod, *ws, n_heads=NH)
@@ -1028,19 +1060,28 @@ def check_kernel(dev) -> dict:
     return record
 
 
+def dit_bf16_plan_line(B, H, D, NH, dev) -> str:
+    """The BF16 route's tile plan for a shape, as one line."""
+    plan = dit_bf16_plan(B, H, D, NH)
+    limit = load_dit_block_bf16_library().dit_block_bf16_max_smem_optin(dev.index or 0)
+    return (f"plan: {plan['tile_rows']}-row tiles of {plan['trajectories']} trajectories, "
+            f"{plan['tiles']} tiles on {plan['blocks']} persistent thread blocks (cluster "
+            f"{plan['cluster']}), {plan['stages']} ring stages of {plan['stage_rows']} weight "
+            f"rows, {plan['warpgroup_columns']} columns per consumer warpgroup, "
+            f"{plan['smem']} B of shared memory (device limit {limit})")
+
+
 def check_kernel_bf16(dev) -> dict:
-    """K1's BF16 route against its plain version; its time beside the f32
-    route's (on the f32 weights) and the plain version's, in turns."""
+    """K1's BF16 route against its plain version, with its tile plan; its
+    time beside the f32 route's (on the f32 weights) and the plain
+    version's, in turns. Then the shapes that exercise the plan's edges,
+    error and plan only."""
     phase("dit_block BF16 route vs plain version")
     D, NH = 320, 10
     rng = np.random.default_rng(SEED + 10)
     record = None
-    # the bf16 DD plan's call (f32 x and mod), all-BF16, candidate
-    # evaluation, the antmaze horizon on the cluster, and the forward of a
-    # `bf16_training` step (batch 64: x and mod BF16, cast by the engine)
-    for B, H, route, iters in ((100, 32, "mixed", 50), (100, 32, "bf16", 50),
-                               (3200, 32, "mixed", 5), (100, 64, "mixed", 25),
-                               (64, 32, "bf16", 50)):
+
+    def run(B, H, route):
         x, mod, ws = block_inputs(rng, dev, B, H, D)
         wb = [w.to(torch.bfloat16) for w in ws]
         xb, modb = (x.to(torch.bfloat16), mod.to(torch.bfloat16)) if route == "bf16" else (x, mod)
@@ -1055,9 +1096,19 @@ def check_kernel_bf16(dev) -> dict:
         used = ((out - ref).abs() / (BF16_ATOL + BF16_RTOL * ref.abs())).max().item()
         print(f"shape (B={B}, H={H}, D={D}, heads={NH}) {route}: max_abs_err {max_abs:.3e} "
               f"max_rel_err {max_rel:.3e} (max |ref| {ref.abs().max().item():.3f}); "
-              f"{used:.1%} of the limit ({BF16_ATOL} abs + {BF16_RTOL} rel)", flush=True)
+              f"{used:.1%} of the limit ({BF16_ATOL} abs + {BF16_RTOL} rel); "
+              f"{dit_bf16_plan_line(B, H, D, NH, dev)}", flush=True)
         torch.testing.assert_close(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL)
+        return x, mod, ws, xb, modb, wb, max_abs
 
+    # the bf16 DD plan's call (f32 x and mod), all-BF16, candidate
+    # evaluation, the antmaze horizon (one trajectory a tile), and the
+    # forward of a `bf16_training` step (batch 64: x and mod BF16, cast by
+    # the engine)
+    for B, H, route, iters in ((100, 32, "mixed", 30), (100, 32, "bf16", 30),
+                               (3200, 32, "mixed", 3), (100, 64, "mixed", 15),
+                               (64, 32, "bf16", 30)):
+        x, mod, ws, xb, modb, wb, max_abs = run(B, H, route)
         med, times = time_in_turns(
             {"plain": lambda: dit_block_reference(xb, modb, *wb, n_heads=NH),
              "bf16": lambda: fused_dit_block_bf16(xb, modb, *wb, n_heads=NH),
@@ -1068,12 +1119,18 @@ def check_kernel_bf16(dev) -> dict:
         print(f"  device time per block: BF16 route {med['bf16']:.4f} ms, f32 route "
               f"{med['f32']:.4f} ms, plain {med['plain']:.4f} ms ({gf:.3f} GFLOP, "
               f"{gb * 1e3:.2f} MB: {gf / med['bf16']:.2f} / {gf / med['f32']:.2f} / "
-              f"{gf / med['plain']:.2f} TFLOP/s); BF16 bound {b['bound_ms']:.4f} ms by "
+              f"{gf / med['plain']:.2f} TFLOP/s); BF16 route / f32 route "
+              f"{med['bf16'] / med['f32']:.3f}; BF16 bound {b['bound_ms']:.4f} ms by "
               f"{b['bound_by']} (products at {BF16_TFLOPS:.0f}, attention at "
-              f"{TF32X3_TFLOPS:.0f} TFLOP/s): BF16 route at {b['bound_ms'] / med['bf16']:.1%} "
+              f"{TF32_TFLOPS:.0f} TFLOP/s): BF16 route at {b['bound_ms'] / med['bf16']:.1%} "
               f"of it (runs {times})", flush=True)
         if record is None:
             record = {"max_abs_err": max_abs, "ms": med["bf16"], "plain_ms": med["plain"], **b}
+    # a ragged last tile (51 tiles of two trajectories, the last with one),
+    # and H = 20: three trajectories a tile, rows 60-63 spare
+    for B, H in ((101, 32), (100, 20)):
+        for route in ("mixed", "bf16"):
+            run(B, H, route)
     return record
 
 
@@ -1258,6 +1315,55 @@ def check_film_kernel_bf16(dev, blocks=UNET_BLOCKS) -> dict:
     return {"max_abs_err": mujoco["worst"], "ms": med["bf16"], "plain_ms": med["plain"],
             **bound(film_gflop(B, H, Cin, Cout, K) / BF16_TFLOPS,
                     film_gbytes(B, H, Cin, Cout, K, 4, 2))}
+
+
+def check_bf16_repeats(dev, repeats: int = BF16_REPEATS):
+    """Both BF16 routes launched `repeats` times back to back on the same
+    inputs, at every distinct block shape of the MuJoCo U-Net (K3, B =
+    3200) and at K1's plan and edge shapes: every output must equal the
+    first bit for bit (each tile's sums run in one fixed order, so a launch
+    that differs read an operand before it was ready), and the first must
+    match the plain version within the BF16 limit. One launch per shape, as
+    the phases above check, finds a wrong kernel; this finds a race that
+    spoils only some launches."""
+    phase(f"BF16 routes, {repeats} launches per shape: every output equal to the first")
+
+    def check(label, fn, ref):
+        outs = [fn() for _ in range(repeats)]
+        torch.cuda.synchronize()
+        if outs[0].dtype != ref.dtype:
+            raise AssertionError(f"{label}: {outs[0].dtype} out, {ref.dtype} reference")
+        torch.testing.assert_close(outs[0].float(), ref.float(), atol=BF16_ATOL,
+                                   rtol=BF16_RTOL)
+        bad = [i for i, o in enumerate(outs) if not torch.equal(o, outs[0])]
+        gap = max(((outs[i].float() - outs[0].float()).abs().max().item() for i in bad),
+                  default=0.0)
+        print(f"{label}: {len(bad)} of {repeats} launches differ from the first (max |diff| "
+              f"{gap:.3e})", flush=True)
+        if bad:
+            raise AssertionError(f"{label}: launches {bad} differ from the first")
+
+    rng = np.random.default_rng(SEED + 15)
+    kw = dict(K=5, groups=8, eps=1e-6)
+    for i, (H, Cin, Cout) in enumerate(dict.fromkeys(UNET_BLOCKS)):
+        args, x, wb = film_bf16_args(rng, dev, 3200, H, Cin, Cout, 5, i == 0)
+        check(f"film_resblock_bf16 (B=3200, H={H}, Cin={Cin}, Cout={Cout})",
+              lambda: fused_film_resblock_bf16(x, args[1], *wb, **kw),
+              film_resblock_reference(x, args[1], *wb, **kw))
+    # the bf16 DD plan's call, all-BF16, candidate evaluation, the antmaze
+    # horizon, a ragged last tile, three trajectories a tile, the training
+    # forward, and an odd head count at one trajectory a tile
+    for B, H, D, NH, route in ((100, 32, 320, 10, "mixed"), (100, 32, 320, 10, "bf16"),
+                               (3200, 32, 320, 10, "mixed"), (100, 64, 320, 10, "mixed"),
+                               (101, 32, 320, 10, "mixed"), (100, 20, 320, 10, "mixed"),
+                               (64, 32, 320, 10, "bf16"), (101, 33, 96, 3, "mixed")):
+        x, mod, ws = block_inputs(rng, dev, B, H, D)
+        wb = [w.to(torch.bfloat16) for w in ws]
+        if route == "bf16":
+            x, mod = x.to(torch.bfloat16), mod.to(torch.bfloat16)
+        check(f"dit_block_bf16 (B={B}, H={H}, D={D}, heads={NH}) {route}",
+              lambda: fused_dit_block_bf16(x, mod, *wb, n_heads=NH),
+              dit_block_reference(x, mod, *wb, n_heads=NH))
 
 
 def check_solver_kernel(dev) -> dict:
@@ -1517,6 +1623,20 @@ def check_slice_bf16(dev, bench: str = "mujoco", n_requests: int = N_REQUESTS) -
         if launches != expected or f32_launches:
             raise AssertionError(f"bf16 planning launched the BF16 route {launches} times "
                                  f"(expected {expected}) and the f32 route {f32_launches} times")
+        if bench == "mujoco":
+            # one request of each under the profiler: the device's busy time
+            # and idle share against the median latency
+            prof = {"f32": profile_request(lambda: pipe.act(obs[1], generator=gen),
+                                           statistics.median(f32_lat), ())}
+            del pipe.agent.bf16_sampling
+            prof["bf16"] = profile_request(lambda: pipe.act(obs[1], generator=gen),
+                                           statistics.median(lat), ())
+            pipe.agent.bf16_sampling = False
+            share = lambda v: "not measured" if v is None else f"{v:.1%}"
+            print("one request under torch.profiler: " + "; ".join(
+                f"{k} device busy {v['device_busy_ms']:.3f} ms, idle {share(v['idle_share'])} of "
+                f"the median latency {v['median_latency_ms']:.3f} ms" for k, v in prof.items()),
+                flush=True)
 
         # one plan, bf16 against f32, same weights and explicit noise
         shape = (E, H, O)
@@ -1686,11 +1806,11 @@ def check_kernel_autograd(dev, H: int = 32, config: str = "mujoco") -> dict:
     with torch.no_grad():
         ms, plain_ms, times = time_pair(lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
                                         lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
-                                        50, rounds=3)
+                                        50, rounds=2)
     fb_ms, fb_plain_ms, fb_times = time_pair(
         lambda: torch.autograd.grad(dit_block_op(*inputs, n_heads=NH), inputs, g),
         lambda: torch.autograd.grad(dit_block_reference(*inputs, n_heads=NH), inputs, g), 20,
-        rounds=3)
+        rounds=2)
     gf, gb = dit_gflop(B, H, D), dit_gbytes(B, H, D)
     b = bound(gf / TF32X3_TFLOPS, gb)
     print(f"  forward ({gf:.3f} GFLOP, {gb * 1e3:.2f} MB): kernel {ms:.4f} ms ({gf / ms:.2f} "
@@ -4278,11 +4398,19 @@ def check_blockpush(dev) -> dict:
 def main() -> int:
     kind = check_device()
     dev = torch.device("cuda", 0)
-    build_kernels(dev)
+    builds = start_build()
+    try:
+        # the DQL gate launches no kernel: it trains while nvcc compiles
+        check_dql_goal2d(dev)
+    except BaseException:
+        builds.kill()
+        raise
+    build_kernels(dev, builds)
     k1 = check_kernel(dev)
     k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
     k3_bf16 = check_film_kernel_bf16(dev)
+    check_bf16_repeats(dev)
     check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze", 10)  # 10: the script's time
     k2 = check_solver_kernel(dev)
     k1_launches = check_slice(dev)
@@ -4313,7 +4441,6 @@ def main() -> int:
     rl = {family: check_rl_cli(dev, family) for family in ("dql", "idql", "edp")}
     rl.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
                for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
-    check_dql_goal2d(dev)
     # Diffusion Veteran and DiffuserLite (plain blocks, as the reference
     # builds them): no kernel launch in these phases
     planners = {f"veteran_{suite}": check_veteran_cli(dev, suite) for suite in VETERAN_CLIS}
@@ -4373,7 +4500,7 @@ def main() -> int:
                "cleandiffuser_tpu/ops/dit_block.py:125", k1_launches, k1_train, k1),
         # the same TPU kernel with bf16 weights: its plan and training launches
         # are those of the bf16_sampling and bf16_training phases
-        record("dit_block_bf16", "cuda", "cleandiffuser_tpu_torch/csrc/dit_block.cu",
+        record("dit_block_bf16", "cuda", "cleandiffuser_tpu_torch/csrc/dit_block_bf16.cu",
                "cleandiffuser_tpu/ops/dit_block.py:125", k1_bf16_launches, k1_bf16_train,
                k1_bf16),
         record("film_resblock", "cuda", "cleandiffuser_tpu_torch/csrc/film_resblock.cu",

@@ -1,6 +1,5 @@
-// Fused adaLN-Zero DiT block, forward, for NVIDIA Hopper (sm_90a), in two
-// routes: float32 (`dit_block_forward_f32`) and BF16 weights
-// (`dit_block_forward_bf16`, section "The BF16 route" below).
+// Fused adaLN-Zero DiT block, forward, float32, for NVIDIA Hopper (sm_90a):
+// `dit_block_forward_f32`. The BF16 route is csrc/dit_block_bf16.cu.
 //
 // Replaces the Pallas TPU kernel cleandiffuser_tpu/ops/dit_block.py
 // (`fused_dit_block`, body `_kernel`). Same math as `dit_block_reference`
@@ -82,32 +81,6 @@
 //   keys past H are masked. The split is by rows because a split by heads
 //   or by columns leaves x and h whole in every block: at H = 64 those
 //   alone take 164 KB.
-//
-// The BF16 route: weights and biases in BF16, x and mod in f32 (the mixed
-// call the bf16 sampler and trainer make: the DiT's positional features
-// keep the residual stream f32) or BF16 (all-BF16); the output in x's type.
-// The same kernel, templated on the two storage types: LN statistics,
-// softmax, GELU, the residual and every sum stay f32 in shared memory and
-// registers; x and mod are widened on load, the output rounded on store.
-// - The four weight products run on `mma.sync.m16n8k16` BF16 with f32
-//   accumulators, one MMA per product (against three for 3xTF32). The A
-//   operand is the f32 activations rounded to BF16 as the fragment is
-//   loaded (`cvt.rn.bf16x2.f32`); the mixed call's plain version multiplies
-//   the f32 activations exactly, so that rounding is the route's error
-//   (a few 1e-3 relative). The weights stay (in, out), N-major: a BF16 B
-//   fragment packs two consecutive k, which `ldmatrix.trans` gathers from
-//   the staged tile (rows 16 bytes apart in a group of 8, row stride 16
-//   mod 128 bytes: conflict-free). Stages are 32 weight rows (two k16
-//   steps), double-buffered; D / 32 may be odd, so a product's first slot
-//   alternates and the kernel carries it.
-// - Attention (QK^T, PV: 1.6 % of the flops at H = 32) stays on the 3xTF32
-//   code over the f32 q, k and v.
-// - Shared memory: the BF16 ring is 2 x 32 rows x D (+8) BF16, 41 KB at D =
-//   320, about what the f32 ring's 16 rows take; the f32 activations (x, h,
-//   k, v: 167 KB) stay, so two blocks per SM do not fit either.
-// - Bound at the DD plan's (100, 32, 320), mixed: 7.86 GFLOP of products at
-//   the 989 TFLOP/s BF16 peak plus 0.13 GFLOP of attention at the 3xTF32
-//   165, 0.0087 ms; 11.4 MB of device memory, 0.0034 ms.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -126,20 +99,13 @@ constexpr int kThreads = 32 * kWarpsN * kWarpsM;
 constexpr int kMaxH = 64;
 constexpr int kMaxCluster = kMaxH / kRows;  // thread blocks per trajectory
 constexpr int kCK = 16;     // weight rows per stage; two stages in flight
-constexpr int kCKB = 32;    // the BF16 route's weight rows per stage
 constexpr int kMaxD = 320;  // D = 352 needs 242 KB of shared memory
 constexpr int kMaxHd = 64;
 constexpr int kMaxKeyTiles = kMaxH / 8;
 
-// BF16 values are carried as their bits
-using bf16_t = uint16_t;
-
-// TX: x, mod and out; TW: weights and biases (float or bf16_t)
-template <class TX, class TW>
 struct Params {
-  const TX *x, *mod;
-  const TW *wqkv, *bqkv, *wo, *bo, *w1, *b1, *w2, *b2;
-  TX* out;
+  const float *x, *mod, *wqkv, *bqkv, *wo, *bo, *w1, *b1, *w2, *b2;
+  float* out;
   int H, D, n_heads, hd;
   float q_scale;
   int C, lda, ldv, ldw;  // C: thread blocks (a cluster) per trajectory
@@ -147,23 +113,19 @@ struct Params {
 
 struct Geometry {
   int NT, lda, ldv, ldw;
-  size_t smem_bytes;
+  size_t smem_floats;
 };
 
 // NT n8 tiles per warp (kWarpsN warps cover 8 * kWarpsN * NT >= D
-// columns); row strides as in the source note; the weight ring's rows in
-// TW elements (f32: 2 * stride = 8 mod 32 banks; BF16: 16 mod 128 bytes).
-template <class TW>
+// columns); row strides as in the source note.
 Geometry geometry(int D) {
-  constexpr bool bf16 = sizeof(TW) == 2;
   Geometry g;
   g.NT = (D + 8 * kWarpsN - 1) / (8 * kWarpsN);
   g.lda = D + 8;
   g.ldv = D + 4;
-  g.ldw = 8 * kWarpsN * g.NT + (bf16 ? 8 : 4);
-  g.smem_bytes = sizeof(float) * ((size_t)3 * kRows * g.lda + (size_t)kRows * g.ldv +
-                                  (size_t)6 * D) +
-                 sizeof(TW) * (size_t)2 * (bf16 ? kCKB : kCK) * g.ldw;
+  g.ldw = 8 * kWarpsN * g.NT + 4;
+  g.smem_floats = (size_t)3 * kRows * g.lda + (size_t)kRows * g.ldv + (size_t)6 * D +
+                  (size_t)2 * kCK * g.ldw;
   return g;
 }
 
@@ -175,7 +137,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; zero-fills when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(full ? 16 : 0)
                : "memory");
@@ -206,51 +168,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16x16, row) * b (16x8, col), BF16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// lo and hi rounded to BF16 (to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// Two 8 x 8 BF16 matrices, transposed: lanes 0-7 give the addresses of the
-// first's rows, lanes 8-15 the second's; r0 / r1 get (rows 2q, 2q + 1;
-// column g) of each.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(row))
-               : "memory");
-}
-
-// widening loads and narrowing stores of x, mod, out and the biases
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16_t v) { return __uint_as_float((uint32_t)v << 16); }
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16_t* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(bf16_t* p, float4 v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(bf16x2(v.x, v.y), bf16x2(v.z, v.w));
 }
 
 // d += a * b in 3xTF32: a_lo*b_hi + a_hi*b_lo + a_hi*b_hi
@@ -403,80 +320,6 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int K, const float
   __syncthreads();
 }
 
-// ---------------------------------------------------------------------------
-// The BF16 route's products
-
-// One k16 step of the warp's 16 x 8*NT tile in BF16. A: the step's column
-// 0 of the f32 activations; aoff as in mma_step (rows g, g + 8, column 2q).
-// W: the step's row 0 of the staged BF16 tile, at the warp's first column.
-template <int NT>
-__device__ __forceinline__ void mma_step_bf16(const float* A, const int (&aoff)[2],
-                                              const bf16_t* W, int ldw, float (&acc)[NT][4]) {
-  const bf16_t* w = W + (threadIdx.x & 15) * ldw;  // lane l < 16: row l of the step
-  uint32_t b[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) ldmatrix_x2_trans(b[j][0], b[j][1], w + 8 * j);
-  // A fragment: rows g, g + 8 at columns 2q, 2q + 1 and 2q + 8, 2q + 9
-  const float2 u0 = *reinterpret_cast<const float2*>(A + aoff[0]);
-  const float2 u1 = *reinterpret_cast<const float2*>(A + aoff[1]);
-  const float2 u2 = *reinterpret_cast<const float2*>(A + aoff[0] + 8);
-  const float2 u3 = *reinterpret_cast<const float2*>(A + aoff[1] + 8);
-  const uint32_t a[4] = {bf16x2(u0.x, u0.y), bf16x2(u1.x, u1.y), bf16x2(u2.x, u2.y),
-                         bf16x2(u3.x, u3.y)};
-#pragma unroll
-  for (int j = 0; j < NT; ++j) mma_bf16(acc[j], a, b[j][0], b[j][1]);
-}
-
-// Stage st of a BF16 product: weight rows [st * kCKB, (st + 1) * kCKB) of
-// the ncols-wide column block at W (row stride ldg) into `slot`, by
-// cp.async, 8 columns a piece, columns past ncols zero; one group.
-template <int NT>
-__device__ __forceinline__ void issue_stage(const bf16_t* __restrict__ W, int ldg, int ncols,
-                                            int st, bf16_t* slot, int ldw) {
-  constexpr int pieces = kWarpsN * NT;  // 16-byte pieces in a staged row
-  const bf16_t* src = W + (size_t)st * kCKB * ldg;
-  for (int e = threadIdx.x; e < kCKB * pieces; e += kThreads) {
-    const int r = e / pieces, c = 8 * (e - r * pieces);
-    const bool inside = c < ncols;
-    cp_async16(slot + r * ldw + c, inside ? src + (size_t)r * ldg + c : W, inside);
-  }
-  cp_async_commit();
-}
-
-// The BF16 gemm: as the f32 one, with stages of kCKB rows. D / kCKB may be
-// odd, so the ring slot of a product's first stage alternates: `slot` holds
-// it on entry (stage 0 in flight there) and the next product's on return.
-template <int NT>
-__device__ __forceinline__ void gemm(const float* A, int lda, int K,
-                                     const bf16_t* __restrict__ W, int ldg, const bf16_t* Wn,
-                                     int ldgn, int ncols, bf16_t* ring, int ldw, int row0,
-                                     int ncol0, int& slot, float (&acc)[NT][4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[j][v] = 0.0f;
-  const int aoff[2] = {(row0 + g) * lda + 2 * q, (row0 + 8 + g) * lda + 2 * q};
-  const int nst = K / kCKB;
-#pragma unroll 1
-  for (int s = 0; s < nst; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // stage s landed; the slot of stage s - 1 is free
-    bf16_t* next = ring + ((slot + s + 1) & 1) * kCKB * ldw;
-    if (s + 1 < nst)
-      issue_stage<NT>(W, ldg, ncols, s + 1, next, ldw);
-    else if (Wn != nullptr)
-      issue_stage<NT>(Wn, ldgn, ncols, 0, next, ldw);
-    const float* As = A + s * kCKB;
-    const bf16_t* Ws = ring + ((slot + s) & 1) * kCKB * ldw + ncol0;
-#pragma unroll
-    for (int ks = 0; ks < kCKB / 16; ++ks)
-      mma_step_bf16<NT>(As + 16 * ks, aoff, Ws + 16 * ks * ldw, ldw, acc);
-  }
-  slot = (slot + nst) & 1;
-  __syncthreads();
-}
-
 // epi(r, n, v0, v1) for the accumulators of columns n, n + 1 < ncols of
 // every row r of the warp's tile
 template <int NT, class Epi>
@@ -498,8 +341,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[NT][4], int row0, in
 // stride ldv), in the shared memory of cluster block r. One warp per (head,
 // m16 tile of query rows); the output of a (head, tile) replaces its q,
 // which no other warp reads.
-template <class P>
-__device__ __forceinline__ void attention(const P& p, float* sa,
+__device__ __forceinline__ void attention(const Params& p, float* sa,
                                           const float* const (&sk)[kMaxCluster],
                                           const float* const (&sv)[kMaxCluster]) {
   constexpr int mtiles = kRows / 16, ktiles_per_block = kRows / 8;
@@ -601,18 +443,16 @@ __device__ __forceinline__ void attention(const P& p, float* sa,
 // Ask for this thread block's 1/gridDim share of a weight matrix to be
 // brought into L2. Together the blocks warm the whole matrix at kernel entry,
 // so the staging copies read it from L2 and not from device memory.
-__device__ __forceinline__ void prefetch_l2_share(const void* p, size_t bytes) {
+__device__ __forceinline__ void prefetch_l2_share(const float* p, size_t n) {
   const char* base = reinterpret_cast<const char*>(p);
-  const size_t lines = (bytes + 127) / 128;
+  const size_t lines = (n * sizeof(float) + 127) / 128;
   for (size_t l = (size_t)blockIdx.x * blockDim.x + threadIdx.x; l < lines;
        l += (size_t)gridDim.x * blockDim.x)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(base + l * 128));
 }
 
-// TX, TW: the storage types of Params; float, float is the f32 route
-template <int NT, class TX, class TW>
-__global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params<TX, TW> p) {
-  constexpr bool bf16 = sizeof(TW) == 2;
+template <int NT>
+__global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const cg::cluster_group cluster = cg::this_cluster();
   const int D = p.D, H = p.H, lda = p.lda, ldv = p.ldv;
@@ -621,47 +461,40 @@ __global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params<TX, TW
   float* sk = sa + kRows * lda;   // kRows x lda  k, then an MLP chunk's GELU'd hidden units
   float* sv = sk + kRows * lda;   // kRows x ldv  v
   float* smod = sv + kRows * ldv;  // 6D         shift1 scale1 gate1 shift2 scale2 gate2
-  // 2 x kCK (BF16: kCKB) x ldw  staged weight tiles
-  TW* ring = reinterpret_cast<TW*>(smod + 6 * D);
+  float* ring = smod + 6 * D;      // 2 x kCK x ldw  staged weight tiles
   // trajectory b, its rows [r0, r0 + rows)
   const int b = blockIdx.x / p.C, r0 = (int)cluster.block_rank() * kRows;
   const int rows = min(kRows, H - r0);
   const int warp = threadIdx.x >> 5;
   const int wrow = (warp / kWarpsN) * 16, ncol0 = (warp % kWarpsN) * 8 * NT;
 
-  prefetch_l2_share(p.wqkv, sizeof(TW) * 3 * D * D);
-  prefetch_l2_share(p.wo, sizeof(TW) * D * D);
-  prefetch_l2_share(p.w1, sizeof(TW) * 4 * D * D);
-  prefetch_l2_share(p.w2, sizeof(TW) * 4 * D * D);
+  prefetch_l2_share(p.wqkv, (size_t)3 * D * D);
+  prefetch_l2_share(p.wo, (size_t)D * D);
+  prefetch_l2_share(p.w1, (size_t)4 * D * D);
+  prefetch_l2_share(p.w2, (size_t)4 * D * D);
   issue_stage<NT>(p.wqkv + D, 3 * D, D, 0, ring, p.ldw);  // the first product's first stage
-  [[maybe_unused]] int slot = 0;  // the BF16 ring slot of the next product's first stage
 
-  // x -> sx, rows past H zero; mod -> smod; both widened to f32
+  // x -> sx, rows past H zero; mod -> smod
   const int D4 = D / 4;
-  const TX* xb = p.x + ((size_t)b * H + r0) * D;
+  const float4* xb = reinterpret_cast<const float4*>(p.x + ((size_t)b * H + r0) * D);
   for (int e = threadIdx.x; e < kRows * D4; e += kThreads) {
     const int r = e / D4, c = e - r * D4;
     *reinterpret_cast<float4*>(sx + r * lda + 4 * c) =
-        r < rows ? load4(xb + 4 * (r * D4 + c)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        r < rows ? xb[r * D4 + c] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  for (int i = threadIdx.x; i < 6 * D; i += kThreads)
-    smod[i] = to_f32(p.mod[(size_t)b * 6 * D + i]);
+  for (int i = threadIdx.x; i < 6 * D; i += kThreads) smod[i] = p.mod[(size_t)b * 6 * D + i];
   __syncthreads();
   const float* gate1 = smod + 2 * D;
   const float* gate2 = smod + 5 * D;
-  // bias element i, as f32
-  auto bias_at = [](const TW* v, int i) { return to_f32(v[i]); };
 
   float acc[NT][4];
   // A[:, :D] @ (a D-wide column block of W, row stride ldg), the
   // accumulators handed to epi(r, n, v0, v1); Wn is the next product's
   // block, whose first stage goes out behind this one's last. The epilogue
   // may overwrite A: gemm ends with a barrier.
-  auto product = [&](const float* A, const TW* W, int ldg, const TW* Wn, int ldgn, auto epi) {
-    if constexpr (bf16)
-      gemm<NT>(A, lda, D, W, ldg, Wn, ldgn, D, ring, p.ldw, wrow, ncol0, slot, acc);
-    else
-      gemm<NT>(A, lda, D, W, ldg, Wn, ldgn, D, ring, p.ldw, wrow, ncol0, acc);
+  auto product = [&](const float* A, const float* W, int ldg, const float* Wn, int ldgn,
+                     auto epi) {
+    gemm<NT>(A, lda, D, W, ldg, Wn, ldgn, D, ring, p.ldw, wrow, ncol0, acc);
     epilogue<NT>(acc, wrow, ncol0, D, epi);
   };
 
@@ -670,16 +503,16 @@ __global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params<TX, TW
   __syncthreads();
   // k and v, then q, which replaces h
   product(sa, p.wqkv + D, 3 * D, p.wqkv + 2 * D, 3 * D, [&](int r, int n, float v0, float v1) {
-    *reinterpret_cast<float2*>(sk + r * lda + n) =
-        make_float2(v0 + bias_at(p.bqkv, D + n), v1 + bias_at(p.bqkv, D + n + 1));
+    *reinterpret_cast<float2*>(sk + r * lda + n) = make_float2(v0 + p.bqkv[D + n],
+                                                               v1 + p.bqkv[D + n + 1]);
   });
   product(sa, p.wqkv + 2 * D, 3 * D, p.wqkv, 3 * D, [&](int r, int n, float v0, float v1) {
-    *reinterpret_cast<float2*>(sv + r * ldv + n) =
-        make_float2(v0 + bias_at(p.bqkv, 2 * D + n), v1 + bias_at(p.bqkv, 2 * D + n + 1));
+    *reinterpret_cast<float2*>(sv + r * ldv + n) = make_float2(v0 + p.bqkv[2 * D + n],
+                                                               v1 + p.bqkv[2 * D + n + 1]);
   });
   product(sa, p.wqkv, 3 * D, p.wo, D, [&](int r, int n, float v0, float v1) {
-    *reinterpret_cast<float2*>(sa + r * lda + n) = make_float2(
-        (v0 + bias_at(p.bqkv, n)) * p.q_scale, (v1 + bias_at(p.bqkv, n + 1)) * p.q_scale);
+    *reinterpret_cast<float2*>(sa + r * lda + n) =
+        make_float2((v0 + p.bqkv[n]) * p.q_scale, (v1 + p.bqkv[n + 1]) * p.q_scale);
   });
   // every block of the cluster has its k and v; attention reads them all
   cluster.sync();
@@ -696,8 +529,7 @@ __global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params<TX, TW
   product(sa, p.wo, D, p.w1, 4 * D, [&](int r, int n, float v0, float v1) {
     float2* xr = reinterpret_cast<float2*>(sx + r * lda + n);
     const float2 x0 = *xr;
-    *xr = make_float2(x0.x + gate1[n] * (v0 + bias_at(p.bo, n)),
-                      x0.y + gate1[n + 1] * (v1 + bias_at(p.bo, n + 1)));
+    *xr = make_float2(x0.x + gate1[n] * (v0 + p.bo[n]), x0.y + gate1[n + 1] * (v1 + p.bo[n + 1]));
   });
   __syncthreads();
 
@@ -706,38 +538,37 @@ __global__ void __launch_bounds__(kThreads) dit_block_kernel(const Params<TX, TW
   __syncthreads();
 #pragma unroll 1
   for (int c = 0; c < 4; ++c) {
-    const TW* b1 = p.b1 + c * D;
-    const TW* w2 = p.w2 + (size_t)c * D * D;
+    const float* b1 = p.b1 + c * D;
+    const float* w2 = p.w2 + (size_t)c * D * D;
     product(sa, p.w1 + c * D, 4 * D, w2, D, [&](int r, int n, float v0, float v1) {
-      *reinterpret_cast<float2*>(sk + r * lda + n) = make_float2(
-          gelu_tanh(v0 + bias_at(b1, n)), gelu_tanh(v1 + bias_at(b1, n + 1)));
+      *reinterpret_cast<float2*>(sk + r * lda + n) =
+          make_float2(gelu_tanh(v0 + b1[n]), gelu_tanh(v1 + b1[n + 1]));
     });
     __syncthreads();
     const bool bias = c == 0;
-    const TW* w1_next = c < 3 ? p.w1 + (c + 1) * D : nullptr;
+    const float* w1_next = c < 3 ? p.w1 + (c + 1) * D : nullptr;
     product(sk, w2, D, w1_next, 4 * D, [&](int r, int n, float v0, float v1) {
       float2* xr = reinterpret_cast<float2*>(sx + r * lda + n);
       const float2 x0 = *xr;
-      *xr = make_float2(x0.x + gate2[n] * (bias ? v0 + bias_at(p.b2, n) : v0),
-                        x0.y + gate2[n + 1] * (bias ? v1 + bias_at(p.b2, n + 1) : v1));
+      *xr = make_float2(x0.x + gate2[n] * (bias ? v0 + p.b2[n] : v0),
+                        x0.y + gate2[n + 1] * (bias ? v1 + p.b2[n + 1] : v1));
     });
   }
   __syncthreads();
 
-  // sx -> out, narrowed to TX
-  TX* ob = p.out + ((size_t)b * H + r0) * D;
+  float4* ob = reinterpret_cast<float4*>(p.out + ((size_t)b * H + r0) * D);
   for (int e = threadIdx.x; e < rows * D4; e += kThreads) {
     const int r = e / D4, c = e - r * D4;
-    store4(ob + 4 * e, *reinterpret_cast<const float4*>(sx + r * lda + 4 * c));
+    ob[e] = *reinterpret_cast<const float4*>(sx + r * lda + 4 * c);
   }
 }
 
 // B trajectories on B clusters of p.C thread blocks (a cluster of one when
 // H <= kRows)
-template <int NT, class TX, class TW>
-cudaError_t launch(const Params<TX, TW>& p, int B, const Geometry& geo, cudaStream_t stream) {
-  auto kernel = dit_block_kernel<NT, TX, TW>;
-  const size_t smem = geo.smem_bytes;
+template <int NT>
+cudaError_t launch(const Params& p, int B, const Geometry& geo, cudaStream_t stream) {
+  auto kernel = dit_block_kernel<NT>;
+  const size_t smem = geo.smem_floats * sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -758,51 +589,13 @@ cudaError_t launch(const Params<TX, TW>& p, int B, const Geometry& geo, cudaStre
   return cudaGetLastError();
 }
 
-// Checks the shape, fills Params and launches the route <TX, TW>; the
-// pointers as the C entries below describe them.
-template <class TX, class TW>
-int forward(const void* x, const void* mod, const void* wqkv, const void* bqkv, const void* wo,
-            const void* bo, const void* w1, const void* b1, const void* w2, const void* b2,
-            void* out, int B, int H, int D, int n_heads, float q_scale, void* stream) {
-  if (B <= 0 || H <= 0 || H > kMaxH || D <= 0 || D % 32 != 0 || D > kMaxD ||
-      n_heads <= 0 || D % n_heads != 0 || (D / n_heads) % 8 != 0 || D / n_heads > kMaxHd)
-    return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry<TW>(D);
-  Params<TX, TW> p;
-  p.x = static_cast<const TX*>(x);
-  p.mod = static_cast<const TX*>(mod);
-  p.wqkv = static_cast<const TW*>(wqkv);
-  p.bqkv = static_cast<const TW*>(bqkv);
-  p.wo = static_cast<const TW*>(wo);
-  p.bo = static_cast<const TW*>(bo);
-  p.w1 = static_cast<const TW*>(w1);
-  p.b1 = static_cast<const TW*>(b1);
-  p.w2 = static_cast<const TW*>(w2);
-  p.b2 = static_cast<const TW*>(b2);
-  p.out = static_cast<TX*>(out);
-  p.H = H, p.D = D, p.n_heads = n_heads, p.hd = D / n_heads;
-  p.q_scale = q_scale;
-  p.C = (H + kRows - 1) / kRows;
-  p.lda = geo.lda, p.ldv = geo.ldv, p.ldw = geo.ldw;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (geo.NT) {
-    case 1: return (int)launch<1>(p, B, geo, st);
-    case 2: return (int)launch<2>(p, B, geo, st);
-    case 3: return (int)launch<3>(p, B, geo, st);
-    case 4: return (int)launch<4>(p, B, geo, st);
-    case 5: return (int)launch<5>(p, B, geo, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one thread block needs at width D (any H), on the
-// f32 route (bf16_weights 0) or the BF16 one (1).
-long long dit_block_smem_bytes(int D, int bf16_weights) {
-  return (long long)(bf16_weights ? geometry<bf16_t>(D) : geometry<float>(D)).smem_bytes;
+// Dynamic shared memory one thread block needs at width D (any H).
+long long dit_block_smem_bytes(int D) {
+  return (long long)(geometry(D).smem_floats * sizeof(float));
 }
 
 // Most dynamic shared memory a block may opt in to on `device`, or -1.
@@ -825,21 +618,35 @@ int dit_block_forward_f32(const void* x, const void* mod, const void* wqkv, cons
                           const void* wo, const void* bo, const void* w1, const void* b1,
                           const void* w2, const void* b2, void* out, int B, int H, int D,
                           int n_heads, float q_scale, void* stream) {
-  return forward<float, float>(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, out, B, H, D,
-                               n_heads, q_scale, stream);
-}
-
-// The BF16 route: weights and biases BF16; x, mod and out f32 (x_bf16 0) or
-// BF16 (x_bf16 1). Shapes, alignment and the launch as for the f32 route.
-int dit_block_forward_bf16(const void* x, const void* mod, const void* wqkv, const void* bqkv,
-                           const void* wo, const void* bo, const void* w1, const void* b1,
-                           const void* w2, const void* b2, void* out, int B, int H, int D,
-                           int n_heads, int x_bf16, float q_scale, void* stream) {
-  if (x_bf16)
-    return forward<bf16_t, bf16_t>(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, out, B, H, D,
-                                   n_heads, q_scale, stream);
-  return forward<float, bf16_t>(x, mod, wqkv, bqkv, wo, bo, w1, b1, w2, b2, out, B, H, D,
-                                n_heads, q_scale, stream);
+  if (B <= 0 || H <= 0 || H > kMaxH || D <= 0 || D % 32 != 0 || D > kMaxD ||
+      n_heads <= 0 || D % n_heads != 0 || (D / n_heads) % 8 != 0 || D / n_heads > kMaxHd)
+    return (int)cudaErrorInvalidValue;
+  const Geometry geo = geometry(D);
+  Params p;
+  p.x = static_cast<const float*>(x);
+  p.mod = static_cast<const float*>(mod);
+  p.wqkv = static_cast<const float*>(wqkv);
+  p.bqkv = static_cast<const float*>(bqkv);
+  p.wo = static_cast<const float*>(wo);
+  p.bo = static_cast<const float*>(bo);
+  p.w1 = static_cast<const float*>(w1);
+  p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const float*>(w2);
+  p.b2 = static_cast<const float*>(b2);
+  p.out = static_cast<float*>(out);
+  p.H = H, p.D = D, p.n_heads = n_heads, p.hd = D / n_heads;
+  p.q_scale = q_scale;
+  p.C = (H + kRows - 1) / kRows;
+  p.lda = geo.lda, p.ldv = geo.ldv, p.ldw = geo.ldw;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (geo.NT) {
+    case 1: return (int)launch<1>(p, B, geo, st);
+    case 2: return (int)launch<2>(p, B, geo, st);
+    case 3: return (int)launch<3>(p, B, geo, st);
+    case 4: return (int)launch<4>(p, B, geo, st);
+    case 5: return (int)launch<5>(p, B, geo, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,13 +1,12 @@
-"""Fused adaLN-Zero DiT block: the Hopper kernel, its wrappers and its plain
-PyTorch version.
+"""Fused adaLN-Zero DiT block: the Hopper kernels, their wrappers and their
+plain PyTorch version.
 
 Counterpart of cleandiffuser_tpu/ops/dit_block.py, whose Pallas TPU kernel
-`fused_dit_block` is replaced by the CUDA C++ kernel in
-`csrc/dit_block.cu` (built for sm_90a, bound with ctypes; the source note
-there says what bounds it on the card and how the design answers that). The
-kernel runs the four weight products and attention on the tensor cores, one
-thread block per 32 rows of a trajectory: a trajectory of H > 32 rows runs
-on a cluster of two blocks, which read each other's keys and values.
+`fused_dit_block` is replaced by two CUDA C++ kernels, one per route:
+`csrc/dit_block.cu` (float32) and `csrc/dit_block_bf16.cu` (BF16 weights),
+each built for sm_90a as a library of its own and bound with ctypes; the
+sources' notes say what bounds each on the card and how the design answers
+that.
 
     h  = modulate(LN(x), shift1, scale1)
     x  = x + gate1 * MHA(h)
@@ -17,17 +16,22 @@ on a cluster of two blocks, which read each other's keys and values.
 Two routes, each with its wrapper and launch count, chosen by the types
 (`_check_kernel_args` admits exactly these three):
 
-- `fused_dit_block`: everything float32; the products in 3xTF32 on
-  `mma.sync` (f32-class results).
+- `fused_dit_block`: everything float32; the products and attention in
+  3xTF32 on `mma.sync` (f32-class results), one thread block per 32 rows
+  of a trajectory: a trajectory of H > 32 rows runs on a cluster of two
+  blocks, which read each other's keys and values.
 - `fused_dit_block_bf16`: BF16 weights and biases with float32 x and mod
   (the bf16 sampler's and trainer's call: `DiT1d` keeps the residual
-  stream f32) or with BF16 x and mod; the products in BF16 on `mma.sync`,
-  f32 accumulation, LN / softmax / GELU / residual in f32.
+  stream f32) or with BF16 x and mod; the weight products in BF16 on
+  `wgmma` with f32 accumulation (weights brought by TMA, activations held
+  as BF16 tiles), attention on TF32 `mma.sync` over BF16 q, k and v,
+  LN / softmax / GELU / residual in f32; one thread block per 64 rows,
+  floor(64 / H) whole trajectories, with no cluster.
 
 The output has x's type. The per-trajectory modulation `mod` (B, 6D) =
 Dense(silu(t_emb)) is computed outside the kernel, as in the reference.
-Weights keep the JAX `(in, out)` orientation, so the kernel reads them as
-they are stored: no copy of them is prepared on the host. The kernel takes
+Weights keep the JAX `(in, out)` orientation, so the kernels read them as
+they are stored: no copy of them is prepared on the host. Both routes take
 H <= 64, d_model a multiple of 32 up to 320 and a head dim a multiple of 8
 up to 64.
 
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -50,9 +55,13 @@ from .build import load_library
 from .vjp import plain_vjp
 
 __all__ = ["fused_dit_block", "fused_dit_block_bf16", "dit_block_op", "dit_block_reference",
-           "pack_dit_block_params", "load_dit_block_library"]
+           "pack_dit_block_params", "load_dit_block_library", "load_dit_block_bf16_library",
+           "bf16_plan", "BF16_PLAN_FIELDS"]
 
-_LIB_NAME = "dit_block"
+_LIB_NAME, _LIB_NAME_BF16 = "dit_block", "dit_block_bf16"
+# the fields of dit_block_bf16_plan, in its order
+BF16_PLAN_FIELDS = ("tile_rows", "trajectories", "tiles", "blocks", "cluster", "stages",
+                    "stage_rows", "warpgroup_columns", "smem")
 
 
 def _layernorm(x, eps: float = 1e-6):
@@ -106,15 +115,13 @@ def pack_dit_block_params(block_params, d_model: int, n_heads: int):
 # The kernel
 @functools.lru_cache(maxsize=None)
 def load_dit_block_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library; set its C types.
-    Cached: a launch must not re-read and re-hash the source."""
+    """Build (at first use) and load the f32 route's library; set its C
+    types. Cached: a launch must not re-read and re-hash the source."""
     lib = load_library(_LIB_NAME)
     vp = ctypes.c_void_p
     lib.dit_block_forward_f32.argtypes = [vp] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float, vp]
     lib.dit_block_forward_f32.restype = ctypes.c_int
-    lib.dit_block_forward_bf16.argtypes = [vp] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, vp]
-    lib.dit_block_forward_bf16.restype = ctypes.c_int
-    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dit_block_smem_bytes.argtypes = [ctypes.c_int]
     lib.dit_block_smem_bytes.restype = ctypes.c_longlong
     lib.device_max_smem_optin.argtypes = [ctypes.c_int]
     lib.device_max_smem_optin.restype = ctypes.c_int
@@ -124,8 +131,66 @@ def load_dit_block_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _max_smem_optin(lib, device_index: int) -> int:
-    return lib.device_max_smem_optin(device_index)
+def load_dit_block_bf16_library() -> ctypes.CDLL:
+    """The same for the BF16 route's library."""
+    lib = load_library(_LIB_NAME_BF16)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.dit_block_forward_bf16.argtypes = [vp] * 11 + [ci] * 5 + [ctypes.c_float, vp]
+    lib.dit_block_forward_bf16.restype = ci
+    lib.dit_block_bf16_plan.argtypes = [ci] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.dit_block_bf16_plan.restype = ci
+    lib.dit_block_bf16_smem_bytes.argtypes = [ci] * 4
+    lib.dit_block_bf16_smem_bytes.restype = ctypes.c_longlong
+    lib.dit_block_bf16_max_smem_optin.argtypes = [ci]
+    lib.dit_block_bf16_max_smem_optin.restype = ci
+    lib.dit_block_bf16_error_string.argtypes = [ci]
+    lib.dit_block_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bf16_plan(B: int, H: int, D: int, n_heads: int):
+    """The BF16 route's tile plan for a shape on the current device
+    (BF16_PLAN_FIELDS: rows of a tile, trajectories per tile, tiles,
+    persistent thread blocks, cluster size, ring stages, weight rows per
+    stage, output columns per consumer warpgroup, shared memory bytes per
+    block), or None if the kernel does not take the shape."""
+    out = (ctypes.c_longlong * len(BF16_PLAN_FIELDS))()
+    if load_dit_block_bf16_library().dit_block_bf16_plan(B, H, D, n_heads, out) != 0:
+        return None
+    return dict(zip(BF16_PLAN_FIELDS, out))
+
+
+class _Route(NamedTuple):
+    """What the wrapper needs of a route's library: the one place that
+    knows how the two libraries' C interfaces differ."""
+    smem_bytes: Callable[[int, int, int, int], int]  # (B, H, D, n_heads) -> bytes, < 0 if not taken
+    max_smem_optin: Callable[[int], int]  # device index -> bytes
+    forward: Callable[..., int]  # (pointers, B, H, D, n_heads, x, q_scale, stream) -> error code
+    error_string: Callable[[int], bytes]
+
+
+@functools.lru_cache(maxsize=None)
+def _route(library: str) -> _Route:
+    """The f32 route's library ("f32") or the BF16 route's ("bf16", which
+    takes the "mixed" and "bf16" type combinations)."""
+    if library == "f32":
+        lib = load_dit_block_library()
+        return _Route(lambda B, H, D, n_heads: lib.dit_block_smem_bytes(D),
+                      lib.device_max_smem_optin,
+                      lambda ptrs, B, H, D, n_heads, x, q_scale, stream:
+                      lib.dit_block_forward_f32(*ptrs, B, H, D, n_heads, q_scale, stream),
+                      lib.dit_block_error_string)
+    lib = load_dit_block_bf16_library()
+    return _Route(lib.dit_block_bf16_smem_bytes, lib.dit_block_bf16_max_smem_optin,
+                  lambda ptrs, B, H, D, n_heads, x, q_scale, stream:
+                  lib.dit_block_forward_bf16(*ptrs, B, H, D, n_heads,
+                                             int(x.dtype == torch.bfloat16), q_scale, stream),
+                  lib.dit_block_bf16_error_string)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_smem_optin(library: str, device_index: int) -> int:
+    return _route(library).max_smem_optin(device_index)
 
 
 # (x and mod, weights and biases) -> the route
@@ -135,7 +200,7 @@ _ROUTES = {(torch.float32, torch.float32): "f32", (torch.float32, torch.bfloat16
 
 def kernel_route(x, mod, ws) -> str:
     """"f32", "mixed" (f32 x and mod, BF16 weights and biases) or "bf16"
-    (all BF16): the three type combinations the kernel takes. Raises
+    (all BF16): the three type combinations the kernels take. Raises
     TypeError on any other."""
     types = {t.dtype for t in (x, mod)}, {t.dtype for t in ws}
     if len(types[0]) == 1 and len(types[1]) == 1:
@@ -148,16 +213,18 @@ def kernel_route(x, mod, ws) -> str:
         f"{[str(t.dtype) for t in ws]}")
 
 
-def _check_kernel_args(lib, x, mod, ws, n_heads) -> str:
-    """Raises on what the kernel does not take; returns the route."""
+def _check_kernel_args(x, mod, ws, n_heads) -> str:
+    """Raises on what the kernels do not take; returns the library of the
+    route the types name ("f32" or "bf16")."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, H, D), got {tuple(x.shape)}")
     B, H, D = x.shape
     if B == 0 or H == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
     if D % 32 or D > 320 or D % n_heads:
-        # 8 warps cover the columns of every product in n8 tiles of up to 5
-        # per warp; the k steps of the staged weight tiles are 16 rows deep
+        # the f32 route's 8 warps cover a product's columns in n8 tiles of
+        # up to 5 per warp; the BF16 route's two warpgroups in 32-column
+        # swizzle atoms, up to 5 each
         raise ValueError(f"d_model {D} must be a multiple of 32, at most 320, and a "
                          f"multiple of n_heads {n_heads}")
     hd = D // n_heads
@@ -170,45 +237,43 @@ def _check_kernel_args(lib, x, mod, ws, n_heads) -> str:
     for (name, shape), t in zip(shapes.items(), (mod, *ws)):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    route = kernel_route(x, mod, ws)
+    library = "f32" if kernel_route(x, mod, ws) == "f32" else "bf16"
     for name, t in zip(("x",) + tuple(shapes), (x, mod, *ws)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if H > 64:
-        # at most two thread blocks of 32 rows; attention holds 8 key tiles
+        # f32: at most two thread blocks of 32 rows; BF16: one 64-row tile;
+        # attention holds 8 key tiles
         raise ValueError(f"horizon H={H} must be at most 64")
-    smem = lib.dit_block_smem_bytes(D, int(route != "f32"))
-    limit = _max_smem_optin(lib, x.device.index)
-    if smem > limit:
+    smem = _route(library).smem_bytes(B, H, D, n_heads)
+    limit = _max_smem_optin(library, x.device.index)
+    if smem < 0 or smem > limit:
         raise ValueError(f"d_model {D} needs {smem} bytes of shared memory per "
                          f"thread block; the device allows {limit}")
-    return route
+    return library
 
 
-def _launch(route_wanted: str, x, mod, ws, n_heads: int):
+def _launch(library_wanted: str, x, mod, ws, n_heads: int):
     if x.device.type != "cuda":
         raise ValueError(f"fused_dit_block runs on CUDA tensors, got {x.device}")
-    lib = load_dit_block_library()
-    route = _check_kernel_args(lib, x, mod, ws, n_heads)
-    if (route == "f32") != (route_wanted == "f32"):
-        other = "fused_dit_block_bf16" if route != "f32" else "fused_dit_block"
-        raise TypeError(f"{route} inputs go to {other}")
+    library = _check_kernel_args(x, mod, ws, n_heads)
+    if library != library_wanted:
+        other = "fused_dit_block_bf16" if library == "bf16" else "fused_dit_block"
+        kind = "bfloat16-weight" if library == "bf16" else "float32"
+        raise TypeError(f"{kind} inputs go to {other}")
     B, H, D = x.shape
     out = torch.empty_like(x)
     q_scale = (D // n_heads) ** -0.5
     ptrs = (x.data_ptr(), mod.data_ptr(), *(w.data_ptr() for w in ws), out.data_ptr())
+    route = _route(library)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "f32":
-            err = lib.dit_block_forward_f32(*ptrs, B, H, D, n_heads, q_scale, stream)
-        else:
-            err = lib.dit_block_forward_bf16(*ptrs, B, H, D, n_heads, int(route == "bf16"),
-                                             q_scale, stream)
+        err = route.forward(ptrs, B, H, D, n_heads, x, q_scale,
+                            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dit_block kernel launch failed: "
-                           f"{lib.dit_block_error_string(err).decode()} ({err})")
+                           f"{route.error_string(err).decode()} ({err})")
     return out
 
 

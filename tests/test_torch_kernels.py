@@ -334,6 +334,64 @@ def test_dit1d_bf16_sampling_and_training_launch_the_bf16_route(cuda):
                for v in s.values() if v.is_floating_point() and v.dim() > 0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["mixed", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 32, 320, 10), (101, 32, 320, 10), (6, 20, 320, 10),
+                                   (4, 33, 96, 3), (3, 64, 64, 2), (5, 20, 320, 5)],
+                         ids=["one-trajectory", "ragged-last-tile", "three-per-tile",
+                              "odd-heads-H-33", "D-64-H-64", "head-dim-64"])
+def test_dit_block_bf16_route_tile_edges(cuda, route, shape):
+    """The BF16 route's 64-row tiles at their edges: B = 1 (one tile, one
+    trajectory), B = 101 (a last tile with one trajectory of two), H = 20
+    (three trajectories a tile, rows 60-63 spare), H = 33 and 64 (one
+    trajectory a tile) with D = 96 and 3 heads (two warpgroups' columns past
+    D) and D = 64, and a head dim of 64."""
+    B, H, D, NH = shape
+    x, mod, ws = _typed(*_unit_inputs(cuda, B, H, D), route)
+    before = ops.fused_dit_block_bf16.launches
+    out = ops.fused_dit_block_bf16(x, mod, *ws, n_heads=NH)
+    torch.cuda.synchronize()
+    assert ops.fused_dit_block_bf16.launches == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    ref = ops.dit_block_reference(x, mod, *ws, n_heads=NH)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_dit_block_bf16_route_replays_in_a_cuda_graph(cuda):
+    """The route's tensor maps travel as kernel parameters, so a captured
+    call replays: the replay on new inputs equals an eager call on them."""
+    x, mod, ws = _typed(*_unit_inputs(cuda, 100, 32, 320), "mixed")
+    x2, mod2, _ = _typed(*_unit_inputs(cuda, 100, 32, 320, seed=8), "mixed")
+    ops.fused_dit_block_bf16(x, mod, *ws, n_heads=10)  # built and loaded before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.fused_dit_block_bf16(x, mod, *ws, n_heads=10)
+    x.copy_(x2)
+    mod.copy_(mod2)
+    graph.replay()
+    eager = ops.fused_dit_block_bf16(x2, mod2, *ws, n_heads=10)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 8, 352, 11), (1, 8, 288, 4), (1, 65, 64, 2)],
+                         ids=["D-352", "head-dim-72", "H-65"])
+def test_dit_block_bf16_route_rejects_what_it_does_not_take(cuda, shape):
+    """CUDA tensors of a shape the kernel does not take raise ValueError
+    before any launch: neither route's counter moves."""
+    B, H, D, NH = shape
+    x, mod, ws = _typed(*_unit_inputs(cuda, B, H, D), "mixed")
+    counts = (ops.fused_dit_block.launches, ops.fused_dit_block_bf16.launches)
+    with pytest.raises(ValueError):
+        ops.fused_dit_block_bf16(x, mod, *ws, n_heads=NH)
+    with pytest.raises(ValueError):
+        ops.dit_block_op(x, mod, *ws, n_heads=NH)
+    assert (ops.fused_dit_block.launches, ops.fused_dit_block_bf16.launches) == counts
+
+
 # ---------------------------------------------------------------------------
 # K3: the fused FiLM residual block
 def _film_inputs(dev, B, H, Cin, Cout, K, film_scale, seed=3, x_offset=0.0, w_mean=0.0):

@@ -16,7 +16,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex", "cleandiffuser_t
 # the port's sources and the scripts that drive it on the card
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "film_bf16_compare.py", ROOT / "tools/dit_block_variants.py",
-    ROOT / "tools/profile_dd_plan.py", ROOT / "tools/profile_train_step.py"]
+    ROOT / "tools/profile_dd_plan.py", ROOT / "tools/profile_train_step.py",
+    ROOT / "tools/bf16_dd_plan_compare.py"]
 
 
 def _imported_roots(path: Path):
