@@ -387,9 +387,39 @@ Phases, each of which raises on failure (exit code != 0):
                combinations, in the reference too) into
                `BlockPushDataset`, one normalised batch on the card; no
                kernel launched. Phases 36-38 print their seconds.
+39. mesh     - the multi-device path (parallel/) on a one-rank NCCL
+               DeviceMesh made in this process (file-based init, destroyed
+               at the phase's end; the card's machine holds one H100, so no
+               scaling is read): the DD plan at 50 envs and d_model 320
+               through `shard_sample_fn` (40 K1 launches; within 1e-6 of
+               scale of the un-meshed plan with the same generator, and its
+               actions), 5 DD training steps at batch 64 through
+               `DataParallelEngine`, replicated and FSDP on a (1, 1) ("dp",
+               "fsdp") mesh (2 K1 launches a step; losses within 1e-6
+               relative of the un-meshed engine's; K1 sees plain contiguous
+               weights inside FSDP's forward), then the graft entry points
+               `dryrun_multichip(1)` and `entry()` (plain blocks, no
+               kernel); prints its seconds.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
+
+The host-bound phases that launch no kernel (15 and 19-33: the RL,
+Veteran, DiffuserLite, SfBC, QGPO, SynthER, consistency-policy and
+imitation CLIs) run in three worker processes of this script on the same
+card (`python3 chip_smoke.py --worker <group> ...`, WORKER_GROUPS), started
+after phase 11, when every kernel's timing is done, and run beside phases
+12-14, 17, 18 and 34 (the Goal2D DD gate and the DD, Diffuser and
+AdaptDiffuser CLIs) here: each CLI phase is one
+Python thread feeding the card, and the card's machine has the cores to
+run four. Each worker resets and reads its own launch counts (all 0) and
+writes its phases' results for this process to merge; its output is
+printed after it ends, its phases marked with its group and timed from
+this script's start. A worker that fails fails the script, and every
+worker still running when the script stops is killed. Phases 35-39 run
+after the workers have ended (phase 35 reads checkpoints of phases 15 and
+27), so their times are taken with the card to this process alone; the
+times of phases 12-34 are taken beside the workers.
 
 Each slice resets every launch count just before its requests (or training
 steps) and reads the counts just after. The line before the last is a JSON
@@ -397,7 +427,8 @@ object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
 phases by CLI and part (`cli_launches`: the Veteran, DiffuserLite, SfBC,
 QGPO, SynthER, consistency-policy, PushT, imitation and visual imitation
-phases' read 0), error and times
+phases' read 0; "mesh" the launches of phase 39's meshed plan and steps),
+error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
 do each multiply-add of a product as three TF32 MMAs (3xTF32), so their
@@ -414,9 +445,11 @@ small launches leave the device waiting.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -817,11 +850,12 @@ F32_TFLOPS, TF32_TFLOPS, BF16_TFLOPS, HBM_TBPS = 67.0, 495.0, 989.0, 3.35
 TF32X3_TFLOPS = TF32_TFLOPS / 3
 
 
-T_START = time.perf_counter()
+T_START = time.perf_counter()  # a worker takes the script's (`run_worker`)
+PHASE_TAG = "chip_smoke"
 
 
 def phase(name):
-    print(f"[chip_smoke] --- {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
+    print(f"[{PHASE_TAG}] --- {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2269,8 +2303,6 @@ def check_dd_cli(dev) -> dict:
     `ckpt_latest` served as `mode=inference` serves it. Returns K1's
     launches by route and part."""
     phase("DD CLI: cli.dd_d4rl_mujoco mode=train (windows), then act from ckpt_latest")
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    CLI_DIR.mkdir(parents=True)
     reset_counts()
     args, run, logs, seconds = run_cli(dd_d4rl_mujoco, DD_CLI_TRAIN)
     k1, k1_bf16 = fused_dit_block.launches, fused_dit_block_bf16.launches
@@ -4203,6 +4235,138 @@ def check_warm_start(dev) -> dict:
     return {"dit_block": k1 + k1_f, "solver_update": k2_f}
 
 
+MESH_TRAIN_STEPS = 5
+MESH_RTOL = 1e-6  # the mesh path against the un-meshed one: the same arithmetic on one rank
+
+
+def check_mesh(dev) -> dict:
+    """Phase 39: the multi-device path (parallel/) on a one-rank NCCL
+    DeviceMesh, made in this process from a file-based init and destroyed at
+    the phase's end (the card's machine holds one H100, so no scaling is
+    read). The DD plan at 50 envs through `shard_sample_fn` and 5 DD
+    training steps at batch 64 through `DataParallelEngine`, replicated and
+    FSDP on a (1, 1) ("dp", "fsdp") mesh, each through K1 and held against
+    the un-meshed path; then the graft entry points `dryrun_multichip(1)`
+    and `entry()` (plain blocks, no kernel). Returns the mesh path's
+    launches, by kernel."""
+    import torch.distributed as dist
+
+    from cleandiffuser_tpu_torch.graft_entry import dryrun_multichip, entry
+    from cleandiffuser_tpu_torch.parallel import DataParallelEngine, make_mesh, shard_sample_fn
+
+    phase("mesh: DD through K1 on a one-rank NCCL DeviceMesh (parallel/)")
+    t_phase = time.perf_counter()
+    args = load_config(ROOT / "configs/dd" / "mujoco", "mujoco")
+    E, H, O, A, B = (args.num_envs, args.task.horizon, args.task.obs_dim, args.task.act_dim,
+                     args.batch_size)
+    rng = np.random.default_rng(SEED + 39)
+    weights = dd_weights(args, rng)
+    launches = {name: 0 for name in kernel_counts()}
+
+    def counted():
+        for name, n in kernel_counts().items():
+            launches[name] += n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1)
+            pipe = build_pipeline(args, dev, True, weights)
+            sample_fn = pipe.agent.build_sample_fn(solver=args.solver,
+                                                   sample_steps=args.sampling_steps,
+                                                   cfg_mode="mix")
+            obs = torch.from_numpy(rng.standard_normal((E, O)).astype(np.float32)).to(dev)
+            prior = torch.zeros((E, H, O), device=dev)
+            prior[:, 0] = obs
+            kw = dict(condition_cfg=torch.ones((E, 1), device=dev) * args.task.target_return,
+                      w_cfg=args.task.w_cfg, temperature=args.temperature)
+            plan = lambda fn: fn(pipe.agent.ema_params,
+                                 torch.Generator(device=dev).manual_seed(SEED), prior, **kw)[0]
+            meshed = shard_sample_fn(sample_fn, mesh)
+            with torch.no_grad():
+                want = plan(sample_fn)
+                plan(meshed)  # NCCL sets its communicator up at the first collective
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                got = plan(meshed)
+                torch.cuda.synchronize()
+                plan_ms = (time.perf_counter() - t0) * 1e3
+                k1 = fused_dit_block.launches
+                counted()
+                acts = [pipe.invdyn.predict(obs, t[:, 1]) for t in (got, want)]
+            gap, _, scale = plan_gap(got, want)
+            act_gap = (acts[0] - acts[1]).abs().max().item()
+            expected = args.sampling_steps * args.depth
+            print(f"DD plan at {E} envs through shard_sample_fn (dp 1): {plan_ms:.3f} ms; "
+                  f"dit_block launches {k1} (expected {expected}); plan against the un-meshed "
+                  f"one with the same generator: max |diff| {gap * scale:.3e} (max |plan| "
+                  f"{scale:.3f}), actions {act_gap:.3e} (limit {MESH_RTOL} of scale)",
+                  flush=True)
+            if k1 != expected or not (gap <= MESH_RTOL and act_gap <= MESH_RTOL) or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError("the meshed DD plan's launches or values are off")
+
+            batches = train_batches(rng, MESH_TRAIN_STEPS, B, H, O, A, dev, pipe.return_scale)
+            xs = [(b["obs"]["state"], b["val"] / pipe.return_scale + pipe.val_shift)
+                  for b in batches]
+            ref = build_pipeline(args, dev, True, weights)
+            ref_logs = [ref.agent.update(x, c) for x, c in xs]
+            seen = []
+            for label, fsdp in (("replicated", None), ("fsdp", "fsdp")):
+                p = build_pipeline(args, dev, True, weights)
+                m = make_mesh(1) if fsdp is None else make_mesh(1, ("dp", "fsdp"), (1, 1))
+                dp = DataParallelEngine(p.agent, m, fsdp_axis=fsdp, fsdp_min_size=2**16).place()
+                blk = p.agent.params["diffusion"].blocks[0]
+                hook = blk.register_forward_pre_hook(lambda mod, _: seen.append(
+                    (type(mod.wqkv).__name__, mod.wqkv.is_contiguous())))
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                logs = [dp.update(x, c) for x, c in xs]
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / MESH_TRAIN_STEPS
+                hook.remove()
+                k1 = fused_dit_block.launches
+                counted()
+                rel = max(abs(float(a["loss"]) / float(b["loss"]) - 1.0)
+                          for a, b in zip(logs, ref_logs))
+                g_rel = max(abs(float(a["grad_norm"]) / float(b["grad_norm"]) - 1.0)
+                            for a, b in zip(logs, ref_logs))
+                sharded = sum(type(q).__name__ == "DTensor" for q in p.agent.params.parameters())
+                print(f"{MESH_TRAIN_STEPS} DD steps at batch {B} through DataParallelEngine "
+                      f"({label}; {sharded} params sharded): {step_ms:.3f} ms per step, "
+                      f"dit_block launches {k1} (expected {MESH_TRAIN_STEPS * args.depth}); "
+                      f"losses against the un-meshed engine's: max relative difference "
+                      f"{rel:.3e}, grad norms {g_rel:.3e} (limit {MESH_RTOL})", flush=True)
+                if k1 != MESH_TRAIN_STEPS * args.depth or not rel <= MESH_RTOL:
+                    raise AssertionError(f"the {label} mesh steps' launches or losses are off")
+                if fsdp and not sharded:
+                    raise AssertionError("FSDP sharded no parameter")
+            print(f"K1's weights inside the blocks' forward: {sorted(set(seen))} "
+                  "(type, contiguous)", flush=True)
+            if set(seen) != {("Parameter", True)}:
+                raise AssertionError("K1 saw weights that are not plain contiguous tensors")
+
+            reset_counts()
+            t0 = time.perf_counter()
+            dryrun_multichip(1)
+            fn, fn_args = entry()
+            with torch.no_grad():
+                out = fn(*fn_args)
+            torch.cuda.synchronize()
+            print(f"dryrun_multichip(1) and entry() {tuple(out.shape)}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError("entry()'s forward is not finite")
+            no_kernel_launched("the graft entry points")
+        finally:
+            dist.destroy_process_group()
+    print(f"mesh path launches: {launches}", flush=True)
+    print(f"phase 39: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def net_gap(label: str, card, cpu_fn, f64_fn) -> float:
     """|card - CPU| over the CPU's scale; beyond NET_TOL (float32 rounding
     deciding), the card's distance to the CPU's float64 run must be within
@@ -4395,6 +4559,113 @@ def check_blockpush(dev) -> dict:
     return counts
 
 
+# the phases that launch no kernel, by worker process: each group's phases
+# run in order in one process (a later phase may read an earlier one's
+# checkpoint or demos); dict(phase key -> its launch counts)
+def rl_veteran_phases(dev) -> dict:
+    out = {family: check_rl_cli(dev, family) for family in ("dql", "idql", "edp")}
+    out.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
+                for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
+    out.update({f"veteran_{suite}": check_veteran_cli(dev, suite) for suite in VETERAN_CLIS})
+    return out
+
+
+def lite_mlp_phases(dev) -> dict:
+    out = {"diffuserlite_mujoco": check_diffuserlite_cli(dev)}
+    out.update({f"diffuserlite_{suite}": check_diffuserlite_suite_cli(dev, suite)
+                for suite in LITE_SUITE_CLIS})
+    out.update({"sfbc_mujoco": check_sfbc_cli(dev), "qgpo_mujoco": check_qgpo_cli(dev)})
+    out.update({f"synther_{suite}": check_synther_cli(dev, suite)
+                for suite in ("mujoco", "antmaze", "kitchen")})
+    out["consistency_policy"] = check_consistency_policy(dev)
+    return out
+
+
+def imitation_phases(dev) -> dict:
+    # the env and the expert, then the four CLIs; the renderer and the demos
+    # with frames, then the visual and robomimic CLIs
+    out = {"pusht_env_expert": check_pusht_env_and_expert(dev)}
+    for nn, config in DP_PUSHT_CASES:
+        out[f"dp_pusht_{nn}_{config}"] = check_imitation_cli(dev, dp_pusht, nn, config,
+                                                             "act_chunk")
+    for nn, config in DBC_PUSHT_CASES:
+        out[f"dbc_pusht_{nn}"] = check_imitation_cli(dev, dbc_pusht, nn, config, "act")
+    out["dp_kitchen"] = check_imitation_cli(dev, dp_kitchen, "chi_unet", "kitchen", "act_chunk")
+    out["dbc_kitchen"] = check_imitation_cli(dev, dbc_kitchen, "pearce_mlp", "kitchen", "act")
+    out["pusht_image_env"] = check_pusht_image_env(dev)
+    for cli_mod, extra, act in VISUAL_CASES:
+        key = "_".join([cli_mod.__name__.rsplit(".", 1)[-1], *(
+            e.split("=")[-1] for e in extra)])
+        out[key] = check_visual_cli(dev, cli_mod, extra, act)
+    return out
+
+
+WORKER_GROUPS = {"rl_veteran": rl_veteran_phases, "lite_mlp": lite_mlp_phases,
+                 "imitation": imitation_phases}
+WORKER_DIR = ROOT / "results" / "chip_smoke_workers"
+WORKERS_DONE_BY = 1100.0  # s from the script's start: a worker still running then fails it
+
+
+def run_worker(group: str, result_path: str, t_start: str) -> int:
+    """A worker process: the group's phases on the card, their launch counts
+    written to `result_path` (a torch.save file) for the main process."""
+    global T_START, PHASE_TAG
+    T_START, PHASE_TAG = float(t_start), f"chip_smoke:{group}"  # one monotonic clock
+    # PR_SET_PDEATHSIG: the worker is killed with the script, however it ends
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    check_device()
+    cache_cli_data()
+    torch.save(WORKER_GROUPS[group](torch.device("cuda", 0)), result_path)
+    return 0
+
+
+def start_workers() -> dict:
+    """One worker process per group, started now; their output to files."""
+    phase(f"workers started: {', '.join(WORKER_GROUPS)} (phases 15 and 19-33, no kernel), "
+          "beside the Goal2D DD gate and the DD, Diffuser and AdaptDiffuser CLIs")
+    shutil.rmtree(WORKER_DIR, ignore_errors=True)
+    WORKER_DIR.mkdir(parents=True)
+    workers = {}
+    for group in WORKER_GROUPS:
+        with open(WORKER_DIR / f"{group}.log", "w") as log:
+            workers[group] = subprocess.Popen(
+                [sys.executable, "-u", str(Path(__file__).resolve()), "--worker", group,
+                 str(WORKER_DIR / f"{group}.pt"), repr(T_START)],
+                stdout=log, stderr=subprocess.STDOUT)
+    return workers
+
+
+def join_workers(workers: dict) -> dict:
+    """Wait for the workers (until WORKERS_DONE_BY), print each one's output
+    as it ends and return their phases' launch counts; the first worker
+    that fails, or is still running then, fails the script."""
+    phase("waiting for the workers")
+    out, running = {}, dict(workers)
+    while running:
+        ended = {g: p.poll() for g, p in running.items() if p.poll() is not None}
+        late = time.perf_counter() - T_START > WORKERS_DONE_BY
+        for group in ended if ended or not late else running:
+            rc = ended.get(group)
+            print(f"[chip_smoke] --- worker {group}: exit {rc}; its output follows", flush=True)
+            print((WORKER_DIR / f"{group}.log").read_text(), end="", flush=True)
+            if rc != 0:
+                raise RuntimeError(f"worker {group} " + ("did not end by "
+                                   f"{WORKERS_DONE_BY:.0f} s" if rc is None else f"exited {rc}"))
+            out.update(torch.load(WORKER_DIR / f"{group}.pt", weights_only=False))
+            del running[group]
+        if running and not ended:
+            time.sleep(0.5)
+    print(f"[chip_smoke] workers done at {time.perf_counter() - T_START:.1f} s", flush=True)
+    return out
+
+
+def stop_workers(workers: dict):
+    for proc in workers.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     kind = check_device()
     dev = torch.device("cuda", 0)
@@ -4424,72 +4695,50 @@ def main() -> int:
     k1_bf16_train, _ = check_dd_training_bf16(dev)
     k3_train, k2_diffuser_train, _ = check_diffuser_training(dev)
     check_checkpoint(dev)
-    check_goal2d(dev)
-    cache_cli_data()
-    cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
-    # the slice's main path: the bf16 Diffuser CLI through K3's BF16 route
-    cli["film_resblock_bf16"] = check_diffuser_cli_bf16(dev)
-    for suite in ("antmaze", "kitchen"):
-        cli["dit_block"].update(check_dd_suite_cli(dev, suite))
-    for suite in ("antmaze", "kitchen"):
-        k3_cli, k2_cli = check_diffuser_suite_cli(dev, suite)
-        cli["film_resblock"].update(k3_cli)
-        cli["solver_update"].update(k2_cli)
-    for suite in ("mujoco", "antmaze"):
-        cli["film_resblock"].update(check_adaptdiffuser_cli(dev, suite))
-    # the RL policies' path (MLPs) launches none of the kernels
-    rl = {family: check_rl_cli(dev, family) for family in ("dql", "idql", "edp")}
-    rl.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
-               for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
-    # Diffusion Veteran and DiffuserLite (plain blocks, as the reference
-    # builds them): no kernel launch in these phases
-    planners = {f"veteran_{suite}": check_veteran_cli(dev, suite) for suite in VETERAN_CLIS}
-    planners["diffuserlite_mujoco"] = check_diffuserlite_cli(dev)
-    planners.update({f"diffuserlite_{suite}": check_diffuserlite_suite_cli(dev, suite)
-                     for suite in LITE_SUITE_CLIS})
-    # SfBC, QGPO, SynthER and the consistency policy (MLPs): no kernel launch
-    # in these phases
-    rl2 = {"sfbc_mujoco": check_sfbc_cli(dev), "qgpo_mujoco": check_qgpo_cli(dev)}
-    rl2.update({f"synther_{suite}": check_synther_cli(dev, suite)
-                for suite in ("mujoco", "antmaze", "kitchen")})
-    rl2["consistency_policy"] = check_consistency_policy(dev)
-    # Diffusion Policy and DiffusionBC on PushT and Kitchen (no kernel on
-    # their path): the env and the expert, then the four CLIs
-    imitation = {"pusht_env_expert": check_pusht_env_and_expert(dev)}
-    for nn, config in DP_PUSHT_CASES:
-        imitation[f"dp_pusht_{nn}_{config}"] = check_imitation_cli(dev, dp_pusht, nn, config,
-                                                                   "act_chunk")
-    for nn, config in DBC_PUSHT_CASES:
-        imitation[f"dbc_pusht_{nn}"] = check_imitation_cli(dev, dbc_pusht, nn, config, "act")
-    imitation["dp_kitchen"] = check_imitation_cli(dev, dp_kitchen, "chi_unet", "kitchen",
-                                                  "act_chunk")
-    imitation["dbc_kitchen"] = check_imitation_cli(dev, dbc_kitchen, "pearce_mlp", "kitchen",
-                                                   "act")
-    # the visual imitation CLIs and robomimic (no kernel on their path): the
-    # renderer and the demos with frames, then the six CLIs
-    imitation["pusht_image_env"] = check_pusht_image_env(dev)
-    for cli_mod, extra, act in VISUAL_CASES:
-        key = "_".join([cli_mod.__name__.rsplit(".", 1)[-1], *(
-            e.split("=")[-1] for e in extra)])
-        imitation[key] = check_visual_cli(dev, cli_mod, extra, act)
-    # bf16 requests on the MLP and Chi U-Net backbones (plain blocks)
-    imitation["bf16_requests"] = check_bf16_requests(dev)
+    # every kernel is timed: the phases that launch none go to the workers;
+    # the CLI phases of all four processes share one fresh directory
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    workers = start_workers()
+    try:
+        check_goal2d(dev)
+        cache_cli_data()
+        cli = {**check_dd_cli(dev), **check_diffuser_cli(dev)}
+        # the slice's main path: the bf16 Diffuser CLI through K3's BF16 route
+        cli["film_resblock_bf16"] = check_diffuser_cli_bf16(dev)
+        for suite in ("antmaze", "kitchen"):
+            cli["dit_block"].update(check_dd_suite_cli(dev, suite))
+        for suite in ("antmaze", "kitchen"):
+            k3_cli, k2_cli = check_diffuser_suite_cli(dev, suite)
+            cli["film_resblock"].update(k3_cli)
+            cli["solver_update"].update(k2_cli)
+        for suite in ("mujoco", "antmaze"):
+            cli["film_resblock"].update(check_adaptdiffuser_cli(dev, suite))
+        # the RL policies (MLPs), Diffusion Veteran and DiffuserLite (plain
+        # blocks, as the reference builds them), SfBC, QGPO, SynthER, the
+        # consistency policy, Diffusion Policy and DiffusionBC: no kernel
+        side = join_workers(workers)
+    finally:
+        stop_workers(workers)
+    # bf16 requests on the MLP and Chi U-Net backbones (plain blocks), from
+    # the checkpoints of two workers' phases
+    side["bf16_requests"] = check_bf16_requests(dev)
     # the modules no pipeline uses: the warm-started DD plan through K1 (and
     # K2 with fused_update), then the new networks and BlockPush (no kernel)
     warm = check_warm_start(dev)
     cli["dit_block"]["dd_warm_start"] = warm["dit_block"]
     cli["solver_update"]["dd_warm_start_fused"] = warm["solver_update"]
     unused = {"new_networks": check_new_networks(dev), "blockpush": check_blockpush(dev)}
+    # the multi-device path on a one-rank NCCL mesh: the DD plan and training through K1
+    unused["mesh"] = check_mesh(dev)
     print(f"[chip_smoke] total {time.perf_counter() - T_START:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {
         "name": name, "route": route, "source": source, "replaces": replaces,
         "launches": launches, "train_launches": train_launches,
         # the CLI phases: training through the CLI and serving its checkpoint
-        "cli_launches": {**cli[name], **{f"{f}_cli": c[f"fused_{name}"] for f, c in rl.items()},
-                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in planners.items()},
-                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in rl2.items()},
-                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in imitation.items()},
+        "cli_launches": {**cli[name],
+                         **{f"{p}_cli": c[f"fused_{name}"] for p, c in side.items()},
                          **{p: c[f"fused_{name}"] for p, c in unused.items()}},
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -4523,4 +4772,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_worker(*sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.jax_params import load_adam_moments, load_jax_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     ema_update,
@@ -92,6 +93,7 @@ class BaseClassifier:
         self.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
+    @writer_only
     def save(self, path):
         save_state(path, self.params, self.ema_params, self.optimizer, self.step)
 

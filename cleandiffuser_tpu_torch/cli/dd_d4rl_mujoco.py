@@ -73,6 +73,8 @@ def pipeline(args, build=build, reward_mode: str = "mujoco"):
 
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
 
     if args.mode == "train":
         train_loop(

@@ -127,6 +127,8 @@ def pipeline(args, build=build, evaluate=evaluate, finetune=None):
     place_pipeline(pipe, mesh)
 
     if args.mode == "train":
+        if mesh is not None:  # the training batches as this rank's rows
+            dataset.place_on_mesh(mesh)
         train_loop(
             lambda g: pipe.train_step(dataset.sample_batch(g, args.batch_size)),
             args.diffusion_gradient_steps, args.log_interval, args.save_interval,

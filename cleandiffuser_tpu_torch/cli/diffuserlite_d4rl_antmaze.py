@@ -37,6 +37,7 @@ from ..pipelines.diffuserlite_value import (
     train_iql,
     value_train_step,
 )
+from ..parallel import place_pipeline
 from ..pipelines.runner import d4rl_eval_loop
 from ..utils.config import load_config, parse_cli
 from ..utils.iql import IQL
@@ -104,13 +105,17 @@ def run(args, build, td_dataset, level_values, act_fn_of, w_cfgs, select_t: int,
     (`build`), TD data (`td_dataset`), level values, act function
     (`act_fn_of(args, plan_fn, normalizer, generator)`), CFG weights, the
     plan index IQL ranks at and `d4rl_eval_loop`'s reward mode."""
-    device, save_path, logger, base, pipe = lite.setup(args, build)
+    device, save_path, logger, base, pipe, mesh = lite.setup(args, build)
     iql = build_iql(args, base, device)
+    place_pipeline(iql, mesh)
     iql_ckpt = str(save_path / "iql_ckpt_latest.pkl")
     val_fn = lambda batch, level: level_values(batch, level, args.discount)  # noqa: E731
 
     if args.mode == "iql_training":
-        train_iql(iql, td_dataset(args, device), args.iql_gradient_steps, IQL_BATCH,
+        td = td_dataset(args, device)
+        if mesh is not None:
+            td.place_on_mesh(mesh)
+        train_iql(iql, td, args.iql_gradient_steps, IQL_BATCH,
                   args.log_interval, args.save_interval, lambda: iql.save(iql_ckpt), args.seed)
         iql.save(iql_ckpt)
         logger.finish()
@@ -119,14 +124,14 @@ def run(args, build, td_dataset, level_values, act_fn_of, w_cfgs, select_t: int,
     if args.mode == "training":
         dataset = IQLValueMultiHorizonDataset(base, iql, device=device)
         lite.train(pipe, dataset, args, save_path, logger, device,
-                   lambda b, left: value_train_step(pipe, b, val_fn, left))
+                   lambda b, left: value_train_step(pipe, b, val_fn, left), mesh)
     elif args.mode == "prepare_dataset":
         dataset = IQLValueMultiHorizonDataset(base, iql, device=device)
         lite.prepare_dataset(pipe, dataset, args, save_path, device,
                              lambda b, g: prepare_value_reflow_pairs(
                                  pipe, b, val_fn, args.dataset_prepare_sampling_steps, g))
     elif args.mode == "reflow":
-        lite.reflow(pipe, args, save_path, logger)
+        lite.reflow(pipe, args, save_path, logger, mesh)
     elif args.mode == "inference":
         prefix = "reflow_ckpt" if args.test_model == "R2" else "ckpt"
         pipe.load(str(save_path / f"{prefix}_{args.diffusion_ckpt}"))

@@ -32,13 +32,14 @@ import numpy as np
 import torch
 
 from ..dataset import MultiHorizonD4RLMuJoCoDataset
-from ..parallel import device_of, place_pipeline, setup_mesh
+from ..parallel import device_of, place_pipeline, setup_mesh, shard_batch
 from ..pipelines import DiffuserLitePipeline, compute_temporal_horizons
 from ..pipelines.data_loading import load_d4rl_dataset
 from ..pipelines.runner import d4rl_eval_loop, train_loop
 from ..utils import DD_RETURN_SCALE
 from ..utils.config import load_config, parse_cli
 from ..utils.logger import Logger
+from ..utils.ranks import is_writer
 from ..utils.tensors import set_seed
 from ..utils.train_state import read_jax_pickle
 
@@ -77,10 +78,13 @@ def batches(pipe, dataset, generator, batch_size: int):
             for i in range(pipe.n_levels)]
 
 
-def train(pipe, dataset, args, save_path, logger, device, train_step=None):
+def train(pipe, dataset, args, save_path, logger, device, train_step=None, mesh=None):
     """mode=training: `train_step` (the pipeline's own unless given) on a
     batch per level, saving `ckpt_<step>` and `ckpt_latest` on the save
-    grid; window by window when the intervals are on the log grid."""
+    grid; window by window when the intervals are on the log grid. On a
+    mesh the dataset is placed first: each rank steps on its rows."""
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
     window = None
     if (args.save_interval % args.log_interval == 0
             and args.diffusion_gradient_steps % args.log_interval == 0):
@@ -95,7 +99,9 @@ def train(pipe, dataset, args, save_path, logger, device, train_step=None):
 def prepare_dataset(pipe, dataset, args, save_path, device, pairs_fn=None):
     """mode=prepare_dataset: `pairs_fn(batches)` (the pipeline's
     `prepare_reflow_pairs` unless given) per batch of
-    `dataset_prepare_batch_size`, merged per level into `reflow_pairs.pkl`."""
+    `dataset_prepare_batch_size`, merged per level into `reflow_pairs.pkl`.
+    On a mesh every rank computes all the pairs (the sampler is not split)
+    and rank 0 writes them."""
     pipe.load(str(save_path / f"ckpt_{args.reflow_backbone_ckpt}"))
     pairs_fn = pairs_fn or (lambda b, g: pipe.prepare_reflow_pairs(
         b, sampling_steps=args.dataset_prepare_sampling_steps, generator=g))
@@ -108,14 +114,16 @@ def prepare_dataset(pipe, dataset, args, save_path, device, pairs_fn=None):
         print(f"reflow pairs: step {b + 1}/{n_batches}", flush=True)
     merged = [{key: np.concatenate([p[i][key] for p in all_pairs]) for key in all_pairs[0][i]}
               for i in range(pipe.n_levels)]
-    with open(save_path / "reflow_pairs.pkl", "wb") as f:
-        pickle.dump(merged, f)
+    if is_writer():
+        with open(save_path / "reflow_pairs.pkl", "wb") as f:
+            pickle.dump(merged, f)
 
 
-def reflow(pipe, args, save_path, logger):
+def reflow(pipe, args, save_path, logger, mesh=None):
     """mode=reflow: `reflow_gradient_steps` steps on pairs drawn from
     `reflow_pairs.pkl`, saving `reflow_ckpt_<step>` and
-    `reflow_ckpt_latest` on the save grid."""
+    `reflow_ckpt_latest` on the save grid. On a mesh each rank steps on its
+    rows of the drawn pairs (`shard_batch`)."""
     pipe.load(str(save_path / f"ckpt_{args.reflow_backbone_ckpt}"))
     merged = read_jax_pickle(save_path / "reflow_pairs.pkl")
     rng = np.random.default_rng(args.seed)
@@ -123,7 +131,8 @@ def reflow(pipe, args, save_path, logger):
     acc = {}
     for step in range(args.reflow_gradient_steps):
         idx = rng.integers(0, N, args.batch_size)
-        log = pipe.reflow_step([{k: v[idx] for k, v in m.items()} for m in merged])
+        pairs = [{k: v[idx] for k, v in m.items()} for m in merged]
+        log = pipe.reflow_step(pairs if mesh is None else shard_batch(mesh, pairs))
         for k, v in log.items():
             acc[k] = acc.get(k, 0.0) + v
         if (step + 1) % args.log_interval == 0:
@@ -138,7 +147,8 @@ def reflow(pipe, args, save_path, logger):
 
 
 def setup(args, build):
-    """(device, save_path, logger, dataset, pipe) of a run."""
+    """(device, save_path, logger, dataset, pipe, mesh) of a run; the
+    pipeline placed on the mesh (the dataset is placed by `train`)."""
     mesh = setup_mesh(args)
     device = device_of(args)
     set_seed(args.seed)
@@ -147,17 +157,17 @@ def setup(args, build):
     logger = Logger(save_path, args.to_dict())
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
-    return device, save_path, logger, dataset, pipe
+    return device, save_path, logger, dataset, pipe, mesh
 
 
 def pipeline(args):
-    device, save_path, logger, dataset, pipe = setup(args, build)
+    device, save_path, logger, dataset, pipe, mesh = setup(args, build)
     if args.mode == "training":
-        train(pipe, dataset, args, save_path, logger, device)
+        train(pipe, dataset, args, save_path, logger, device, mesh=mesh)
     elif args.mode == "prepare_dataset":
         prepare_dataset(pipe, dataset, args, save_path, device)
     elif args.mode == "reflow":
-        reflow(pipe, args, save_path, logger)
+        reflow(pipe, args, save_path, logger, mesh)
     elif args.mode == "inference":
         prefix = "reflow_ckpt" if args.test_model == "R2" else "ckpt"
         pipe.load(str(save_path / f"{prefix}_{args.diffusion_ckpt}"))

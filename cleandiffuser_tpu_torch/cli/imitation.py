@@ -53,6 +53,8 @@ def run_imitation_cli(args, build: Callable, evaluate: Callable, loss_key: str =
     logger = Logger(save_path, args.to_dict())
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
 
     def scored(m: dict) -> None:
         print(m, flush=True)

@@ -36,6 +36,7 @@ from ..pipelines.data_loading import load_d4rl_qlearning_dataset
 from ..pipelines.runner import d4rl_eval_loop, step_generator, train_loop
 from ..utils.config import load_config, parse_cli
 from ..utils.logger import Logger
+from ..utils.ranks import is_writer
 from ..utils.tensors import set_seed
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/qgpo/mujoco"
@@ -97,6 +98,8 @@ def pipeline(args):
 
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
     sup_path, q_path = save_path / "supported_act.npy", save_path / "q_state.pt"
     actor_ckpt = str(save_path / "diffusion_ckpt_latest")
 
@@ -113,7 +116,9 @@ def pipeline(args):
         )
     elif args.mode == "supported_action_collecting":
         pipe.actor.load(actor_ckpt)
-        np.save(sup_path, pipe.collect_supported_actions(dataset.next_obs, COLLECT_BATCH))
+        sup = pipe.collect_supported_actions(dataset.next_obs, COLLECT_BATCH)
+        if is_writer():
+            np.save(sup_path, sup)
     elif args.mode in ("q_training", "cep_training"):
         pipe.actor.load(actor_ckpt)
         sup = np.load(sup_path)

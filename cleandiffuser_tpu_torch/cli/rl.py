@@ -36,6 +36,8 @@ def run_rl_cli(args, build: Callable, weight_temperature: float,
 
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
 
     if args.mode == "train":
         def resume_fn():

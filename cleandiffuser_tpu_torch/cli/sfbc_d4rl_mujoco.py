@@ -71,6 +71,8 @@ def pipeline(args):
 
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
     val_normalizer = GaussianNormalizer(dataset.seq_val)
 
     if args.mode == "bc_training":

@@ -38,6 +38,7 @@ from ..pipelines.data_loading import load_d4rl_qlearning_dataset
 from ..pipelines.runner import d4rl_eval_loop, planner_window_fn, train_loop
 from ..utils.config import load_config, parse_cli
 from ..utils.logger import Logger
+from ..utils.ranks import is_writer
 from ..utils.tensors import set_seed
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs/synther/mujoco"
@@ -96,6 +97,8 @@ def pipeline(args, td=td_dataset, reward_mode: str = "mujoco"):
 
     raw, dataset, synther = build(args, device, td)
     place_pipeline(synther, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
     extra_path = save_path / "extra_transitions.npy"
 
     if args.mode == "train_diffusion":
@@ -107,11 +110,15 @@ def pipeline(args, td=td_dataset, reward_mode: str = "mujoco"):
         )
     elif args.mode == "transition_generation":
         synther.diffusion.load(str(save_path / "diff_ckpt_latest"))
-        np.save(extra_path, synther.generate_transitions(args.num_transitions))
+        extra = synther.generate_transitions(args.num_transitions)
+        if is_writer():
+            np.save(extra_path, extra)
     elif args.mode == "train_td3bc":
         mixed = mix_transitions(td(args, raw, device), np.load(extra_path), device)
         agent = build_agent(args, mixed, device, args.td3bc_gradient_steps)
         place_pipeline(agent, mesh)
+        if mesh is not None:
+            mixed.place_on_mesh(mesh)
         train_loop(
             lambda g: agent.update(mixed.sample_batch(g, args.batch_size)),
             args.td3bc_gradient_steps, args.log_interval, args.save_interval,

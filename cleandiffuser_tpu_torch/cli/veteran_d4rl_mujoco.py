@@ -95,6 +95,8 @@ def pipeline(args, build=build, td_dataset=td_dataset, reward_mode: str = "mujoc
 
     dataset, pipe = build(args, device)
     place_pipeline(pipe, mesh)
+    if mesh is not None:
+        dataset.place_on_mesh(mesh)
     ckpt = lambda tag: str(save_path / f"veteran_{tag}.pkl")
 
     if args.mode == "train":
@@ -108,6 +110,8 @@ def pipeline(args, build=build, td_dataset=td_dataset, reward_mode: str = "mujoc
         if Path(ckpt("latest")).exists():
             pipe.load(ckpt("latest"))
         td = td_dataset(args, device)
+        if mesh is not None:
+            td.place_on_mesh(mesh)
         ev_window = None
         if (args.save_interval % args.log_interval == 0
                 and EV_GRADIENT_STEPS % args.log_interval == 0):

@@ -12,8 +12,14 @@ Two access paths, as in the reference:
    one seed, so `gather(k)` takes the indices explicitly too.
 
 The stores live on the CUDA device unless the caller names another
-(`device="cpu"` for the CPU tests). Placing a store on a mesh waits for
-the multi-device path (ROADMAP queue 1, item 10).
+(`device="cpu"` for the CPU tests). `place_on_mesh(mesh)` (on a dataset,
+or on a sampler) keeps the whole store on every rank and makes each batch
+this rank's rows of the global one: the indices are drawn for the whole
+`batch_size` from the generator, which is the same on every rank, and the
+rank gathers its block of them, so the global batch is the one a single
+process draws. `batch_size` must divide the mesh's "dp" size. A dataset's
+batches come out tagged as the rank's rows (utils/ranks.py), which is what
+a placed pipeline's step reads to run data-parallel.
 """
 
 from __future__ import annotations
@@ -23,9 +29,41 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..utils.ranks import mark_rows
 from ..utils.tensors import default_device
 
-__all__ = ["BaseDataset", "DeviceSeqSampler", "DeviceTDSampler"]
+__all__ = ["BaseDataset", "DeviceSeqSampler", "DeviceTDSampler", "place_on_mesh",
+           "sample_indices"]
+
+
+def sample_indices(generator: torch.Generator, high: int, batch_size: int, rows=None):
+    """`batch_size` indices uniform on [0, high) from `generator`; with
+    `rows` = (rank, n, group) (a store placed on a mesh) the rank's block
+    of them."""
+    k = torch.randint(high, (batch_size,), generator=generator, device=generator.device)
+    if rows is None:
+        return k
+    rank, n, _ = rows
+    assert batch_size % n == 0, f"batch_size={batch_size} not divisible by dp size {n}"
+    b = batch_size // n
+    return k[rank * b:(rank + 1) * b]
+
+
+def place_on_mesh(dataset, mesh, axis: str = "dp"):
+    """Place `dataset`'s samplers (its attributes, one level of list
+    nesting) and its own index draws on the mesh (module note), and tag its
+    `sample_batch` output as the rank's rows. Returns the dataset."""
+    from ..parallel.mesh import mesh_rows
+
+    rows = mesh_rows(mesh, axis)
+    dataset._mesh_rows = rows
+    for val in list(vars(dataset).values()):
+        for item in (val if isinstance(val, (list, tuple)) else [val]):
+            if isinstance(item, (DeviceSeqSampler, DeviceTDSampler)):
+                item.place_on_mesh(mesh, axis)
+    sample = dataset.sample_batch
+    dataset.sample_batch = lambda *a, **kw: mark_rows(sample(*a, **kw), *rows)
+    return dataset
 
 
 class BaseDataset:
@@ -42,6 +80,9 @@ class BaseDataset:
 
     def sample_batch(self, generator: torch.Generator, batch_size: int):
         raise NotImplementedError
+
+    def place_on_mesh(self, mesh, axis: str = "dp"):
+        return place_on_mesh(self, mesh, axis)
 
 
 def _on(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -74,10 +115,15 @@ class DeviceSeqSampler:
         out.update({name: arr[path, start] for name, arr in self.scalars.items()})
         return out
 
+    def place_on_mesh(self, mesh, axis: str = "dp"):
+        from ..parallel.mesh import mesh_rows
+
+        self._mesh_rows = mesh_rows(mesh, axis)
+        return self
+
     def sample(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
-        k = torch.randint(len(self.indices), (batch_size,), generator=generator,
-                          device=generator.device)
-        return self.gather(k)
+        return self.gather(sample_indices(generator, len(self.indices), batch_size,
+                                          getattr(self, "_mesh_rows", None)))
 
 
 class DeviceTDSampler:
@@ -92,6 +138,8 @@ class DeviceTDSampler:
         k = k.to(self.device)
         return {name: arr[k] for name, arr in self.arrays.items()}
 
+    place_on_mesh = DeviceSeqSampler.place_on_mesh
+
     def sample(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
-        k = torch.randint(self.size, (batch_size,), generator=generator, device=generator.device)
-        return self.gather(k)
+        return self.gather(sample_indices(generator, self.size, batch_size,
+                                          getattr(self, "_mesh_rows", None)))

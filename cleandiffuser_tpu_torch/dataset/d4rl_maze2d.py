@@ -18,10 +18,9 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
-import torch
 
 from ..utils.normalizers import GaussianNormalizer
-from .base import BaseDataset, DeviceSeqSampler, DeviceTDSampler
+from .base import BaseDataset, DeviceSeqSampler, DeviceTDSampler, sample_indices
 from .d4rl_mujoco import D4RLMuJoCoDataset, D4RLMuJoCoTDDataset
 
 __all__ = ["DV_D4RLMaze2DSeqDataset", "D4RLMaze2DTDDataset"]
@@ -166,9 +165,8 @@ class DV_D4RLMaze2DSeqDataset(BaseDataset):
         return batch
 
     def sample_batch(self, generator, batch_size: int):
-        k = torch.randint(len(self.indices), (batch_size,), generator=generator,
-                          device=generator.device)
-        return self.gather(k)
+        return self.gather(sample_indices(generator, len(self.indices), batch_size,
+                                          getattr(self, "_mesh_rows", None)))
 
 
 class D4RLMaze2DTDDataset(BaseDataset):

@@ -27,7 +27,7 @@ import torch
 
 from ..utils.normalizers import DatasetMinMaxNormalizer, ImageNormalizer
 from ..utils.tensors import default_device
-from .base import BaseDataset
+from .base import BaseDataset, sample_indices
 from .dataset_utils import SequenceSampler
 from .replay_buffer import ReplayBuffer
 
@@ -98,9 +98,8 @@ class _PushTBase(BaseDataset):
                 "action": self._store["action"][rows]}
 
     def sample_batch(self, generator: torch.Generator, batch_size: int) -> dict:
-        k = torch.randint(len(self._rows), (batch_size,), generator=generator,
-                          device=generator.device)
-        return self.gather(k)
+        return self.gather(sample_indices(generator, len(self._rows), batch_size,
+                                          getattr(self, "_mesh_rows", None)))
 
 
 def _normalized(normalizer, x: np.ndarray) -> np.ndarray:

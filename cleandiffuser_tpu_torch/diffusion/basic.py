@@ -40,6 +40,7 @@ import torch.nn as nn
 
 from ..nn_condition.base import IdentityCondition
 from ..utils.jax_params import load_agent_moments, load_agent_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     ema_update,
@@ -230,6 +231,7 @@ class DiffusionModel:
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path):
         save_state(path, self.params, self.ema_params, self.optimizer, self.step, self.generator)
 

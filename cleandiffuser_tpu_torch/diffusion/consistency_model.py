@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.schedules import karras_sigma_schedule
+from ..utils.ranks import batch_draw
 from ..utils.tensors import at_least_ndim
 from .basic import DiffusionModel
 from .edm import ContinuousEDM
@@ -228,9 +229,11 @@ class ContinuousConsistencyModel(DiffusionModel):
         sigmas, p = self.cur_logger.tables(x0.device)
         b = x0.shape[0]
         if idx is None:
-            idx = torch.multinomial(p, b, replacement=True, generator=generator)
+            idx = batch_draw(lambda s: torch.multinomial(p, s[0], replacement=True,
+                                                         generator=generator), (b,))
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+            eps = batch_draw(lambda s: torch.randn(s, generator=generator, device=x0.device),
+                             x0.shape)
         idx = idx.to(x0.device)
         sigma_n, sigma_m = sigmas[idx], sigmas[idx + 1]
         x_n = x0 + at_least_ndim(sigma_n, x0.ndim) * eps
@@ -251,8 +254,8 @@ class ContinuousConsistencyModel(DiffusionModel):
         sig = self.distillation_sigmas
         b = x0.shape[0]
         if idx is None:
-            idx = torch.randint(self.distillation_N, (b,), generator=generator,
-                                device=x0.device)
+            idx = batch_draw(lambda s: torch.randint(self.distillation_N, s, generator=generator,
+                                                     device=x0.device), (b,))
         idx = idx.to(x0.device)
         t_m, t_n = sig[idx + 1], sig[idx]
         edm, teacher = self.edm, self.edm.ema_params
@@ -316,7 +319,8 @@ class ContinuousConsistencyModel(DiffusionModel):
             def draw(n):
                 if noise is not None:
                     return noise[0] if n < 0 else noise[1][n]
-                return torch.randn(prior.shape, generator=generator, device=prior.device)
+                return batch_draw(lambda s: torch.randn(s, generator=generator,
+                                                        device=prior.device), prior.shape)
 
             B = prior.shape[0]
             full = lambda v: torch.full((B,), v, dtype=torch.float32, device=prior.device)

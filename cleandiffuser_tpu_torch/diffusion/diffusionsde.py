@@ -45,7 +45,7 @@ Neither has a pipeline caller; `sample` serves them, as the reference's.
 Ported: the solvers, CFG in mix / cond / uncond modes, classifier
 guidance, final log p, clipping, inpainting, the diffusion-x steps, warm
 start, history and the training loss. The parallel-in-time sampler is
-ROADMAP queue 1, item 10.
+ROADMAP queue 1, item 10e.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from ..utils.schedules import (
     uniform_discretization,
 )
 from ..utils.tensors import at_least_ndim
+from ..utils.ranks import batch_draw, current_rows
 from .basic import DiffusionModel, pick_cfg_mode
 from .vp_solvers import (
     SUPPORTED_SOLVERS,
@@ -254,9 +255,15 @@ class BaseDiffusionSDE(DiffusionModel):
             def draw(n):
                 if noise is not None:
                     return noise[0] if n < 0 else noise[1][n]
-                return torch.randn(prior.shape, generator=generator, device=prior.device)
+                return batch_draw(lambda s: torch.randn(s, generator=generator,
+                                                        device=prior.device), prior.shape)
 
             if fused_update:
+                if current_rows() is not None:
+                    # K2 draws each element's noise from its index in the
+                    # rank's rows: not the number one process draws there
+                    raise ValueError("fused_update draws its noise in the kernel: it does not "
+                                     "run on a batch split over ranks")
                 if noise is not None:
                     raise ValueError("fused_update draws its noise in the kernel: it takes "
                                      "no explicit noise")
@@ -402,10 +409,11 @@ class DiscreteDiffusionSDE(BaseDiffusionSDE):
     def add_noise(self, x0, t=None, eps=None, generator=None):
         """t: integer levels uniform on [0, diffusion_steps)."""
         if t is None:
-            t = torch.randint(self.diffusion_steps, (x0.shape[0],), generator=generator,
-                              device=x0.device)
+            t = batch_draw(lambda s: torch.randint(self.diffusion_steps, s, generator=generator,
+                                                   device=x0.device), (x0.shape[0],))
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+            eps = batch_draw(lambda s: torch.randn(s, generator=generator, device=x0.device),
+                             x0.shape)
         return self._noised(x0, self._alpha_dev[t], self._sigma_dev[t], eps), t, eps
 
     def _sample_tables(self, sample_step_schedule, sample_steps, warm_level=None):
@@ -454,9 +462,11 @@ class ContinuousDiffusionSDE(BaseDiffusionSDE):
         """t: uniform on `t_diffusion`."""
         if t is None:
             lo, hi = self.t_diffusion
-            t = torch.rand(x0.shape[0], generator=generator, device=x0.device) * (hi - lo) + lo
+            t = batch_draw(lambda s: torch.rand(s, generator=generator, device=x0.device),
+                           (x0.shape[0],)) * (hi - lo) + lo
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+            eps = batch_draw(lambda s: torch.randn(s, generator=generator, device=x0.device),
+                             x0.shape)
         alpha, sigma = self.noise_schedule_funcs["forward"](t)
         return self._noised(x0, alpha, sigma, eps), t, eps
 

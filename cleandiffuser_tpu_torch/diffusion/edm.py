@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.schedules import karras_sigma_schedule
+from ..utils.ranks import batch_draw
 from ..utils.tensors import at_least_ndim
 from .basic import DiffusionModel, pick_cfg_mode
 
@@ -112,7 +113,8 @@ class ContinuousEDM(DiffusionModel):
     # ---------------- Training ----------------
     def sample_noise_level(self, n: int, generator, device):
         """Training sigmas: log-normal, exp(N(P_mean, P_std^2))."""
-        return torch.exp(torch.randn(n, generator=generator, device=device) * self.P_std
+        return torch.exp(batch_draw(lambda s: torch.randn(s, generator=generator, device=device),
+                                    (n,)) * self.P_std
                          + self.P_mean)
 
     def add_noise(self, x0, t=None, eps=None, generator=None):
@@ -121,7 +123,8 @@ class ContinuousEDM(DiffusionModel):
         if t is None:
             t = self.sample_noise_level(x0.shape[0], generator, x0.device)
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device)
+            eps = batch_draw(lambda s: torch.randn(s, generator=generator, device=x0.device),
+                             x0.shape)
         xt = x0 + at_least_ndim(t, x0.ndim) * eps
         if self.fix_mask is not None:
             xt = (1.0 - self.fix_mask) * xt + self.fix_mask * x0
@@ -218,8 +221,8 @@ class ContinuousEDM(DiffusionModel):
                condition_cg=None, w_cg: float = 0.0, warm_reference=None):
             if self.bf16_sampling:
                 params = self.bf16_params(params, condition=False)
-            draw = noise if noise is not None else torch.randn(
-                prior.shape, generator=generator, device=prior.device)
+            draw = noise if noise is not None else batch_draw(
+                lambda s: torch.randn(s, generator=generator, device=prior.device), prior.shape)
             if warm_start and warm_reference is not None:
                 xt = warm_reference + fwd_sigma * draw
             else:

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.ranks import batch_draw
 from .edm import ContinuousEDM
 
 __all__ = ["KarrasODE", "VEODE", "VPODE", "EDMDDIM"]
@@ -115,8 +116,8 @@ class KarrasODE(ContinuousEDM):
             del warm_reference
             if self.bf16_sampling:
                 params = self.bf16_params(params, condition=False)
-            draw = noise if noise is not None else torch.randn(
-                prior.shape, generator=generator, device=prior.device)
+            draw = noise if noise is not None else batch_draw(
+                lambda s: torch.randn(s, generator=generator, device=prior.device), prior.shape)
             xt = self.pin(draw * float(sigma_s[0]) * float(scale_s[0]) * temperature, prior)
             emb = self.apply_condition(params, condition_cfg, mask=mask_cfg)
             history = []
@@ -164,7 +165,7 @@ class VEODE(KarrasODE):
         return torch.log(0.5 * sigma)
 
     def sample_noise_level(self, n: int, generator, device):
-        u = torch.rand(n, generator=generator, device=device)
+        u = batch_draw(lambda s: torch.rand(s, generator=generator, device=device), (n,))
         return torch.exp(u * float(np.log(self.sigma_max / self.sigma_min))
                          + float(np.log(self.sigma_min)))
 
@@ -212,7 +213,8 @@ class VPODE(KarrasODE):
         return (self.diffusion_steps - 1) * t
 
     def sample_noise_level(self, n: int, generator, device):
-        t = torch.rand(n, generator=generator, device=device) * (1.0 - self.eps_t) + self.eps_t
+        t = (batch_draw(lambda s: torch.rand(s, generator=generator, device=device), (n,))
+             * (1.0 - self.eps_t) + self.eps_t)
         return self._sigma_of_t(t)
 
     def ode_tables(self, N: int):
@@ -261,8 +263,8 @@ class EDMDDIM(KarrasODE):
         return sigma
 
     def sample_noise_level(self, n: int, generator, device):
-        j = torch.randint(self.j0, self.diffusion_steps, (n,), generator=generator,
-                          device=device)
+        j = batch_draw(lambda s: torch.randint(self.j0, self.diffusion_steps, s,
+                                               generator=generator, device=device), (n,))
         return self._u_dev[j]
 
     def ode_tables(self, N: int):

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 
 from ..utils.schedules import SUPPORTED_DISCRETIZATIONS, SUPPORTED_SAMPLING_STEP_SCHEDULE
+from ..utils.ranks import batch_draw
 from ..utils.tensors import at_least_ndim
 from .basic import DiffusionModel, pick_cfg_mode
 
@@ -91,8 +92,8 @@ class _BaseRectifiedFlow(DiffusionModel):
         is drawn from `generator`); a given `x1` (reflow) wins over both."""
         t, x1_draw, keep = noise if noise is not None else (None, None, None)
         if x1 is None:
-            x1 = x1_draw if x1_draw is not None else torch.randn(
-                x0.shape, generator=generator, device=x0.device)
+            x1 = x1_draw if x1_draw is not None else batch_draw(
+                lambda s: torch.randn(s, generator=generator, device=x0.device), x0.shape)
         if t is None:
             t, t_c = self._sample_t(x0.shape[0], generator, x0.device)
         else:
@@ -156,8 +157,8 @@ class _BaseRectifiedFlow(DiffusionModel):
                x1=None):
             if self.bf16_sampling:
                 params = self.bf16_params(params, condition=False)
-            draw = lambda: noise if noise is not None else torch.randn(
-                prior.shape, generator=generator, device=prior.device)
+            draw = lambda: noise if noise is not None else batch_draw(
+                lambda s: torch.randn(s, generator=generator, device=prior.device), prior.shape)
             if warm_start and warm_reference is not None:
                 xt = draw() * warm_t + warm_reference * (1 - warm_t)
             elif x1 is not None:
@@ -242,7 +243,8 @@ class DiscreteRectifiedFlow(_BaseRectifiedFlow):
         self._t_dev = self.t_diffusion.to(self.device)
 
     def _sample_t(self, batch, generator, device):
-        t = torch.randint(self.diffusion_steps, (batch,), generator=generator, device=device)
+        t = batch_draw(lambda s: torch.randint(self.diffusion_steps, s, generator=generator,
+                                               device=device), (batch,))
         return t, self._t_dev[t]
 
     def _t_cont(self, t_net):
@@ -264,7 +266,7 @@ class ContinuousRectifiedFlow(_BaseRectifiedFlow):
     """Continuous-time rectified flow: t uniform on [0, 1]."""
 
     def _sample_t(self, batch, generator, device):
-        t = torch.rand(batch, generator=generator, device=device)
+        t = batch_draw(lambda s: torch.rand(s, generator=generator, device=device), (batch,))
         return t, t
 
     def _t_cont(self, t_net):

@@ -30,6 +30,8 @@ import torch.nn.functional as F
 
 from ..utils.blocks import LayerNorm, dense, orthogonal_init
 from ..utils.jax_params import load_jax_params
+from ..utils.ranks import batch_draw
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import make_optimizer, read_jax_pickle
 
@@ -75,7 +77,8 @@ class _FancyInvMlpNet(nn.Module):
             h = self.norm(h)
         if train and self.add_dropout:
             if keep is None:
-                keep = torch.rand(h.shape, generator=generator, device=h.device) < 0.9
+                keep = batch_draw(lambda s: torch.rand(s, generator=generator, device=h.device),
+                                  h.shape) < 0.9
             h = torch.where(keep, h / 0.9, torch.zeros_like(h))
         h = F.gelu(self.l2(h), approximate="tanh")
         return self.out_activation(self.l3(h))
@@ -171,6 +174,7 @@ class MlpInvDynamic:
         self.optimizer.step()
         return {"loss": loss.detach()}
 
+    @writer_only
     def save(self, path):
         """Params and the Adam state (the reference saves the params only)."""
         Path(path).parent.mkdir(parents=True, exist_ok=True)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..utils.blocks import dense, leaky_relu
 from ..utils.embeddings import _two_pi_times, mish, positional_features
+from ..utils.ranks import batch_draw
 from ..utils.tensors import at_least_ndim
 
 __all__ = ["BaseNNCondition", "IdentityCondition", "LinearCondition", "MLPCondition",
@@ -42,7 +43,8 @@ class BaseNNCondition(nn.Module):
     def get_mask(self, condition, mask, train: bool,
                  generator: Optional[torch.Generator] = None):
         if train and mask is None and self.dropout > 0:
-            u = torch.rand(condition.shape[0], generator=generator, device=condition.device)
+            u = batch_draw(lambda s: torch.rand(s, generator=generator, device=condition.device),
+                           (condition.shape[0],))
             return (u > self.dropout).to(torch.float32)
         return 1.0 if mask is None else mask
 

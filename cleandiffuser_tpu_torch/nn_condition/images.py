@@ -81,6 +81,7 @@ from ..utils.blocks import (
     silu,
 )
 from ..utils.embeddings import sinusoidal_features
+from ..utils.ranks import batch_draw
 from .base import BaseNNCondition
 
 __all__ = ["ResNet18", "SpatialSoftmax", "MultiImageObsCondition", "random_crop",
@@ -253,8 +254,10 @@ def random_crop(img, crop_h: int, crop_w: int, generator: Optional[torch.Generat
     b = img.shape[0]
     flat = img.reshape(b, -1, h, w)
     if offsets is None:
-        top = torch.randint(0, h - crop_h + 1, (b,), generator=generator, device=img.device)
-        left = torch.randint(0, w - crop_w + 1, (b,), generator=generator, device=img.device)
+        top = batch_draw(lambda s: torch.randint(0, h - crop_h + 1, s, generator=generator,
+                                                 device=img.device), (b,))
+        left = batch_draw(lambda s: torch.randint(0, w - crop_w + 1, s, generator=generator,
+                                                  device=img.device), (b,))
     else:
         top, left = (torch.as_tensor(o, device=img.device).long() for o in offsets)
     rows = top[:, None] + torch.arange(crop_h, device=img.device)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..utils.blocks import LayerNorm, _MultiHeadAttention, dense, normal_init
 from ..utils.embeddings import mish
+from ..utils.ranks import batch_draw
 from .base import timestep_embedding_module
 
 __all__ = ["ChiTransformer", "dropout_keep"]
@@ -44,7 +45,8 @@ normal02 = normal_init(0.02)
 
 def dropout_keep(shape, rate: float, generator: Optional[torch.Generator], device):
     """A Bernoulli keep-mask (probability 1 - rate) of `shape`."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return batch_draw(lambda s: torch.rand(s, generator=generator, device=device),
+                      shape) < 1.0 - rate
 
 
 def _dropout(x, rate: float, train: bool, generator):

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..utils.blocks import LayerNorm, Mlp, dense
 from ..utils.embeddings import mish
+from ..utils.ranks import batch_draw
 from .base import BaseNNDiffusion, timestep_embedding_module
 
 __all__ = ["MlpNNDiffusion", "DQLMlp", "IDQLMlp", "NewIDQLMlp", "DVInvMlp"]
@@ -122,7 +123,8 @@ class _LNResBlock(nn.Module):
         h = x
         if train and self.dropout > 0:
             keep_prob = 1.0 - self.dropout
-            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+            keep = batch_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                              x.shape) < keep_prob
             h = torch.where(keep, x / keep_prob, torch.zeros_like(x))
         return x + self.dense2(mish(self.dense1(self.norm(h))))
 

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.blocks import dense, leaky_relu, promoted_norm
+from ..utils.ranks import current_rows
 from .base import timestep_embedding_module
 
 __all__ = ["PearceMlp", "PearceTransformer", "TimeSiren", "FCBlock"]
@@ -132,6 +133,10 @@ class _TokenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(feats))
 
     def forward(self, x):
+        if current_rows() is not None:
+            # the rank's rows alone would give other statistics than the
+            # global batch's
+            raise NotImplementedError("batch statistics of a batch split over ranks")
         mean = x.mean(dim=(0, 1), keepdim=True)
         var = x.var(dim=(0, 1), keepdim=True, unbiased=False)
         return (x - mean) / torch.sqrt(var + 1e-5) * self.scale + self.bias

@@ -33,6 +33,7 @@ from ..nn_condition import IdentityCondition
 from ..nn_diffusion import IDQLMlp
 from ..env.goal2d import evaluate_policy, normalized_score_fn
 from ..utils.iql import IQL
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from .dql import gumbel_pick
 
@@ -147,6 +148,7 @@ class ConsistencyPolicyPipeline:
         return out
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         self.iql.save(path + ".iql")
         self.edm.save(path + ".edm")

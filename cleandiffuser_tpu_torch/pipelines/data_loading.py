@@ -32,6 +32,7 @@ from typing import Dict
 import numpy as np
 
 from ..dataset.fake import fake_d4rl_dataset, fake_d4rl_qlearning_dataset
+from ..utils.ranks import is_writer
 
 __all__ = ["load_d4rl_dataset", "load_d4rl_qlearning_dataset", "data_dir", "resolve_pusht_demos",
            "D4RL_SCORE_RANGES", "get_normalized_score_fn", "make_eval_env_fns"]
@@ -160,7 +161,7 @@ def resolve_pusht_demos(args, device=None, with_images: bool = False, image_size
                               mpc_kwargs={"exec_noise_prob": noise} if noise > 0.0 else None,
                               batch=None if batch is None else int(batch), device=device,
                               with_images=with_images, image_size=image_size)
-    if path.suffix == ".npz":
+    if path.suffix == ".npz" and is_writer():  # on a mesh every rank made the same demos
         path.parent.mkdir(parents=True, exist_ok=True)
         rb.save_npz(str(path))
     return rb

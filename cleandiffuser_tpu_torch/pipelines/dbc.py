@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..nn_condition import MLPCondition, PearceObsCondition
 from ..nn_diffusion import DiT1d, PearceMlp, PearceTransformer
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from .dp import make_agent, minmax_consts
 from .runner import train_window
@@ -141,6 +142,7 @@ class DBCPipeline:
         return best.mean().item(), (best >= 1.0).float().mean().item()
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         self.agent.save(path)
 

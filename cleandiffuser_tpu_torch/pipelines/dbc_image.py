@@ -28,6 +28,7 @@ import torch
 
 from ..nn_condition.images import CROP_KEY, MultiImageObsCondition
 from ..nn_diffusion import PearceMlp, PearceTransformer
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from .dp import make_agent, minmax_consts
 from .dp_image import image_condition_of, push_windows, rollout_windows
@@ -121,6 +122,7 @@ class DBCImagePipeline:
         return best.mean().item(), (best >= 1.0).float().mean().item()
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         self.agent.save(path)
 

@@ -36,6 +36,7 @@ from ..invdynamic import MlpInvDynamic
 from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
 from .runner import train_window
@@ -145,6 +146,7 @@ class DDPipeline:
         return train_window(self.train_step, dataset, batch_size, n_steps,
                             ("loss", "grad_norm", "invdyn_loss"), self.device)
 
+    @writer_only
     def save(self, path: str):
         self.agent.save(path + ".diffusion")
         self.invdyn.save(path + ".invdyn")

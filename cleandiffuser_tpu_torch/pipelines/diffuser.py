@@ -41,6 +41,7 @@ from ..diffusion import DiscreteDiffusionSDE
 from ..nn_classifier import HalfJannerUNet1d
 from ..nn_diffusion import JannerUNet1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
 from .runner import train_window
@@ -155,6 +156,7 @@ class DiffuserPipeline:
         return train_window(self.train_step, dataset, batch_size, n_steps,
                             ("loss", "grad_norm", "classifier_loss"), self.device)
 
+    @writer_only
     def save(self, path: str):
         self.agent.save(path + ".diffusion")
         self.classifier.save(path + ".classifier")

@@ -39,7 +39,9 @@ from ..diffusion import ContinuousRectifiedFlow
 from ..invdynamic import FancyMlpInvDynamic
 from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
+from ..utils.ranks import batch_draw
 from ..utils.train_state import cosine_decay_schedule
 from .runner import step_window
 
@@ -189,8 +191,8 @@ class DiffuserLitePipeline:
         if i > 0:
             prior[:, -1] = obs[:, -1]
         if x1 is None:
-            x1 = torch.randn(prior.shape, generator=generator or self._generator,
-                             device=self.device)
+            x1 = batch_draw(lambda s: torch.randn(s, generator=generator or self._generator,
+                                                  device=self.device), prior.shape)
         x1 = self._f32(x1)
         traj, _ = self.diffusions[i].sample(
             prior, x1=x1, sample_steps=sampling_steps, use_ema=True,
@@ -289,6 +291,7 @@ class DiffuserLitePipeline:
     # ------------------------------------------------------------------
     # Checkpoints
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         for i, d in enumerate(self.diffusions):
             d.save(path + f".diffusion{i}")

@@ -18,8 +18,9 @@ from typing import Callable, Sequence
 import torch
 from torch.profiler import record_function
 
-from ..dataset.base import DeviceSeqSampler
+from ..dataset.base import DeviceSeqSampler, place_on_mesh
 from ..utils.iql import IQL
+from ..utils.ranks import rows_step
 from .diffuserlite import DiffuserLitePipeline
 from .runner import step_window
 
@@ -58,6 +59,9 @@ class IQLValueMultiHorizonDataset:
     def get_normalizer(self):
         return self.base.get_normalizer()
 
+    def place_on_mesh(self, mesh, axis: str = "dp"):
+        return place_on_mesh(self, mesh, axis)
+
     def sample_batch(self, generator, batch_size: int, horizon_idx: int = 0):
         out = self._samplers[horizon_idx].sample(generator, batch_size)
         return {"obs": {"state": out["obs"]}, "act": out["act"], "rew": out["rew"],
@@ -94,10 +98,13 @@ def kitchen_level_values(batch, level: int, discount: float):
     return rew.mean(dim=1)
 
 
+@rows_step
 def value_train_step(pipe: DiffuserLitePipeline, batches, val_fn: Callable,
                      invdyn_budget_left: bool = True, noise=None) -> dict:
     """`pipe.train_step` with each level conditioned on
-    `val_fn(batch, level)`."""
+    `val_fn(batch, level)`. On a mesh, `batches` (a placed dataset's) are
+    the rank's rows: the step runs data-parallel in their rows, as the
+    levels' strided copies carry no tag (utils/ranks.py `rows_step`)."""
     log = {}
     for i in range(pipe.n_levels):
         obs, act = pipe.level_strided(batches[i], i)

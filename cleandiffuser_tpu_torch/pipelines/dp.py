@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from ..diffusion import ContinuousEDM, DiscreteDiffusionSDE
 from ..nn_condition import IdentityCondition, MLPCondition
 from ..nn_diffusion import ChiTransformer, ChiUNet1d, DiT1d
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
 from .runner import train_window
@@ -184,6 +185,7 @@ class DPPipeline:
         return rews.sum(0).mean().item(), rews.max(0).values.mean().item()
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         self.agent.save(path)
 

@@ -44,6 +44,7 @@ import torch
 
 from ..nn_condition.images import CROP_KEY, MultiImageObsCondition
 from ..nn_diffusion import ChiUNet1d, DiT1d
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from .dp import make_agent, minmax_consts
 from .runner import train_window
@@ -185,6 +186,7 @@ class DPImagePipeline:
         return best.mean().item(), (best >= 1.0).float().mean().item()
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         self.agent.save(path)
 

@@ -50,6 +50,8 @@ from ..nn_condition import IdentityCondition
 from ..nn_diffusion import DQLMlp
 from ..utils.blocks import DQLCritic
 from ..utils.jax_params import load_adam_moments, load_jax_params
+from ..utils.ranks import batch_mean
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     cosine_decay_schedule,
@@ -202,8 +204,8 @@ class DQLPipeline:
                                      noise=None if t_eps is None else (*t_eps, None))
         q1_new, q2_new = self.critic(obs, self._policy_actions(obs, act, noise))
         q_loss = torch.where(torch.as_tensor(coin, device=self.device),
-                             -q1_new.mean() / q2_new.abs().mean().detach(),
-                             -q2_new.mean() / q1_new.abs().mean().detach())
+                             -q1_new.mean() / batch_mean(q2_new.abs()),
+                             -q2_new.mean() / batch_mean(q1_new.abs()))
         # the critic is read, not trained, here: only the actor's params
         # take gradients
         (bc_loss + self.eta * q_loss).backward(inputs=list(params.parameters()))
@@ -242,6 +244,7 @@ class DQLPipeline:
         return categorical_pick(act.reshape(E, num_candidates, -1), logits, gen, gumbel)
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         """Actor (params, EMA, optimizer, step, generator) and critic
         (params, target, optimizer, step) in one file."""

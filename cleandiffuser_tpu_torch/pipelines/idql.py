@@ -35,6 +35,7 @@ from ..diffusion import DiscreteDiffusionSDE
 from ..nn_condition import IdentityCondition
 from ..nn_diffusion import IDQLMlp
 from ..utils.iql import IQL
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     cosine_decay_schedule,
@@ -129,6 +130,7 @@ class IDQLPipeline:
                                 gen, gumbel)
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         a = self.actor
         Path(path).parent.mkdir(parents=True, exist_ok=True)

@@ -42,6 +42,7 @@ from ..nn_condition import MLPCondition
 from ..nn_diffusion import SfBCUNet
 from ..utils.blocks import TwinQ
 from ..utils.jax_params import load_jax_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import ema_update, make_adam, read_jax_pickle
 from .dql import gumbel_pick
@@ -245,6 +246,7 @@ class QGPOPipeline:
         return out
 
     # ------------------------------------------------------------------
+    @writer_only
     def save_q(self, path: str):
         """The Q network and its target (the CEP stage reads the network)."""
         Path(path).parent.mkdir(parents=True, exist_ok=True)

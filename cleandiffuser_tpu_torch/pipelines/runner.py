@@ -8,8 +8,8 @@ cleandiffuser_tpu/pipelines/runner.py).
   from `resume_fn`'s step and realigns an off-grid resume with per-step
   updates first.
 - `planner_window_fn(pipe, dataset, args, mesh)`: the pipeline's
-  `make_train_scan` window when the config's intervals allow it, else None
-  with the reason printed.
+  `make_train_scan` window when the config's intervals allow it (and, on a
+  mesh, the batch divides its dp size), else None with the reason printed.
 - `make_rl_train_scan(pipe, dataset, batch_size, n_steps)`: the window of
   the RL pipelines (DQL, EDP, IDQL): `n_steps` x `pipe.train_step` on device
   gathers, the logs of `pipe.LOG_KEYS` as window means on the device;
@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.logger import Logger
+from ..utils.ranks import is_writer, rows_of
 from ..utils.tensors import default_device
 
 __all__ = ["train_loop", "step_window", "train_window", "planner_window_fn", "make_rl_train_scan",
@@ -62,17 +63,34 @@ def step_window(step_fn: Callable[[torch.Generator], Dict[str, torch.Tensor]], n
 def train_window(step_fn: Callable, dataset, batch_size: int, n_steps: int,
                  keys: Sequence[str], device) -> Callable:
     """`step_window` of `step_fn(dataset.sample_batch(generator,
-    batch_size))`: a step on one batch gathered on the device."""
-    return step_window(lambda g: step_fn(dataset.sample_batch(g, batch_size)), n_steps, keys,
-                       device)
+    batch_size))`: a step on one batch gathered on the device. A dataset
+    placed on a mesh must hand the step its batch tagged as the rank's rows
+    (utils/ranks.py), which is what makes the step data-parallel."""
+    rows = getattr(dataset, "_mesh_rows", None)
+
+    def step(g):
+        batch = dataset.sample_batch(g, batch_size)
+        assert rows is None or rows_of(batch) == rows, (
+            f"{type(dataset).__name__}.sample_batch lost the rank's rows tag on a mesh")
+        return step_fn(batch)
+
+    return step_window(step, n_steps, keys, device)
 
 
 def _mesh_window_ok(args, mesh) -> bool:
-    """The window runs on one device; a mesh waits for the multi-device path."""
+    """Windows run on a mesh too (the placed dataset gathers each rank's
+    rows): the batch must divide the mesh's "dp" size, else the reason is
+    printed and the per-step path runs, as the reference's runner does."""
     if mesh is None:
         return True
-    raise NotImplementedError("a training window on a mesh: the multi-device path is not "
-                              "ported yet (ROADMAP queue 1, item 10)")
+    from ..parallel.mesh import axis_size
+
+    dp = axis_size(mesh, "dp")
+    if args.batch_size % dp != 0:
+        print(f"[runner] WARNING: batch_size={args.batch_size} does not divide dp={dp} — "
+              "falling back to per-step dispatch", flush=True)
+        return False
+    return True
 
 
 def _on_log_grid(args, steps_key: str) -> bool:
@@ -93,11 +111,11 @@ def planner_window_fn(pipe, dataset, args, mesh,
     """The pipeline's `make_train_scan` window of `log_interval` steps, or
     None (per-step path, with the reason printed) when the pipeline has none
     or the save interval or the step count is off the log grid."""
-    if not hasattr(pipe, "make_train_scan") or not _mesh_window_ok(args, mesh):
+    if not hasattr(pipe, "make_train_scan"):
         print(f"[runner] WARNING: {type(pipe).__name__} has no make_train_scan — "
               "falling back to per-step dispatch", flush=True)
         return None
-    if not _on_log_grid(args, steps_key):
+    if not _mesh_window_ok(args, mesh) or not _on_log_grid(args, steps_key):
         return None
     return pipe.make_train_scan(dataset, args.batch_size, args.log_interval)
 
@@ -114,9 +132,9 @@ def make_rl_train_scan(pipe, dataset, batch_size: int, n_steps: int) -> Callable
 def rl_window_fn(pipe, dataset, args, mesh):
     """`make_rl_train_scan` of `log_interval` steps for an RL CLI, or None
     (per-step path, with the reason printed) when the save interval or
-    `gradient_steps` is off the log grid."""
-    _mesh_window_ok(args, mesh)
-    if not _on_log_grid(args, "gradient_steps"):
+    `gradient_steps` is off the log grid, or the batch does not divide the
+    mesh's dp size."""
+    if not _mesh_window_ok(args, mesh) or not _on_log_grid(args, "gradient_steps"):
         return None
     return make_rl_train_scan(pipe, dataset, args.batch_size, args.log_interval)
 
@@ -150,7 +168,8 @@ def train_loop(
     Logs window means with the window's steps/s and the step under
     `step_key`, saves `save_fn(str(step))` and `save_fn("latest")` every
     `save_interval` steps, then calls `eval_fn(step)` every `eval_interval`
-    steps (0: never), and resumes from `resume_fn()`'s step. With `log_tail`
+    steps (0: never), and resumes from `resume_fn()`'s step (on a mesh only
+    rank 0 calls `save_fn`). With `log_tail`
     the per-step path also logs the last, shorter window of a step count
     off the log grid (the imitation CLIs log it; the others do not). With `window_fn` (a `make_train_scan` window of
     `log_interval` steps) and a schedule on the window grid, it runs window
@@ -160,6 +179,8 @@ def train_loop(
     device; the CUDA device when None).
     """
     device = default_device(device)
+    if not is_writer():  # on a mesh rank 0 saves; every rank reads at resume
+        save_fn = lambda tag: None  # noqa: E731
     start_step = 0
     if resume_fn is not None:
         start_step = int(resume_fn())

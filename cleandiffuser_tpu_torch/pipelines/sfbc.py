@@ -38,6 +38,7 @@ from ..nn_diffusion import SfBCUNet
 from ..utils.blocks import Mlp
 from ..utils.jax_params import load_jax_params
 from ..utils.normalizers import GaussianNormalizer
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import make_adam, read_jax_pickle
 from .runner import train_window
@@ -183,6 +184,7 @@ class SfBCPipeline:
         return out
 
     # ------------------------------------------------------------------
+    @writer_only
     def save(self, path: str):
         """The actor's train state to `path.actor`, the critic's params to
         `path.critic`."""

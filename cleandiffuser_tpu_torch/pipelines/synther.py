@@ -43,6 +43,8 @@ from ..diffusion import DiscreteDiffusionSDE
 from ..nn_diffusion import IDQLMlp
 from ..utils.blocks import LayerNorm, dense
 from ..utils.jax_params import load_adam_moments, load_jax_params
+from ..utils.ranks import batch_draw, batch_mean
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     cosine_decay_schedule,
@@ -132,7 +134,8 @@ class TD3BC:
         next_obs = self._f32(batch["next_obs"]["state"])
         rew, tml = self._f32(batch["rew"]), self._f32(batch["tml"])
         if noise is None:
-            noise = torch.randn(act.shape, generator=self.generator, device=self.device)
+            noise = batch_draw(lambda s: torch.randn(s, generator=self.generator,
+                                                     device=self.device), act.shape)
         with torch.no_grad():
             pn = torch.clamp(self._f32(noise) * self.policy_noise, -self.noise_clip,
                              self.noise_clip)
@@ -147,7 +150,7 @@ class TD3BC:
         with torch.set_grad_enabled(update_actor):
             pred_act = self.actor(obs)
             q = self.critic(obs, pred_act)
-            lmbda = self.alpha / q.abs().mean().detach()
+            lmbda = self.alpha / batch_mean(q.abs())
             policy_loss = -lmbda * q.mean()
             bc_loss = ((pred_act - act) ** 2).mean()
         if update_actor:
@@ -175,6 +178,7 @@ class TD3BC:
     # ------------------------------------------------------------------
     _NETS = ("actor", "actor_target", "critic", "critic_target")
 
+    @writer_only
     def save(self, path: str):
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         torch.save({**{n: getattr(self, n).state_dict() for n in self._NETS},

@@ -62,6 +62,7 @@ from ..nn_condition import IdentityCondition, MLPCondition
 from ..nn_diffusion import DiT1d, DVInvMlp, JannerUNet1d
 from ..utils.blocks import DVHorizonCritic, IDQLVNet
 from ..utils.jax_params import load_adam_moments, load_jax_params
+from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
     cosine_decay_schedule,
@@ -416,6 +417,7 @@ class VeteranPipeline:
                                "optimizer": self.invdyn.optimizer.state_dict()}
         return state
 
+    @writer_only
     def save(self, path: str):
         """Every component in one `torch.save` file (the reference keeps
         them in one pickle)."""

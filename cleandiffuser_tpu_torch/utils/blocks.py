@@ -46,6 +46,7 @@ import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+from .ranks import batch_draw
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -538,7 +539,8 @@ def dropout(x, rate: float, train: bool, generator: Optional[torch.Generator] = 
     by 1 / (1 - rate); the identity otherwise."""
     if not train or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = batch_draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                      x.shape) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -30,7 +30,8 @@ import yaml
 __all__ = ["Config", "load_config", "parse_cli", "resolve_config_cli", "RUNTIME_KEYS"]
 
 # read by `setup_mesh` with a default: overrides of them add them silently
-RUNTIME_KEYS = frozenset({"bf16_sampling", "bf16_training", "n_devices", "platform"})
+RUNTIME_KEYS = frozenset({"bf16_sampling", "bf16_training", "n_devices", "mesh_shape",
+                          "platform"})
 
 
 class Config:
@@ -72,6 +73,15 @@ class Config:
         return {
             k: v.to_dict() if isinstance(v, Config) else v for k, v in self._data.items()
         }
+
+    def merge(self, other: Union["Config", Dict]):
+        """Merge `other`'s keys in place: a dict or Config value into a Config
+        already there key by key, recursively; any other value replaces."""
+        for k, v in other.items():
+            if isinstance(v, (Config, dict)) and isinstance(self._data.get(k), Config):
+                self._data[k].merge(v)
+            else:
+                self.__setattr__(k, v.to_dict() if isinstance(v, Config) else v)
 
     def __repr__(self):
         return f"Config({self.to_dict()})"

@@ -26,6 +26,7 @@ import torch
 
 from .blocks import TwinQ, V
 from .jax_params import load_adam_moments, load_jax_params
+from .ranks import writer_only
 from .tensors import default_device
 from .train_state import TrainOptimizer, ema_update, jax_adam_state, make_adam
 
@@ -116,6 +117,7 @@ class IQL:
                               adam["count"])
             opt.set_count(adam["schedule_count"])
 
+    @writer_only
     def save(self, path: str):
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         torch.save(self.state_dict(), path)

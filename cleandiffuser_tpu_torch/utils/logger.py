@@ -6,7 +6,9 @@
     logger.finish()
 
 `config.json` holds the run's config; each category appends one JSON object
-per `log` call to `<category>.jsonl`, with the wall-clock `_time`.
+per `log` call to `<category>.jsonl`, with the wall-clock `_time`. On a
+mesh (one process per rank) only rank 0 writes: on the other ranks the
+logger makes no directory, file, video path or wandb run.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import json
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+from .ranks import is_writer
 
 __all__ = ["Timer", "Logger"]
 
@@ -40,9 +44,12 @@ class Logger:
                  enable_wandb: bool = False, project: str = "cleandiffuser_tpu",
                  name: Optional[str] = None):
         self.log_dir = Path(log_dir)
-        self.log_dir.mkdir(parents=True, exist_ok=True)
         self._files = {}
         self.wandb_run = None
+        self.writer = is_writer()
+        if not self.writer:
+            return
+        self.log_dir.mkdir(parents=True, exist_ok=True)
         if config is not None:
             with open(self.log_dir / "config.json", "w") as f:
                 json.dump(_jsonable(config), f, indent=2)
@@ -58,6 +65,8 @@ class Logger:
                 print("[Logger] wandb not available; jsonl only")
 
     def log(self, metrics: Dict[str, Any], category: str = "train"):
+        if not self.writer:
+            return
         if category not in self._files:
             self._files[category] = open(self.log_dir / f"{category}.jsonl", "a")
         f = self._files[category]
@@ -67,7 +76,16 @@ class Logger:
             self.wandb_run.log({f"{category}/{k}": v for k, v in metrics.items()})
 
     def save_agent(self, agent, identifier="latest"):
-        agent.save(str(self.log_dir / f"ckpt_{identifier}"))
+        if self.writer:
+            agent.save(str(self.log_dir / f"ckpt_{identifier}"))
+
+    def video_init(self, env, enable: bool = True, video_id: str = "0"):
+        """Point a video-recording env wrapper (env/wrapper.py) at
+        `video_<id>.mp4` in the log directory, or switch it off; an env
+        without a recorder is left as it is. Off on every rank but 0."""
+        if hasattr(env, "video_recorder"):
+            env.file_path = (str(self.log_dir / f"video_{video_id}.mp4")
+                             if enable and self.writer else None)
 
     def finish(self, agent=None):
         if agent is not None:

@@ -29,7 +29,11 @@ the optimizer is a `torch.optim` one, and every step is a handful of
 - `save_state` / `load_state`: the port's own checkpoint (params, EMA,
   optimizer moments, schedule count, step, generator state; the dict of
   `train_state_dict`, which the RL pipelines store beside their critics');
-  a resumed run continues exactly.
+  a resumed run continues exactly. On a mesh rank 0 writes it.
+- On a mesh (parallel/) `TrainOptimizer.grad_group` makes `step()` average
+  the gradients over the ranks first (one all-reduce); FSDP-sharded
+  parameters (DTensors) arrive averaged by FSDP, sit in a param group of
+  their own and count whole in the global norm.
 - `load_jax_checkpoint`: reads a pickle written by the JAX `save_state`
   (an engine's or a classifier's: SfBC's `.actor`, QGPO's
   `clf_ckpt_latest`, SynthER's `diff_ckpt_*`) without JAX, flax, optax or
@@ -48,7 +52,10 @@ from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+
+from .ranks import is_writer
 
 __all__ = [
     "TrainOptimizer",
@@ -84,15 +91,36 @@ def cosine_decay_schedule(lr: float, steps: int) -> Callable[[int], float]:
     return schedule
 
 
+def _is_sharded(t) -> bool:
+    """Whether `t` is a DTensor: a parameter (or its gradient) sharded by
+    FSDP (parallel/dp.py)."""
+    return type(t).__name__ == "DTensor"
+
+
 def _norms(tensors) -> list:
     """Each tensor's 2-norm. On the CPU as the root of the pairwise `sum`
     of squares: the CPU norm kernel's error grows with the length (3e-5
     relative at 2.4 M elements, an image encoder's 3x3 conv at 512
     channels), where the sum's stays near float32 rounding; on the card
-    one foreach launch."""
+    one foreach launch. A sharded gradient's norm is its whole tensor's."""
+    if any(_is_sharded(t) for t in tensors):
+        return [torch.linalg.vector_norm(t).full_tensor() if _is_sharded(t) else _norms([t])[0]
+                for t in tensors]
     if tensors and tensors[0].is_cuda:
         return torch._foreach_norm(tensors)
     return [t.square().sum().sqrt() for t in tensors]
+
+
+def _mean_over_ranks(grads, group) -> None:
+    """Each gradient replaced in place by its mean over the ranks of
+    `group`: one all-reduce of the gradients laid end to end."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
 
 
 class TrainOptimizer:
@@ -106,9 +134,19 @@ class TrainOptimizer:
                  decoupled: bool = True):
         self.params = list(params)
         self.grad_clip_norm = grad_clip_norm
+        # the process group whose ranks' gradients `step` averages first
+        # (parallel/: a pipeline or engine placed on a mesh); None: this
+        # process's own
+        self.grad_group = None
         opt_cls = torch.optim.AdamW if decoupled else torch.optim.Adam
-        # a schedule runs on base lr 1, so the rate is the schedule's value
-        self.optimizer = opt_cls(self.params, lr=1.0 if callable(lr) else lr,
+        # a schedule runs on base lr 1, so the rate is the schedule's value;
+        # sharded (FSDP, DTensor) and plain params in groups of their own,
+        # as torch.optim's foreach steps take one kind per call
+        sharded = [p for p in self.params if _is_sharded(p)]
+        plain = [p for p in self.params if not _is_sharded(p)]
+        groups = ([{"params": sharded}, {"params": plain}] if sharded and plain
+                  else self.params)
+        self.optimizer = opt_cls(groups, lr=1.0 if callable(lr) else lr,
                                  betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
         self.scheduler = (torch.optim.lr_scheduler.LambdaLR(self.optimizer, lr)
                           if callable(lr) else None)
@@ -123,12 +161,17 @@ class TrainOptimizer:
             if p.grad is None:  # unused this step: optax sees a zero gradient
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if self.grad_group is not None:
+            _mean_over_ranks([g for g in grads if not _is_sharded(g)], self.grad_group)
         norm = torch.linalg.vector_norm(torch.stack(_norms(grads)))
         if self.grad_clip_norm is not None:
             # optax clip_by_global_norm: g if norm < max else g * max / norm
             scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                                 self.grad_clip_norm / norm)
-            torch._foreach_mul_(grads, scale)
+            for kind in (True, False):
+                same = [g for g in grads if _is_sharded(g) == kind]
+                if same:
+                    torch._foreach_mul_(same, scale)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -168,9 +211,13 @@ def make_adam(params: Iterable[nn.Parameter], lr: Union[float, Callable]) -> Tra
 def ema_update(ema: nn.Module, params: nn.Module, rate: float) -> None:
     """ema <- ema * rate + params * (1 - rate), in place, over the
     parameters (buffers are frozen and equal in both)."""
-    e = list(ema.parameters())
-    torch._foreach_mul_(e, rate)
-    torch._foreach_add_(e, torch._foreach_mul(list(params.parameters()), 1.0 - rate))
+    pairs = list(zip(ema.parameters(), params.parameters()))
+    for kind in (False, True):  # plain, then FSDP-sharded (one kind per foreach call)
+        e = [a for a, _ in pairs if _is_sharded(a) == kind]
+        if e:
+            torch._foreach_mul_(e, rate)
+            torch._foreach_add_(e, torch._foreach_mul(
+                [b for a, b in pairs if _is_sharded(a) == kind], 1.0 - rate))
 
 
 def ema_gate(step: int, interval: int, start: int = 1000) -> bool:
@@ -190,6 +237,9 @@ def train_state_dict(params: nn.Module, ema_params: nn.Module, optimizer: TrainO
                      step: int, generator: Optional[torch.Generator] = None) -> dict:
     """Params, EMA, optimizer state (moments and schedule count), the step
     and the generator's state, as one dict for `torch.save`."""
+    if any(_is_sharded(p) for p in params.parameters()):
+        # each rank holds its shards: rank 0's file would lose the others'
+        raise NotImplementedError("a checkpoint of FSDP-sharded params (parallel/dp.py)")
     return {"params": params.state_dict(), "ema_params": ema_params.state_dict(),
             "optimizer": optimizer.state_dict(), "step": step,
             "generator": None if generator is None else generator.get_state()}
@@ -216,7 +266,10 @@ def load_train_state_dict(state: dict, params: nn.Module, ema_params: nn.Module,
 
 def save_state(path, params: nn.Module, ema_params: nn.Module, optimizer: TrainOptimizer,
                step: int, generator: Optional[torch.Generator] = None) -> None:
-    """Write `train_state_dict` to one file."""
+    """Write `train_state_dict` to one file (on a mesh, rank 0 writes it;
+    every rank reads it)."""
+    if not is_writer():
+        return
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(train_state_dict(params, ema_params, optimizer, step, generator), path)

@@ -333,7 +333,8 @@ def test_block_reference_matches_jax(route):
 
 def test_setup_mesh_sets_the_class_flags():
     """The config keys reach every engine through the class; a key left out
-    leaves the flag as it was; more than one device raises."""
+    leaves the flag as it was; more than one device raises without a process
+    group of that size."""
     assert DiffusionModel.bf16_sampling is False and DiffusionModel.bf16_training is False
     assert setup_mesh({"n_devices": 1, "bf16_sampling": True}) is None
     eng = DiscreteDiffusionSDE(DiT1d(3, 16, 32, 2, 1), device="cpu")
@@ -342,7 +343,7 @@ def test_setup_mesh_sets_the_class_flags():
     assert eng.bf16_sampling is True and eng.bf16_training is True
     DiffusionModel.bf16_sampling = DiffusionModel.bf16_training = False
     assert eng.bf16_sampling is False and eng.bf16_training is False
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         setup_mesh({"n_devices": 2})
 
 

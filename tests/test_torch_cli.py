@@ -211,7 +211,8 @@ def test_cli_raises_without_a_cuda_device(family, tmp_path, monkeypatch):
 
 
 def test_cli_setup_keys():
-    """`platform` picks the CLIs' device; the port has no mesh yet."""
+    """`platform` picks the CLIs' device; a mesh is a DeviceMesh
+    (tests/test_torch_parallel*.py run it)."""
     from cleandiffuser_tpu_torch.parallel import device_of, place_pipeline, setup_mesh
     from cleandiffuser_tpu_torch.utils.tensors import set_seed
 
@@ -220,7 +221,7 @@ def test_cli_setup_keys():
         setup_mesh(_config("dd", "platform=tpu"))
     assert setup_mesh(_config("dd")) is None
     place_pipeline(object(), None)  # one device: nothing to place
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         place_pipeline(object(), mesh=object())
     g = set_seed(5)
     draws = (np.random.rand(), torch.rand(2), torch.rand(2, generator=g))

@@ -8,7 +8,8 @@ steps taken one by one through `train_step(dataset.sample_batch(generator,
 critic and its target, V, within rtol 2e-4 / atol 2e-5, the JAX test's
 bounds), with the engine's step at 4; the window's logs are the steps'
 means. `rl_window_fn` returns the window on the log grid, None off it (with
-the reason printed), and raises for a mesh (one device so far).
+the reason printed), and raises TypeError for a mesh that is not a
+DeviceMesh (tests/test_torch_parallel_pipelines.py runs the window on one).
 
 With tests/test_torch_dql.py and test_torch_idql.py (the port's
 `train_step` equals the JAX package's) and the JAX package's own
@@ -94,5 +95,5 @@ def test_rl_window_fn_alignment_gates(dataset, capsys):
     assert "gradient_steps=105 is not a multiple" in capsys.readouterr().out
     window = rl_window_fn(pipe, dataset, _args(), mesh=None)
     assert callable(window) and capsys.readouterr().out == ""
-    with pytest.raises(NotImplementedError):  # no mesh on one device
+    with pytest.raises(TypeError):  # a mesh is a DeviceMesh
         rl_window_fn(pipe, dataset, _args(), mesh=object())

@@ -104,7 +104,7 @@ def test_planner_window_fn_alignment_gates(dataset, capsys):
     assert planner_window_fn(pipe, dataset, _args(diffusion_gradient_steps=105), None) is None
     assert "diffusion_gradient_steps=105" in capsys.readouterr().out
     assert callable(planner_window_fn(pipe, dataset, _args(), mesh=None))
-    with pytest.raises(NotImplementedError):  # no mesh on one device
+    with pytest.raises(TypeError):  # a mesh is a DeviceMesh
         planner_window_fn(pipe, dataset, _args(), mesh=object())
     assert planner_window_fn(object(), dataset, _args(), mesh=None) is None
 
