@@ -400,14 +400,42 @@ Phases, each of which raises on failure (exit code != 0):
                weights inside FSDP's forward), then the graft entry points
                `dryrun_multichip(1)` and `entry()` (plain blocks, no
                kernel); prints its seconds.
+40. Picard    - DD's plan (the shipped `configs/dd/mujoco` at full width,
+               seeded weights, 50 envs) through the engines'
+               parallel-in-time DDIM sampler (`build_parallel_sample_fn`,
+               CFG mix: each sweep one forward of 2 N B = 2,000
+               trajectories through K1), in f32 and with `bf16_sampling`
+               (K1's BF16 route): 2 K launches of the precision's route per
+               plan and 0 of the other (40 at K = 20, 16 at K = 8); K = N =
+               20 equal to sequential DDIM on the same xT within 1e-3 of
+               scale, its last sweep's residual below 1e-3 (bf16: 5e-2 of
+               scale each); K = 8's gap read; both through K1 against the
+               plain block within 1e-3 (bf16 5e-2); K1 at the sweep's shape
+               (2000, 32, 320), each route against its plain version; the
+               latency (median of 5 after a warm-up) and device busy time of
+               Picard at K = 20, 8, 6 and of sequential DDIM at 50 envs and
+               at 1 (network batch 40), f32 and bf16; prints its seconds.
+41. SAC collector (in the rl_veteran worker) - online SAC's `DeviceCollector`
+               (utils/sac.py) at the locomotion tool's settings (a 2 M-row
+               ring on the card, 128 envs, K = 128 updates of batch 256 an
+               iteration) on seeded synthetic transitions of HalfCheetah's
+               dims with masked autoreset rows: 8 iterations without
+               updates, 20 with; finite losses, alpha moved, the ring's size
+               and ptr equal to the valid rows written, the export loaded
+               back bit for bit through the port's data loading from a
+               temporary `$CLEANDIFFUSER_DATA`, the first updating
+               iteration on the card against a CPU copy with the same draws
+               within 1e-4 of scale; ms per iteration, device busy and
+               idle, the env steps/s it allows; no kernel launched.
 
 The CLI phases generate each task's synthetic data once (`cache_cli_data`).
 The script prints its total seconds before the kernels' line.
 
-The host-bound phases that launch no kernel (15 and 19-33: the RL,
+The host-bound phases that launch no kernel (15, 19-33 and 41: the RL,
 Veteran, DiffuserLite, SfBC, QGPO, SynthER, consistency-policy and
-imitation CLIs) run in three worker processes of this script on the same
-card (`python3 chip_smoke.py --worker <group> ...`, WORKER_GROUPS), started
+imitation CLIs, and the SAC collector) run in three worker processes of
+this script on the same card (`python3 chip_smoke.py --worker <group>
+...`, WORKER_GROUPS), started
 after phase 11, when every kernel's timing is done, and run beside phases
 12-14, 17, 18 and 34 (the Goal2D DD gate and the DD, Diffuser and
 AdaptDiffuser CLIs) here: each CLI phase is one
@@ -427,7 +455,9 @@ object with one record per kernel: its launches in the planning requests
 (`launches`), in the training steps (`train_launches`) and in the CLI
 phases by CLI and part (`cli_launches`: the Veteran, DiffuserLite, SfBC,
 QGPO, SynthER, consistency-policy, PushT, imitation and visual imitation
-phases' read 0; "mesh" the launches of phase 39's meshed plan and steps),
+phases' read 0; "mesh" the launches of phase 39's meshed plan and steps;
+"dd_picard" and "dd_picard_bf16" those of phase 40's two checked Picard
+plans, K = 20 and 8, on K1's f32 and BF16 routes),
 error and times
 at the plan's shape, and its bound there: the larger of its bytes over 3.35
 TB/s and its operations over the H100 SXM's peak for their type. K1 and K3
@@ -1513,10 +1543,11 @@ def plan_gap(traj, ref) -> tuple:
 
 def use_kernels(pipe, on: bool) -> int:
     """Switch every fused block of a planner (the DiT blocks, the U-Net's
-    residual blocks, in params and EMA) to its kernel or to its plain
+    residual blocks, in params, EMA and the engine's bf16 copies, which
+    keep the switch they were made with) to its kernel or to its plain
     version; returns how many blocks were switched."""
-    blocks = [m for net in (pipe.agent.params, pipe.agent.ema_params) for m in net.modules()
-              if hasattr(m, "use_kernel")]
+    nets = (pipe.agent.params, pipe.agent.ema_params, *pipe.agent._bf16_copies.values())
+    blocks = [m for net in nets for m in net.modules() if hasattr(m, "use_kernel")]
     for m in blocks:
         m.use_kernel = on
     return len(blocks)
@@ -4367,6 +4398,330 @@ def check_mesh(dev) -> dict:
     return launches
 
 
+PICARD_ITERS = (20, 8, 6)  # sweeps: N (exact), the reference's default, fewer
+PICARD_CHECKED = (20, 8)  # the plans held to sequential DDIM and to the plain block
+PICARD_TOL = 1e-3  # of the plan's scale: K = N against sequential DDIM, K1 against plain
+PICARD_RESID = 1e-3  # the last sweep's max |X_new - X| at K = N
+PICARD_ENVS = (50, 1)  # the DD plan's envs (network batch 2 N B = 2,000) and one env (40)
+PICARD_REPS = 5
+
+
+def check_picard(dev) -> dict:
+    """Phase 40: DD's plan (the shipped `configs/dd/mujoco` at full width,
+    seeded weights) through the engine's parallel-in-time DDIM sampler
+    (`build_parallel_sample_fn`, CFG mix), each sweep one forward of all 2 N
+    B rows through K1. In f32 and with `bf16_sampling` (K1's BF16 route):
+    the counters read 2 K launches of the precision's route per plan and 0
+    of the other; K = N equals sequential DDIM on the same xT within
+    PICARD_TOL of the plan's scale (bf16: BF16_ATOL) with the last sweep's
+    residual below PICARD_RESID (bf16: BF16_ATOL of the scale); K = 8 read;
+    both through K1 against the plain block within PICARD_TOL (bf16:
+    BF16_ATOL). Then K1 at the sweep's shape (2000, 32, 320), each route
+    against the plain version, and the latency (median of PICARD_REPS after
+    a warm-up) and device busy time (one plan under the profiler) of
+    Picard at each of PICARD_ITERS and of sequential DDIM, at each of
+    PICARD_ENVS, f32 and bf16. Returns the checked plans' launches by route."""
+    phase("Picard: DD's plan through the parallel-in-time DDIM sampler, K1 on every sweep")
+    t_phase = time.perf_counter()
+    args = load_config(ROOT / "configs/dd" / "mujoco", "mujoco")
+    N, H, O, w, temp = (args.sampling_steps, args.task.horizon, args.task.obs_dim,
+                        args.task.w_cfg, args.temperature)
+    rng = np.random.default_rng(SEED + 40)
+    pipe = build_pipeline(args, dev, True, dd_weights(args, rng))
+    agent, params = pipe.agent, pipe.agent.ema_params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+
+    def inputs(E):
+        obs = torch.from_numpy(rng.standard_normal((E, O)).astype(np.float32)).to(dev)
+        prior = torch.zeros((E, H, O), device=dev)
+        prior[:, 0] = obs
+        cond = torch.full((E, 1), args.task.target_return, device=dev)
+        return prior, cond, torch.randn(prior.shape, generator=gen, device=dev)
+
+    seq_fn = agent.build_sample_fn(solver="ddim", sample_steps=N, cfg_mode="mix")
+    plans = {"ddim": lambda p, c, x: seq_fn(params, None, p, c, w_cfg=w, temperature=temp,
+                                            noise=(x, None))}
+    for K in PICARD_ITERS:
+        fn = agent.build_parallel_sample_fn(sample_steps=N, picard_iters=K, cfg_mode="mix")
+        plans[f"picard{K}"] = (lambda f: lambda p, c, x: f(params, None, p, c, None, w, temp,
+                                                            x))(fn)
+    launches = {"dit_block": 0, "dit_block_bf16": 0}
+    summary = {}
+    try:
+        with torch.no_grad():
+            for prec in ("f32", "bf16"):
+                agent.bf16_sampling = prec == "bf16"
+                route, other = ((fused_dit_block, fused_dit_block_bf16) if prec == "f32" else
+                                (fused_dit_block_bf16, fused_dit_block))
+                tol = PICARD_TOL if prec == "f32" else BF16_ATOL
+                prior, cond, xT = inputs(PICARD_ENVS[0])
+                seq, _ = plans["ddim"](prior, cond, xT)
+                plan = {}
+                for K in PICARD_CHECKED:
+                    reset_counts()
+                    x, log = plans[f"picard{K}"](prior, cond, xT)
+                    torch.cuda.synchronize()
+                    counts = kernel_counts()
+                    n = counts.pop(route.__name__)
+                    expected = K * args.depth  # one doubled forward per sweep
+                    if n != expected or any(counts.values()):
+                        raise AssertionError(f"{prec} Picard K={K}: {route.__name__} launched "
+                                             f"{n} times (expected {expected}), others {counts}")
+                    launches[route.__name__.removeprefix("fused_")] += n
+                    gap, mean, scale = plan_gap(x, seq)
+                    resid = float(log["picard_residual"])
+                    print(f"{prec} Picard K={K} at {PICARD_ENVS[0]} envs (network batch "
+                          f"{2 * N * PICARD_ENVS[0]}): {route.__name__} launches {n} (expected "
+                          f"{expected}), {other.__name__} 0; against sequential DDIM on the "
+                          f"same xT max |diff| / scale {gap:.3e} (mean {mean:.3e}, scale "
+                          f"{scale:.3f}); last sweep's residual {resid:.3e}", flush=True)
+                    if not (torch.isfinite(x).all() and torch.equal(x[:, 0], prior[:, 0])):
+                        raise AssertionError("Picard plan not finite or its first state not "
+                                             "the observation")
+                    if K == N and not (gap <= tol and resid <= (
+                            PICARD_RESID if prec == "f32" else tol * scale)):
+                        raise AssertionError(f"{prec} Picard at K = N is not sequential DDIM "
+                                             f"(limit {tol} of scale, residual {PICARD_RESID})")
+                    plan[K] = x
+                    summary[f"{prec}_K{K}_gap_to_ddim"] = gap
+                    summary[f"{prec}_K{K}_residual"] = resid
+                use_kernels(pipe, False)
+                reset_counts()
+                for K in PICARD_CHECKED:
+                    x, _ = plans[f"picard{K}"](prior, cond, xT)
+                    gap, _, scale = plan_gap(plan[K], x)
+                    print(f"{prec} Picard K={K} through K1 against the plain block: max |diff| / "
+                          f"scale {gap:.3e} (scale {scale:.3f}; limit {tol})", flush=True)
+                    if not gap <= tol:
+                        raise AssertionError(f"{prec} Picard through K1 disagrees with the "
+                                             "plain block")
+                no_kernel_launched("the plain-block Picard plans")
+                use_kernels(pipe, True)
+            time_picard_block(dev, 2 * N * PICARD_ENVS[0])
+            for prec in ("f32", "bf16"):
+                agent.bf16_sampling = prec == "bf16"
+                for E in PICARD_ENVS:
+                    prior, cond, xT = inputs(E)
+                    row = []
+                    for name, fn in plans.items():
+                        call = lambda: fn(prior, cond, xT)
+                        call()
+                        lat = []
+                        for _ in range(PICARD_REPS):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            call()
+                            torch.cuda.synchronize()
+                            lat.append((time.perf_counter() - t0) * 1e3)
+                        med = statistics.median(lat)
+                        prof = profile_request(call, med, ())
+                        summary[f"{prec}_B{E}_{name}_ms"] = med
+                        summary[f"{prec}_B{E}_{name}_busy_ms"] = prof["device_busy_ms"]
+                        idle = prof["idle_share"]
+                        row.append(f"{name} {med:.3f} ms (runs {[round(v, 3) for v in lat]}), "
+                                   f"busy {prof['device_busy_ms']:.3f} ms, idle "
+                                   f"{'not measured' if idle is None else f'{idle:.1%}'}")
+                    print(f"{prec} plans at {E} envs (network batch of a sweep {2 * N * E}, of "
+                          f"a DDIM step {2 * E}): " + "; ".join(row), flush=True)
+    finally:
+        agent.bf16_sampling = False
+    print("picard: " + json.dumps(summary), flush=True)
+    print(f"phase 40: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def time_picard_block(dev, B: int):
+    """K1 at a Picard sweep's shape (B = 2 N E trajectories of (32, 320)):
+    the f32 route against the plain version, the BF16 route (f32 x and mod,
+    as the bf16 plan calls it) against the plain bf16 version, in turns,
+    each with its bound."""
+    H, D, NH = 32, 320, 10
+    rng = np.random.default_rng(SEED + 400)
+    x, mod, ws = block_inputs(rng, dev, B, H, D)
+    wb = [w.to(torch.bfloat16) for w in ws]
+    out = fused_dit_block_bf16(x, mod, *wb, n_heads=NH).float()
+    ref = dit_block_reference(x, mod, *wb, n_heads=NH).float()
+    torch.testing.assert_close(out, ref, atol=BF16_ATOL, rtol=BF16_RTOL)
+    bf16_err = (out - ref).abs().max().item()
+    out = fused_dit_block(x, mod, *ws, n_heads=NH)
+    ref = dit_block_reference(x, mod, *ws, n_heads=NH)
+    torch.testing.assert_close(out, ref, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+    f32_err = (out - ref).abs().max().item()
+    del out, ref
+    med, times = time_in_turns(
+        {"plain": lambda: dit_block_reference(x, mod, *ws, n_heads=NH),
+         "f32": lambda: fused_dit_block(x, mod, *ws, n_heads=NH),
+         "bf16": lambda: fused_dit_block_bf16(x, mod, *wb, n_heads=NH),
+         "plain_bf16": lambda: dit_block_reference(x, mod, *wb, n_heads=NH)}, 3)
+    gf = dit_gflop(B, H, D)
+    b32 = bound(gf / TF32X3_TFLOPS, dit_gbytes(B, H, D))
+    b16 = bound(dit_bf16_ops_ms(B, H, D), dit_gbytes(B, H, D, w_bytes=2))
+    print(f"dit_block at the Picard sweep's shape (B={B}, H={H}, D={D}): f32 route "
+          f"{med['f32']:.4f} ms against plain {med['plain']:.4f} ({gf:.1f} GFLOP, "
+          f"{gf / med['f32']:.2f} TFLOP/s; bound {b32['bound_ms']:.4f} ms by {b32['bound_by']}, "
+          f"{b32['bound_ms'] / med['f32']:.1%} of it; max_abs_err {f32_err:.3e}); BF16 route "
+          f"{med['bf16']:.4f} ms against plain bf16 {med['plain_bf16']:.4f} "
+          f"({gf / med['bf16']:.2f} TFLOP/s; bound {b16['bound_ms']:.4f} ms by "
+          f"{b16['bound_by']}, {b16['bound_ms'] / med['bf16']:.1%} of it; max_abs_err "
+          f"{bf16_err:.3e}; {dit_bf16_plan_line(B, H, D, NH, dev)}) (runs {times})", flush=True)
+
+
+SAC_OBS, SAC_ACT = 17, 6  # HalfCheetah-v5's dims
+# the locomotion tool's settings (cli/make_locomotion_dataset.py train_sac):
+# a 2 M-row ring, 128 envs, K = 128 updates of batch 256 per iteration
+SAC_CAPACITY, SAC_ENVS, SAC_BATCH = 2_000_000, 128, 256
+SAC_WARMUP_ITERS, SAC_ITERS = 8, 20
+SAC_EPISODE = 7  # iterations between an env's truncations in the synthetic stream
+SAC_TOL = 1e-4  # one iteration on the card against the CPU, of each value's scale
+
+
+def sac_rows(rng, obs, act, it: int, prev_done):
+    """One iteration's rows at HalfCheetah's dims: each env truncates every
+    SAC_EPISODE iterations (term stays 0, as HalfCheetah's), and the row
+    after a done step is the autoreset's, masked out."""
+    n = obs.shape[0]
+    nobs = rng.standard_normal((n, SAC_OBS)).astype(np.float32)
+    done = (it + np.arange(n)) % SAC_EPISODE == SAC_EPISODE - 1
+    new = {"obs": obs, "act": act.astype(np.float32),
+           "rew": rng.standard_normal(n).astype(np.float32), "next_obs": nobs,
+           "term": np.zeros(n, np.float32), "done": done.astype(np.float32),
+           "env": np.arange(n, dtype=np.int32), "mask": (~prev_done).astype(np.float32)}
+    return new, nobs, done
+
+
+def check_sac_collector(dev) -> dict:
+    """Phase 41: online SAC's `DeviceCollector` (utils/sac.py) on the card
+    at the locomotion tool's settings, fed seeded synthetic transitions of
+    HalfCheetah's dims (the card's machine has no MuJoCo envs): a warm-up
+    without updates, then SAC_ITERS iterations of K = 128 updates. Gates:
+    finite losses, alpha moved, the ring's size and ptr equal to the valid
+    rows written, the export through the port's data loading from a
+    temporary `$CLEANDIFFUSER_DATA` (bit for bit, and into the MuJoCo
+    datasets), one iteration on the card against the CPU with the same
+    draws within SAC_TOL, no kernel launched. Prints ms per iteration,
+    device busy and idle, and the env steps/s it allows."""
+    from cleandiffuser_tpu_torch.pipelines.data_loading import (
+        load_d4rl_dataset,
+        load_d4rl_qlearning_dataset,
+    )
+    from cleandiffuser_tpu_torch.utils.sac import SAC, DeviceCollector
+
+    phase("SAC collector: utils/sac.py DeviceCollector on the card at the locomotion tool's "
+          "settings, synthetic HalfCheetah transitions")
+    t_phase = time.perf_counter()
+    reset_counts()
+    sac = SAC(SAC_OBS, SAC_ACT, rng=SEED, device=dev)
+    col = DeviceCollector(sac, SAC_CAPACITY, SAC_ENVS, SAC_BATCH)
+    rng = np.random.default_rng(SEED + 41)
+    n, K = SAC_ENVS, col.k
+    obs = rng.standard_normal((n, SAC_OBS)).astype(np.float32)
+    prev_done = np.zeros(n, bool)
+    new, written, logs, lat = None, 0, [], []
+    for it in range(SAC_WARMUP_ITERS + SAC_ITERS):
+        update = it >= SAC_WARMUP_ITERS
+        if it == SAC_WARMUP_ITERS:  # the first updating iteration, also run on the CPU
+            act, log, gap = sac_card_vs_cpu(col, obs, new, rng)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act, log = col.step(obs, new, update=update)
+            lat.append((time.perf_counter() - t0) * 1e3)  # the actions' copy waits for the card
+        written += 0 if new is None else int(new["mask"].sum())
+        if update:
+            logs.append(log)
+        new, obs, prev_done = sac_rows(rng, obs, act, it, prev_done)
+    col.step(obs, new, update=False)  # flush the last rows, as the tool's export does
+    written += int(new["mask"].sum())
+    upd_ms = statistics.median(lat[SAC_WARMUP_ITERS:])
+    prof = profile_request(lambda: col.step(obs, None, update=True), upd_ms, ())
+    idle = "not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.1%}"
+    ring_mb = sum(v.numel() * v.element_size() for v in col.ring.values()) / 1e6
+    stacked = {k: torch.stack([v[k] for v in logs]).cpu().numpy() for k in logs[0]}
+    print(f"{SAC_ITERS} iterations of {n} envs, K = {K} updates of batch {SAC_BATCH}, ring of "
+          f"{SAC_CAPACITY} rows ({ring_mb:.0f} MB on the card): {upd_ms:.3f} ms per updating "
+          f"iteration (median of {len(lat) - SAC_WARMUP_ITERS}; warm-up iterations "
+          f"{statistics.median(lat[1:SAC_WARMUP_ITERS]):.3f} ms), device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle {idle}; "
+          f"{n / upd_ms * 1e3:.0f} env steps/s at most (the env stepping excluded); critic "
+          f"loss {stacked['critic_loss'][0]:.4f} -> {stacked['critic_loss'][-1]:.4f}, alpha "
+          f"{stacked['alpha'][0]:.5f} -> {stacked['alpha'][-1]:.5f}, q_mean "
+          f"{stacked['q_mean'][-1]:.4f}; card against CPU after one iteration {gap:.3e} of "
+          f"scale (limit {SAC_TOL})", flush=True)
+    if not all(np.isfinite(v).all() for v in stacked.values()):
+        raise AssertionError("non-finite SAC losses")
+    if not abs(stacked["alpha"][-1] - 1.0) > 1e-3:
+        raise AssertionError("alpha did not move")
+    if (col.size, col.ptr) != (written, written % SAC_CAPACITY):
+        raise AssertionError(f"ring size / ptr {(col.size, col.ptr)}, {written} valid rows "
+                             "written")
+    ex = col.export()
+    q = ex.pop("qlearning")
+    name = "halfcheetah-medium-replay-v2"
+    old = os.environ.get("CLEANDIFFUSER_DATA")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez_compressed(Path(tmp) / f"{name}.npz", **ex)
+        np.savez_compressed(Path(tmp) / f"{name}.qlearning.npz", **q)
+        os.environ["CLEANDIFFUSER_DATA"] = tmp
+        try:
+            data, qd = load_d4rl_dataset(name), load_d4rl_qlearning_dataset(name)
+        finally:
+            if old is None:
+                del os.environ["CLEANDIFFUSER_DATA"]
+            else:
+                os.environ["CLEANDIFFUSER_DATA"] = old
+    for got, want in ((data, ex), (qd, q)):
+        if got.keys() != want.keys() or not all(np.array_equal(got[k], want[k]) for k in got):
+            raise AssertionError("the export did not round-trip through the data loading")
+    seq = D4RLMuJoCoDataset(data, horizon=4, device=dev)
+    td = D4RLMuJoCoTDDataset(qd, device=dev)
+    print(f"export: {written} rows, {int(ex['timeouts'].sum())} timeouts (env segment ends and "
+          f"truncations), {len(seq)} horizon-4 windows, {len(td)} transitions; loaded back bit "
+          "for bit", flush=True)
+    if len(td) != written or ex["observations"].shape != (written, SAC_OBS):
+        raise AssertionError("the export's sizes are off")
+    counts = no_kernel_launched("the SAC collector phase")
+    print(f"phase 41: {time.perf_counter() - t_phase:.1f} s; kernel launches {counts}",
+          flush=True)
+    return counts
+
+
+def sac_card_vs_cpu(col, obs, new, rng) -> tuple:
+    """One updating iteration of the collector on the card and of a copy on
+    the CPU (state, Adam state and ring copied), the same rows and draws:
+    the actions, logs and parameters after it, as the largest |diff| over
+    each value's scale; fails beyond SAC_TOL. Returns the card's (actions,
+    logs) and that gap."""
+    from cleandiffuser_tpu_torch.utils.sac import SAC, DeviceCollector
+
+    sac = col.sac
+    cpu_sac = SAC(SAC_OBS, SAC_ACT, device="cpu")
+    cpu_sac.load_state_dict(sac.state_dict())
+    cpu_col = DeviceCollector(cpu_sac, SAC_CAPACITY, SAC_ENVS, SAC_BATCH)
+    for k, v in col.ring.items():
+        cpu_col.ring[k][:col.size] = v[:col.size].cpu()
+    cpu_col.ptr, cpu_col.size = col.ptr, col.size
+    K, A = col.k, SAC_ACT
+    draws = {"act": rng.standard_normal((SAC_ENVS, A)).astype(np.float32),
+             "u": rng.uniform(size=(K, SAC_BATCH)).astype(np.float32),
+             "squash": [rng.standard_normal((K, SAC_BATCH, A)).astype(np.float32)
+                        for _ in range(2)]}
+    act, log = col.step(obs, new, update=True, draws=draws)
+    act_c, log_c = cpu_col.step(obs, new, update=True, draws=draws)
+    pairs = [(act, act_c)] + [(log[k].cpu().numpy(), log_c[k].numpy()) for k in log]
+    for name in ("actor", "critic", "target_critic"):
+        for a, b in zip(getattr(sac.state, name).parameters(),
+                        getattr(cpu_sac.state, name).parameters()):
+            pairs.append((a.detach().cpu().numpy(), b.detach().numpy()))
+    pairs.append((sac.state.log_alpha.detach().cpu().numpy(),
+                  cpu_sac.state.log_alpha.detach().numpy()))
+    gap = max(float(np.abs(np.asarray(a) - b).max() / max(np.abs(b).max(), 1.0))
+              for a, b in pairs)
+    if not gap <= SAC_TOL:
+        raise AssertionError(f"the collector's iteration on the card is {gap:.3e} of scale "
+                             "from the CPU's")
+    return act, log, gap
+
+
 def net_gap(label: str, card, cpu_fn, f64_fn) -> float:
     """|card - CPU| over the CPU's scale; beyond NET_TOL (float32 rounding
     deciding), the card's distance to the CPU's float64 run must be within
@@ -4567,6 +4922,9 @@ def rl_veteran_phases(dev) -> dict:
     out.update({f"{family}_{suite}": check_rl_suite_cli(dev, family, suite)
                 for suite in ("antmaze", "kitchen") for family in ("dql", "idql", "edp")})
     out.update({f"veteran_{suite}": check_veteran_cli(dev, suite) for suite in VETERAN_CLIS})
+    # online SAC's collector (the locomotion-data tool's engine), in the
+    # stream that ended first without it
+    out["sac_collector"] = check_sac_collector(dev)
     return out
 
 
@@ -4621,7 +4979,7 @@ def run_worker(group: str, result_path: str, t_start: str) -> int:
 
 def start_workers() -> dict:
     """One worker process per group, started now; their output to files."""
-    phase(f"workers started: {', '.join(WORKER_GROUPS)} (phases 15 and 19-33, no kernel), "
+    phase(f"workers started: {', '.join(WORKER_GROUPS)} (phases 15, 19-33 and 41, no kernel), "
           "beside the Goal2D DD gate and the DD, Diffuser and AdaptDiffuser CLIs")
     shutil.rmtree(WORKER_DIR, ignore_errors=True)
     WORKER_DIR.mkdir(parents=True)
@@ -4646,7 +5004,8 @@ def join_workers(workers: dict) -> dict:
         late = time.perf_counter() - T_START > WORKERS_DONE_BY
         for group in ended if ended or not late else running:
             rc = ended.get(group)
-            print(f"[chip_smoke] --- worker {group}: exit {rc}; its output follows", flush=True)
+            print(f"[chip_smoke] --- worker {group}: exit {rc} at "
+                  f"{time.perf_counter() - T_START:.1f} s; its output follows", flush=True)
             print((WORKER_DIR / f"{group}.log").read_text(), end="", flush=True)
             if rc != 0:
                 raise RuntimeError(f"worker {group} " + ("did not end by "
@@ -4731,6 +5090,10 @@ def main() -> int:
     unused = {"new_networks": check_new_networks(dev), "blockpush": check_blockpush(dev)}
     # the multi-device path on a one-rank NCCL mesh: the DD plan and training through K1
     unused["mesh"] = check_mesh(dev)
+    # the parallel-in-time sampler on DD's plan: K1 on every sweep, f32 and BF16 routes
+    picard = check_picard(dev)
+    cli["dit_block"]["dd_picard"] = picard["dit_block"]
+    cli["dit_block_bf16"]["dd_picard_bf16"] = picard["dit_block_bf16"]
     print(f"[chip_smoke] total {time.perf_counter() - T_START:.1f} s ({cuda_ms.longer_spins} "
           "timings repeated with a longer spin)", flush=True)
     record = lambda name, route, source, replaces, launches, train_launches, k: {

@@ -42,10 +42,21 @@ epsilon + w (1 - epsilon)]. The mask then pins the prior. With
 final clipping: (B, sample_steps + diffusion_x_sampling_steps, ...).
 Neither has a pipeline caller; `sample` serves them, as the reference's.
 
+Parallel-in-time sampling (`build_parallel_sample_fn`, `sample_parallel`;
+opt-in, nothing dispatches to it, as in the reference): Picard iteration
+over the whole DDIM grid (ParaDiGMS, arXiv:2305.16317). The sweep state
+holds an estimate at each of the N + 1 grid points; each sweep runs the
+network once over all N * B rows (the condition embedding tiled
+grid-major, row i * B + b), turns the predictions into eps, and propagates
+the DDIM recurrence x_{i-1} = c1_i x_i + c2_i eps_i from x_N down the grid,
+re-pinned by the fix mask at every point. K sweeps give sequential DDIM
+exactly at K = N (the system is triangular). The propagation is a Python
+loop over the N grid points on (B, F) slices; the residual max |X_new - X|
+of each sweep stays on the device, and the log holds the last one.
+
 Ported: the solvers, CFG in mix / cond / uncond modes, classifier
 guidance, final log p, clipping, inpainting, the diffusion-x steps, warm
-start, history and the training loss. The parallel-in-time sampler is
-ROADMAP queue 1, item 10e.
+start, history, the parallel-in-time sampler and the training loss.
 """
 
 from __future__ import annotations
@@ -316,6 +327,109 @@ class BaseDiffusionSDE(DiffusionModel):
             return xt, log
 
         return fn
+
+    def build_parallel_sample_fn(
+        self,
+        sample_steps: int = 20,
+        picard_iters: int = 8,
+        sample_step_schedule: str = "uniform",
+        cfg_mode: str = "uncond",
+    ):
+        """Build the parallel-in-time DDIM sampler (module note).
+
+            fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
+               w_cfg=0.0, temperature=1.0, noise=None)
+               -> (x0, {"picard_residual": r})
+
+        `noise`, when given, is the initial draw (the prior's shape; the
+        reference's `k_init` of `split(rng)`), else it comes from
+        `generator`. `r` is the last sweep's max |X_new - X|, a device
+        scalar. With `bf16_sampling` the network runs on `bf16_params`, as
+        in `build_sample_fn`. No classifier guidance. Follows the caller's
+        grad mode."""
+        ts, alphas, sigmas = self._sample_tables(sample_step_schedule, sample_steps)
+        N = sample_steps
+        idx = torch.arange(N, 0, -1)  # the grid points stepped from: N..1
+        # the DDIM map at grid point i, in float32 as the reference's tables:
+        # x_{i-1} = c1 x_i + c2 eps_i
+        c1 = alphas[idx - 1] / alphas[idx]
+        c2 = sigmas[idx - 1] - c1 * sigmas[idx]
+        c1, c2 = c1.tolist(), c2.tolist()
+        t_rows, a_rows, s_rows = ts[idx], alphas[idx], sigmas[idx]
+
+        def fn(params, generator, prior, condition_cfg=None, mask_cfg=None,
+               w_cfg: float = 0.0, temperature: float = 1.0, noise=None):
+            if self.bf16_sampling:
+                params = self.bf16_params(params)
+            B, feat, dev = prior.shape[0], prior.shape[1:], prior.device
+            bc = (N * B,) + (1,) * len(feat)
+            if noise is None:
+                noise = batch_draw(lambda s: torch.randn(s, generator=generator, device=dev),
+                                   prior.shape)
+            xT = noise * temperature
+            fix = self.fix_mask
+            if fix is not None:
+                xT = xT * (1.0 - fix) + prior * fix
+            emb = self.apply_condition(params, condition_cfg, mask=mask_cfg)
+            # the embedding tiled over the N grid points: row i * B + b
+            emb_rows = None if emb is None else emb.repeat((N,) + (1,) * (emb.ndim - 1))
+            t_all = t_rows.repeat_interleave(B).to(dev)
+            a_all = a_rows.repeat_interleave(B).reshape(bc).to(dev)
+            s_all = s_rows.repeat_interleave(B).reshape(bc).to(dev)
+            prior_flat = prior.reshape(B, -1)
+            fixm = None if fix is None else (fix * torch.ones_like(prior)).reshape(B, -1)
+
+            # X[i]: the estimate at grid point N - i, X[0] = xT throughout
+            X = xT.reshape(1, B, -1).expand(N + 1, -1, -1)
+            resid = None
+            for _ in range(picard_iters):
+                xs = X[:-1].reshape((N * B,) + feat)
+                pred = self.cfg_pred(params, xs, t_all, emb_rows, w_cfg, cfg_mode)
+                pred = self.clip_prediction(pred, xs, a_all, s_all)
+                eps = pred if self.predict_noise else xtheta_to_epstheta(xs, a_all, s_all, pred)
+                eps = eps.reshape(N, B, -1)
+                rows = [X[0]]
+                for i in range(N):
+                    x = c1[i] * rows[-1] + c2[i] * eps[i]
+                    if fixm is not None:
+                        x = x * (1.0 - fixm) + prior_flat * fixm
+                    rows.append(x)
+                X_new = torch.stack(rows)
+                resid = (X_new - X).abs().max()
+                X = X_new
+            x0 = X[-1].reshape(prior.shape)
+            if self.clip_pred:
+                x0 = torch.clamp(x0, self.x_min, self.x_max)
+            return x0, {"picard_residual": resid}
+
+        return fn
+
+    def sample_parallel(
+        self,
+        prior,
+        sample_steps: int = 20,
+        picard_iters: int = 8,
+        sample_step_schedule: str = "uniform",
+        use_ema: bool = True,
+        temperature: float = 1.0,
+        condition_cfg=None,
+        mask_cfg=None,
+        w_cfg: float = 0.0,
+        generator=None,
+        noise=None,
+    ):
+        """Parallel-in-time DDIM sampling (`build_parallel_sample_fn`), the
+        CFG mode picked as `sample` picks it; samplers cached per setting.
+        Returns (x0, {"picard_residual": r})."""
+        cfg_mode = pick_cfg_mode(w_cfg, condition_cfg)
+        key = ("sample_parallel", sample_steps, picard_iters, sample_step_schedule, cfg_mode)
+        if key not in self._sample_fns:
+            self._sample_fns[key] = self.build_parallel_sample_fn(
+                sample_steps=sample_steps, picard_iters=picard_iters,
+                sample_step_schedule=sample_step_schedule, cfg_mode=cfg_mode)
+        params = self.ema_params if use_ema else self.params
+        return self._sample_fns[key](params, generator or self.generator, prior, condition_cfg,
+                                     mask_cfg, w_cfg, temperature, noise)
 
     def sample(
         self,

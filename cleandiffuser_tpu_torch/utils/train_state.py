@@ -299,9 +299,10 @@ _OPTAX_FIELDS = {
 }
 _JAX_MODULES = ("cleandiffuser_tpu", "optax", "flax", "jax")
 # the flax.struct dataclasses of the JAX package's checkpoints: the engines'
-# TrainState, the RL pipelines' critic states, Veteran's EV state and
-# SynthER's TD3+BC state
-_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState", "EVState", "TD3BCState")
+# TrainState, the RL pipelines' critic states, Veteran's EV state,
+# SynthER's TD3+BC state and online SAC's state (utils/sac.py)
+_JAX_STATES = ("TrainState", "CriticState", "IQLCriticState", "EVState", "TD3BCState",
+               "SACState")
 
 
 class _StandIn:
