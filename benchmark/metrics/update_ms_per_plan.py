@@ -1,0 +1,11 @@
+"""update_ms_per_plan: device milliseconds per plan of the kernels
+launched under the program's `sampler.update` spans (the clipping, the
+eps / x0 conversions, the solver's step or the fused update, the
+inpainting mask), from the traced run's record of the host and the
+device. Nothing to read where the program opens no such span."""
+
+from benchmark import program_spans
+
+
+def read(ctx):
+    return program_spans.span_ms_per_plan(ctx.host_trace, "sampler.update")

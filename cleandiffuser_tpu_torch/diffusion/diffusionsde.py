@@ -7,7 +7,11 @@ host tables (vp_solvers.py), so the loop never waits on the device. Each
 step: guided prediction (CFG doubled-batch forward, then the classifier's
 gradient), prediction clipping, solver update with noise injection,
 fix_mask re-pinning. With a classifier, the sampler can score the final
-sample with its log p at t = 0 (`final_logp`).
+sample with its log p at t = 0 (`final_logp`). Each step opens the spans
+`sampler.denoise` (the CFG forward), `sampler.guide` (the classifier's
+gradient, where it guides) and `sampler.update` (from the clipping to the
+re-pinned next state), which record while a profiler does
+(utils/profiling.py `annotate`).
 
 Randomness comes from an explicit `torch.Generator`, or from explicit
 noise: `noise=(initial, per_step)` with `initial` of the prior's shape and
@@ -70,6 +74,7 @@ from ..utils.schedules import (
     uniform_discretization,
 )
 from ..utils.tensors import at_least_ndim
+from ..utils.profiling import annotate
 from ..utils.ranks import batch_draw, current_rows
 from .basic import DiffusionModel, pick_cfg_mode
 from .vp_solvers import (
@@ -169,9 +174,11 @@ class BaseDiffusionSDE(DiffusionModel):
         `bf16_sampling`, `apply_diffusion` casts the network's xt and emb to
         bf16 and brings its prediction back f32; the guidance reads the f32
         xt."""
-        pred = self.cfg_pred(params, xt, t, emb, w_cfg, cfg_mode)
+        with annotate("sampler.denoise"):
+            pred = self.cfg_pred(params, xt, t, emb, w_cfg, cfg_mode)
         if cg_coef != 0.0:
-            _, grad = self.classifier.gradients(cls_params, xt, t, condition_cg)
+            with annotate("sampler.guide"):
+                _, grad = self.classifier.gradients(cls_params, xt, t, condition_cg)
             pred = pred + cg_coef * grad
         return pred
 
@@ -299,20 +306,21 @@ class BaseDiffusionSDE(DiffusionModel):
                 cg_coef = self._cg_coef(w_cg, alphas[i], sigmas[i]) if use_cg else 0.0
                 pred = self._guided_pred(params, xt, t, emb, w_cfg, cfg_mode,
                                          cls_params, condition_cg, cg_coef)
-                pred = self.clip_prediction(pred, xt, a_i, s_i)
-                if self.predict_noise:
-                    eps_theta, x_theta = pred, epstheta_to_xtheta(xt, a_i, s_i, pred)
-                else:
-                    eps_theta, x_theta = xtheta_to_epstheta(xt, a_i, s_i, pred), pred
-                if fused_update:
-                    x_next = solver_update_op(xt, eps_theta,
-                                              ddpm_coefficients(i, alphas, sigmas, stds), seeds[n])
-                else:
-                    z = draw(n) if solver_uses_noise(solver, i) else None
-                    x_next = solver_step(solver, xt, eps_theta, x_theta, prev_x_theta, n == 0,
-                                         i, alphas, sigmas, hs, stds, z)
-                if fix_mask is not None:
-                    x_next = x_next * (1.0 - fix_mask) + prior * fix_mask
+                with annotate("sampler.update"):
+                    pred = self.clip_prediction(pred, xt, a_i, s_i)
+                    if self.predict_noise:
+                        eps_theta, x_theta = pred, epstheta_to_xtheta(xt, a_i, s_i, pred)
+                    else:
+                        eps_theta, x_theta = xtheta_to_epstheta(xt, a_i, s_i, pred), pred
+                    if fused_update:
+                        x_next = solver_update_op(
+                            xt, eps_theta, ddpm_coefficients(i, alphas, sigmas, stds), seeds[n])
+                    else:
+                        z = draw(n) if solver_uses_noise(solver, i) else None
+                        x_next = solver_step(solver, xt, eps_theta, x_theta, prev_x_theta,
+                                             n == 0, i, alphas, sigmas, hs, stds, z)
+                    if fix_mask is not None:
+                        x_next = x_next * (1.0 - fix_mask) + prior * fix_mask
                 xt, prev_x_theta = x_next, x_theta
                 if preserve_history:
                     history.append(xt)

@@ -36,6 +36,7 @@ from ..invdynamic import MlpInvDynamic
 from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.profiling import annotate
 from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
@@ -190,5 +191,7 @@ class DDPipeline:
         tr = self.target_return if target_return is None else target_return
         condition = torch.ones((obs.shape[0], 1), device=self.device) * tr
         params = self.agent.ema_params if use_ema else self.agent.params
-        act, traj = self._plan_fn(params, generator or self._generator, obs, condition, noise)
+        with annotate("dd.plan"):
+            act, traj = self._plan_fn(params, generator or self._generator, obs, condition,
+                                      noise)
         return act, {"traj": traj}

@@ -41,6 +41,7 @@ from ..diffusion import DiscreteDiffusionSDE
 from ..nn_classifier import HalfJannerUNet1d
 from ..nn_diffusion import JannerUNet1d
 from ..utils.jax_params import load_agent_params, load_jax_params
+from ..utils.profiling import annotate
 from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import cosine_decay_schedule
@@ -211,5 +212,6 @@ class DiffuserPipeline:
         if key not in self._plan_fns:
             self._plan_fns[key] = self._make_plan_fn(obs.shape[0], num_candidates)
         params = self.agent.ema_params if use_ema else self.agent.params
-        return self._plan_fns[key](params, self.classifier.inference_params,
-                                   generator or self._generator, obs, noise)
+        with annotate("diffuser.plan"):
+            return self._plan_fns[key](params, self.classifier.inference_params,
+                                       generator or self._generator, obs, noise)

@@ -33,12 +33,12 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..diffusion import ContinuousRectifiedFlow
 from ..invdynamic import FancyMlpInvDynamic
 from ..nn_condition import MLPCondition
 from ..nn_diffusion import DiT1d
+from ..utils.profiling import annotate
 from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.ranks import batch_draw
@@ -249,14 +249,14 @@ class DiffuserLitePipeline:
         return traj
 
     def sample_level(self, sample_fns, j, generator, prior, condition, w_cfg, noise=None):
-        with record_function(f"diffuserlite.level{j}"):
+        with annotate(f"diffuserlite.level{j}"):
             return sample_fns[j](self.diffusions[j].ema_params, generator, prior,
                                  condition_cfg=condition, w_cfg=w_cfg,
                                  temperature=self.temperature,
                                  noise=None if noise is None else noise[j])[0]
 
     def invdyn_action(self, traj):
-        with record_function("diffuserlite.invdyn"):
+        with annotate("diffuserlite.invdyn"):
             return self.invdyn.predict(traj[:, 0], traj[:, 1])
 
     def _make_plan_fn(self, E: int, sample_steps: int):

@@ -16,10 +16,10 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from ..dataset.base import DeviceSeqSampler, place_on_mesh
 from ..utils.iql import IQL
+from ..utils.profiling import annotate
 from ..utils.ranks import rows_step
 from .diffuserlite import DiffuserLitePipeline
 from .runner import step_window
@@ -148,7 +148,7 @@ def build_candidate_plan_fn(pipe: DiffuserLitePipeline, iql: IQL, num_envs: int,
         traj = pipe.sample_level(sample_fns, 0, generator, prior, tgt.repeat_interleave(K, 0),
                                  w_cfgs[0], noise)
         candidates = traj.reshape(E, K, h0, O)
-        with record_function("diffuserlite.score"):
+        with annotate("diffuserlite.score"):
             scores = iql.state.v_params(candidates[:, :, select_t])[..., 0]  # (E, K)
             idx = scores.argmax(-1)
         traj = candidates[torch.arange(E, device=idx.device), idx]

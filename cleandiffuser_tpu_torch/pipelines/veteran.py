@@ -52,7 +52,6 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..classifier import CumRewClassifier
 from ..diffusion import ContinuousDiffusionSDE, DiscreteDiffusionSDE
@@ -62,6 +61,7 @@ from ..nn_condition import IdentityCondition, MLPCondition
 from ..nn_diffusion import DiT1d, DVInvMlp, JannerUNet1d
 from ..utils.blocks import DVHorizonCritic, IDQLVNet
 from ..utils.jax_params import load_adam_moments, load_jax_params
+from ..utils.profiling import annotate
 from ..utils.ranks import writer_only
 from ..utils.tensors import default_device
 from ..utils.train_state import (
@@ -320,14 +320,14 @@ class VeteranPipeline:
                 prior[:, 0, :O] = obs.repeat_interleave(K, 0)  # env-major: row e*K + k
                 if goal is not None:
                     prior[:, pin, :2] = goal.repeat_interleave(K, 0)
-                with record_function("veteran.plan"):
+                with annotate("veteran.plan"):
                     traj, log = planner_sample(
                         self.planner.ema_params, generator, prior,
                         temperature=self.temperature, noise=noise.get("plan"),
                         cls_params=(self.planner.classifier.inference_params if gt == "cg"
                                     else None),
                         w_cg=self.w_cfg if gt == "cg" else 0.0)
-                with record_function("veteran.score"):
+                with annotate("veteran.score"):
                     if gt == "cg":
                         value = log["log_p"].reshape(E, K)
                     elif self.mcss_selector == "critic":
@@ -344,7 +344,7 @@ class VeteranPipeline:
                 if goal is not None:
                     prior[:, pin, :2] = goal
                 condition = torch.ones((E, 1), device=obs.device) * self.target_return
-                with record_function("veteran.plan"):
+                with annotate("veteran.plan"):
                     traj, _ = planner_sample(
                         self.planner.ema_params, generator, prior, condition_cfg=condition,
                         w_cfg=self.w_cfg, temperature=self.temperature, noise=noise.get("plan"))
@@ -353,7 +353,7 @@ class VeteranPipeline:
             if self.pipeline_type == "joint":
                 return traj[:, 0, O:], info
             next_obs = traj[:, 1, :O]
-            with record_function("veteran.policy"):
+            with annotate("veteran.policy"):
                 if policy_sample is None:
                     return self.invdyn.predict(obs, next_obs), info
                 obs_pol, next_pol = obs, next_obs

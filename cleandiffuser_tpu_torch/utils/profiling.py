@@ -6,12 +6,17 @@
   profiler plugin also reads, into `log_dir`; `with_memory` records
   tensor allocations too. It yields the profiler, whose `key_averages()`
   read the region's operator times.
-- `annotate(name)`: a named range (`torch.profiler.record_function`),
-  visible in the trace and in the profiler's events, as the ranges the
-  pipelines open around a plan's stages.
-- `Throughput`: an items/s meter with EMA smoothing.
+- `annotate(name)`: the port's one way to open a named span. While a
+  profiler records, a `torch.profiler.record_function` range, visible in
+  the trace and in the profiler's events beside the kernels launched
+  under it; otherwise one shared no-op context, so a span on the main
+  path costs a flag read when nothing records.
 
-Nothing on a pipeline's path calls these; a benchmark harness does.
+The pipelines open spans around a plan's stages: `dd.plan` and
+`diffuser.plan` around the plan function in `act`; `sampler.denoise`,
+`sampler.guide` and `sampler.update` in each step of the VP-SDE sampler
+(diffusion/diffusionsde.py); the Veteran and DiffuserLite stages. The
+benchmark's per-layer metrics read the first five (`benchmark/metrics/`).
 """
 
 from __future__ import annotations
@@ -19,11 +24,13 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Optional
 
 import torch
 
-__all__ = ["trace", "annotate", "Throughput"]
+__all__ = ["trace", "annotate"]
+
+# reentrant and stateless: every span opened while nothing records shares it
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -45,22 +52,8 @@ def trace(log_dir: str, with_memory: bool = True):
 
 
 def annotate(name: str):
-    """A named range visible in profiler timelines."""
-    return torch.profiler.record_function(name)
-
-
-class Throughput:
-    """items/s meter with EMA smoothing."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.rate: Optional[float] = None
-        self._last = time.perf_counter()
-
-    def update(self, items: int) -> float:
-        now = time.perf_counter()
-        dt = max(now - self._last, 1e-9)
-        self._last = now
-        inst = items / dt
-        self.rate = inst if self.rate is None else self.ema * self.rate + (1 - self.ema) * inst
-        return self.rate
+    """A named span in the profiler's record while one records; else a
+    shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -1,31 +1,12 @@
-"""The port's profiling hooks (utils/profiling.py) on the CPU: `Throughput`
-against the JAX package's under one patched clock, `trace` writing a trace
-file, and an `annotate` range among the profiler's events."""
+"""The port's profiling hooks (utils/profiling.py) on the CPU: `trace`
+writing a trace file, and an `annotate` range among the profiler's events
+(tests/test_torch_spans.py holds the spans of the pipelines' path)."""
 
 import json
-import time
 
-import pytest
 import torch
 
-import cleandiffuser_tpu.utils.profiling as jprof
 import cleandiffuser_tpu_torch.utils.profiling as tprof
-
-
-@pytest.mark.parametrize("ema", (0.9, 0.5))
-def test_throughput_matches_jax(monkeypatch, ema):
-    clock = {"now": 0.0}
-
-    def fake():
-        return clock["now"]
-
-    monkeypatch.setattr(time, "perf_counter", fake)
-    meters = (jprof.Throughput(ema), tprof.Throughput(ema))
-    for items, now in zip((100, 7, 3, 250), (0.5, 1.25, 1.25, 3.0)):
-        clock["now"] = now
-        rates = [m.update(items) for m in meters]
-        assert rates[0] == rates[1] and rates[1] == meters[1].rate
-    assert meters[1].rate > 0
 
 
 def test_trace_writes_a_trace_file(tmp_path):
