@@ -19,7 +19,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. device    - a CUDA device must be present (there is no CPU path); prints
                the `nvidia-smi` name and power limit.
 2. build     - builds the CUDA kernels (csrc/dit_block.cu, csrc/dit_block_bf16.cu,
-               csrc/film_resblock.cu, csrc/film_resblock_bf16.cu) with nvcc
+               csrc/film_resblock.cu, csrc/film_resblock_bf16.cu,
+               csrc/film_resblock_vjp.cu) with nvcc
                from the sources in this checkout, one nvcc each, in
                parallel: the nvcc processes start first, phase 16 (the DQL
                Goal2D gate, which launches no kernel) runs while they
@@ -56,6 +57,12 @@ Phases, each of which raises on failure (exit code != 0):
                H = 64 at the top; 951 GFLOP per call at B = 3200), with each
                shape's thread-block plan and shared memory against the
                device's limit and the share of the 3xTF32 bound.
+   film_resblock_vjp - the classifier's pair (the forward that keeps
+               residuals, then the input gradient) against autograd through
+               the plain block at each of the ten classifier block shapes
+               (B = 3200): errors of the output and of d/dx, both kernels'
+               plans, the pair's time beside the plain version's, TFLOP/s
+               and the share of the 3xTF32 bound, and the sums over the ten.
    film_resblock BF16 - K3's BF16 route (BF16 weights, biases and affine)
                against its plain version at every distinct block shape of
                the shipped U-Net at B = 3200, with the operands the bf16
@@ -103,7 +110,8 @@ Phases, each of which raises on failure (exit code != 0):
                both EMAs), serves 5 `act` requests for 50 envs x 64
                candidates with classifier guidance, checks the actions, the
                inpainted first state and K3's launch count (5 x 20 steps x 16
-               blocks), holds one plan through K3 against the same plan
+               blocks) and the classifier's (5 x 21 forwards and 5 x 20
+               input gradients of its 10 blocks, no plain block), holds one plan through K3 against the same plan
                through the plain block (every candidate and its log p; the
                chosen index wherever the top two are apart; the actions),
                and serves one request with the fused solver update (20 K2
@@ -598,6 +606,14 @@ from cleandiffuser_tpu_torch.ops.film_resblock import (  # noqa: E402
     load_film_resblock_bf16_library,
     load_film_resblock_library,
 )
+from cleandiffuser_tpu_torch.ops.film_resblock_vjp import (  # noqa: E402
+    film_resblock_input_grad_reference,
+    film_resblock_vjp_forward_reference,
+    film_resblock_vjp_op,
+    fused_film_resblock_input_grad,
+    fused_film_resblock_vjp_forward,
+    load_film_resblock_vjp_library,
+)
 from cleandiffuser_tpu_torch.ops.solver_update import (  # noqa: E402
     fused_solver_update,
     solver_update_reference,
@@ -872,7 +888,7 @@ VISUAL_CASES = ((dp_pusht_image, (), "act_chunk"), (dp_pusht_image, ("nn=chi_une
 # times it may grow 4x before a timing fails
 SPIN_CYCLES, SPIN_TRIES = 100_000_000, 4
 KERNELS = (fused_dit_block, fused_dit_block_bf16, fused_film_resblock, fused_film_resblock_bf16,
-           fused_solver_update)
+           fused_solver_update, fused_film_resblock_vjp_forward, fused_film_resblock_input_grad)
 # NVIDIA H100 SXM peaks (data sheet, dense): f32 outside the tensor cores,
 # TF32 and BF16 on them, and HBM3 bandwidth
 F32_TFLOPS, TF32_TFLOPS, BF16_TFLOPS, HBM_TBPS = 67.0, 495.0, 989.0, 3.35
@@ -994,7 +1010,8 @@ def check_device() -> str:
     return torch.cuda.get_device_name(0)
 
 
-KERNEL_SOURCES = ("dit_block", "dit_block_bf16", "film_resblock", "film_resblock_bf16")
+KERNEL_SOURCES = ("dit_block", "dit_block_bf16", "film_resblock", "film_resblock_bf16",
+                  "film_resblock_vjp")
 
 
 def start_build() -> "build.Builds":
@@ -1013,6 +1030,7 @@ def build_kernels(dev, builds: "build.Builds"):
     load_dit_block_bf16_library()
     load_film_resblock_library()
     load_film_resblock_bf16_library()
+    load_film_resblock_vjp_library()
     for name in names:
         print(f"{name}.cu built in {seconds[name]:.2f} s from the build's start (nvcc "
               "processes run in parallel)")
@@ -1284,6 +1302,91 @@ def film_gbytes(B, H, Cin, Cout, K, x_bytes: int = 4, w_bytes: int = 4, out_byte
     skip = (Cin + 1) * Cout * (Cin != Cout)
     return (x_bytes * B * H * Cin + 4 * B * Cout + out_bytes * B * H * Cout
             + w_bytes * (K * Cin * Cout + K * Cout * Cout + skip + 6 * Cout)) / 1e9
+
+
+# (H, Cin, Cout, K) of the ten residual blocks of the shipped Diffuser's
+# classifier (HalfJannerUNet1d, the order it runs them; the mid blocks at K = 5)
+CLASSIFIER_BLOCKS = [(32, 23, 32, 3), (32, 32, 32, 3), (16, 32, 64, 3), (16, 64, 64, 3),
+                     (8, 64, 128, 3), (8, 128, 128, 3), (4, 128, 256, 3), (4, 256, 256, 3),
+                     (4, 256, 128, 5), (2, 128, 64, 5)]
+
+
+def film_vjp_gbytes(B, H, Cin, Cout, K) -> float:
+    """The forward with residuals and the input gradient, each input read
+    and each output written once: x, emb, out and the weights (the
+    forward's bytes), n1, n2 (B, H, Cout) and r1, r2 written and read back,
+    gout read, dx written, the weights read again."""
+    G = min(8, Cout // 4)
+    res = 2 * B * H * Cout + 2 * B * G
+    return film_gbytes(B, H, Cin, Cout, K) + 4 * (2 * res + B * H * Cout + B * H * Cin) / 1e9 + (
+        film_gbytes(0, H, Cin, Cout, K))
+
+
+def check_film_vjp_kernel(dev, iters: int = 10) -> dict:
+    """The classifier's pair (csrc/film_resblock_vjp.cu: the forward that
+    keeps residuals, then the input gradient) against its plain version,
+    autograd through `film_resblock_reference`, at each classifier block
+    shape at B = 3200: errors of the output and of d/dx, the thread-block
+    plans, and the pair's device time against the plain version's, its
+    TFLOP/s and its share of the 3xTF32 bound (each of the pair does the
+    block's products once); then the sums over the ten blocks, one step's
+    guidance. Returns the record of the sum."""
+    phase("film_resblock_vjp (the classifier's forward and input gradient) vs plain version")
+    B = 3200
+    lib = load_film_resblock_vjp_library()
+    smem_limit = lib.film_vjp_max_smem_optin(dev.index or 0)
+    rng = np.random.default_rng(SEED + 12)
+    worst, sums = 0.0, {"kernel": 0.0, "plain": 0.0, "gflop": 0.0, "gbytes": 0.0}
+    for H, Cin, Cout, K in CLASSIFIER_BLOCKS:
+        args = film_args(rng, dev, B, H, Cin, Cout, K)
+        kw = dict(K=K, groups=min(8, Cout // 4), eps=1e-6)
+        gout = torch.from_numpy(rng.standard_normal((B, H, Cout)).astype(np.float32)).to(dev)
+        gw = (args[2], args[4], args[5], args[6], args[8], args[9], args[10] if Cin != Cout else None)
+        out, res = fused_film_resblock_vjp_forward(*args, **kw)
+        dx = fused_film_resblock_input_grad(gout, *res, *gw, K=K, groups=kw["groups"])
+        xr = args[0].clone().requires_grad_(True)
+        ref = film_resblock_reference(xr, *args[1:], **kw)
+        (want,) = torch.autograd.grad(ref, xr, gout)
+        torch.cuda.synchronize()
+        errs = [errors(out, ref.detach()), errors(dx, want)]
+        worst = max(worst, errs[0][0] / ref.abs().max().item(), errs[1][0] / want.abs().max().item())
+        plans = [(lib.film_vjp_block_rows(b, Cin, Cout),
+                  lib.film_vjp_smem_bytes(b, B, H, Cin, Cout, K, kw["groups"])) for b in (0, 1)]
+        print(f"(B={B}, H={H}, Cin={Cin}, Cout={Cout}, K={K}): out max_abs_err {errs[0][0]:.3e} "
+              f"(max |ref| {ref.abs().max().item():.3f}), dx max_abs_err {errs[1][0]:.3e} (max "
+              f"|dx| {want.abs().max().item():.3f}); plans (rows, shared memory): forward "
+              f"{plans[0]}, input gradient {plans[1]} (device limit {smem_limit})", flush=True)
+        torch.testing.assert_close(out, ref.detach(), atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+        torch.testing.assert_close(dx, want, atol=BLOCK_ATOL, rtol=BLOCK_RTOL)
+        if not all(0 < smem <= smem_limit for _, smem in plans):
+            raise AssertionError(f"film_vjp_smem_bytes {plans} outside (0, {smem_limit}]")
+        del ref, want, xr
+
+        def kernel():
+            _, r = fused_film_resblock_vjp_forward(*args, **kw)
+            fused_film_resblock_input_grad(gout, *r, *gw, K=K, groups=kw["groups"])
+
+        def plain():
+            x = args[0].detach().requires_grad_(True)
+            torch.autograd.grad(film_resblock_reference(x, *args[1:], **kw), x, gout)
+
+        ms, plain_ms, times = time_pair(kernel, plain, iters)
+        gf = 2 * film_gflop(B, H, Cin, Cout, K)
+        gb = film_vjp_gbytes(B, H, Cin, Cout, K)
+        b = bound(gf / TF32X3_TFLOPS, gb)
+        for k, v in (("kernel", ms), ("plain", plain_ms), ("gflop", gf), ("gbytes", gb)):
+            sums[k] += v
+        print(f"  device time of the pair: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"({gf:.3f} GFLOP, {gb:.4f} GB: kernel {gf / ms:.2f}, plain {gf / plain_ms:.2f} "
+              f"TFLOP/s; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), kernel at "
+              f"{b['bound_ms'] / ms:.1%}) (runs {times['kernel']} / {times['plain']})", flush=True)
+    b = bound(sums["gflop"] / TF32X3_TFLOPS, sums["gbytes"])
+    print(f"sum over the {len(CLASSIFIER_BLOCKS)} classifier blocks (one guidance step's blocks, "
+          f"{sums['gflop']:.2f} GFLOP): kernel {sums['kernel']:.4f} ms ({sums['gflop'] / sums['kernel']:.2f} "
+          f"TFLOP/s, {b['bound_ms'] / sums['kernel']:.1%} of the {b['bound_ms']:.4f} ms bound), "
+          f"plain {sums['plain']:.4f} ms; worst error {worst:.3e} of the largest value",
+          flush=True)
+    return {"max_abs_err": worst, "ms": sums["kernel"], "plain_ms": sums["plain"], **b}
 
 
 def film_bf16_args(rng, dev, B, H, Cin, Cout, K, first: bool):
@@ -1783,7 +1886,8 @@ def diffuser_setup(args, rng):
 
 def check_diffuser_slice(dev):
     """Returns (K3 launches in the 5 served requests, K2 launches in the
-    fused-update request)."""
+    fused-update request, the classifier's forward and input-gradient
+    launches in the 5 requests)."""
     phase("slice: Diffuser planning")
     args = load_config(ROOT / "configs/diffuser/mujoco", "mujoco")
     E, K, O, A = args.num_envs, args.num_candidates, args.task.obs_dim, args.task.act_dim
@@ -1812,14 +1916,25 @@ def check_diffuser_slice(dev):
         raise AssertionError(f"U-Net block shapes {seen[:16]} are not {UNET_BLOCKS}")
 
     reset_counts()
+    plain_before = film_resblock_vjp_op.plain_backward
     lat = serve_diffuser(pipe, obs[1:], K, gen)
     k3 = fused_film_resblock.launches
     expected = N_REQUESTS * args.sampling_steps * len(UNET_BLOCKS)
+    # the classifier: every step's forward under grad and input gradient,
+    # and the final log p's forward
+    vjp = (fused_film_resblock_vjp_forward.launches, fused_film_resblock_input_grad.launches,
+           film_resblock_vjp_op.plain_backward - plain_before)
+    n_cls = len(CLASSIFIER_BLOCKS)
+    vjp_expected = (N_REQUESTS * (args.sampling_steps + 1) * n_cls,
+                    N_REQUESTS * args.sampling_steps * n_cls, 0)
     print(f"{N_REQUESTS} requests x {E} envs x {K} candidates: latency ms "
           f"{[round(v, 3) for v in lat]} (median {statistics.median(lat):.3f}; cold first "
-          f"request {cold[0]:.3f}); film_resblock launches {k3} (expected {expected})")
-    if k3 != expected:
-        raise AssertionError(f"film_resblock launched {k3} times, expected {expected}")
+          f"request {cold[0]:.3f}); film_resblock launches {k3} (expected {expected}); "
+          f"film_resblock_vjp forward, input gradient, plain blocks {vjp} (expected "
+          f"{vjp_expected})")
+    if k3 != expected or vjp != vjp_expected:
+        raise AssertionError(f"film_resblock launched {k3} times, expected {expected}; the "
+                             f"classifier's kernels {vjp}, expected {vjp_expected}")
 
     plain_lat = serve_diffuser(plain, obs[1:], K, gen)
     print(f"same requests through the plain block: latency ms "
@@ -1837,7 +1952,7 @@ def check_diffuser_slice(dev):
           f"film_resblock launches {fused_film_resblock.launches}")
     if k2 != args.sampling_steps:
         raise AssertionError(f"solver_update launched {k2} times, expected {args.sampling_steps}")
-    return k3, k2
+    return k3, k2, vjp
 
 
 def check_kernel_autograd(dev, H: int = 32, config: str = "mujoco") -> dict:
@@ -2185,13 +2300,18 @@ def check_diffuser_training(dev):
     logs_k = [pipe.train_step(b, noise=z, classifier_noise=c) for b, (z, c) in zip(batches, noise)]
     torch.cuda.synchronize()
     k3, k2 = fused_film_resblock.launches, fused_solver_update.launches
+    # the classifier's update needs its weights' gradients: the plain block
+    vjp = fused_film_resblock_vjp_forward.launches + fused_film_resblock_input_grad.launches
     expected = n * len(UNET_BLOCKS)
     print(f"{n} train_steps through K3: film_resblock launches {k3} (expected {expected}), "
-          f"solver_update launches {k2} (expected 0: a sampler step)", flush=True)
+          f"solver_update launches {k2} (expected 0: a sampler step), film_resblock_vjp "
+          f"launches {vjp} (expected 0: the classifier's update takes the plain block)",
+          flush=True)
     if k3 != expected:
         raise AssertionError(f"film_resblock launched {k3} times in training, expected {expected}")
-    if k2:
-        raise AssertionError(f"solver_update launched {k2} times in training, expected 0")
+    if k2 or vjp:
+        raise AssertionError(f"solver_update launched {k2} times and film_resblock_vjp {vjp} "
+                             "in training, expected 0")
     logs_p = [plain.train_step(b, noise=z, classifier_noise=c)
               for b, (z, c) in zip(batches, noise)]
     compare_training(logs_k, logs_p, ("loss", "grad_norm", "classifier_loss"))
@@ -5039,6 +5159,7 @@ def main() -> int:
     k1 = check_kernel(dev)
     k1_bf16 = check_kernel_bf16(dev)
     k3 = check_film_kernel(dev)
+    vjp = check_film_vjp_kernel(dev)
     k3_bf16 = check_film_kernel_bf16(dev)
     check_bf16_repeats(dev)
     check_film_kernel(dev, ANTMAZE_UNET_BLOCKS, "antmaze", 10)  # 10: the script's time
@@ -5047,7 +5168,7 @@ def main() -> int:
     check_slice(dev, "antmaze", 1)  # horizon 64: K1 on clusters of two thread blocks
     k1_bf16_launches = check_slice_bf16(dev)
     check_slice_bf16(dev, "antmaze", 1)
-    k3_launches, k2_launches = check_diffuser_slice(dev)
+    k3_launches, k2_launches, vjp_launches = check_diffuser_slice(dev)
     check_kernel_autograd(dev)
     check_kernel_autograd(dev, 64, "antmaze")  # DD antmaze's training forward, on clusters
     k1_train, k2_dd_train, _ = check_dd_training(dev)
@@ -5128,6 +5249,17 @@ def main() -> int:
         record("solver_update", "triton", "cleandiffuser_tpu_torch/ops/solver_update.py",
                "cleandiffuser_tpu/ops/solver_update.py:75", k2_launches,
                k2_dd_train + k2_diffuser_train, k2),
+        # the classifier's forward and input gradient: no TPU kernel; plan
+        # launches (forward, input gradient, plain blocks) of the slice's
+        # requests; the classifier's training takes the plain block; ms
+        # and bounds are the pair's summed over the ten classifier blocks
+        {"name": "film_resblock_vjp", "route": "cuda",
+         "source": "cleandiffuser_tpu_torch/csrc/film_resblock_vjp.cu", "replaces": None,
+         "launches": vjp_launches, "train_launches": 0,
+         "cli_launches": {f"{p}_cli": c["fused_film_resblock_input_grad"]
+                          for p, c in side.items()},
+         **{k: vjp[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

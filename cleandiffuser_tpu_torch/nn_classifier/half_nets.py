@@ -6,8 +6,14 @@ head. Each maps (b, H, in_dim) x (b,) [x cond] -> (b, out_dim), e.g. a
 trajectory-return prediction for classifier guidance.
 
 The classifier is differentiated with respect to its input at every
-sampler step, so its blocks always take the plain path (neither fused
-block has a backward kernel).
+sampler step. With `use_pallas_block=True` the ten residual blocks of
+`HalfJannerUNet1d` run through `film_resblock_vjp_op`
+(ops/film_resblock_vjp.py): where only x needs a gradient, a forward
+kernel that keeps residuals and an input-gradient kernel on a CUDA tensor
+(their plain versions on a CPU tensor); under no_grad the forward kernel
+alone; and where a parameter needs a gradient (the classifier's training)
+the plain block, as without the flag. The U-Net's K3 takes no part: it
+has no backward kernel. `HalfDiT1d`'s blocks always take the plain path.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class HalfJannerUNet1d(BaseNNClassifier):
         dim_mult: Sequence[int] = (1, 2, 2, 2),
         timestep_emb_type: str = "positional",
         norm_type: str = "groupnorm",
+        use_pallas_block: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -53,20 +60,19 @@ class HalfJannerUNet1d(BaseNNClassifier):
 
         dims = [in_dim] + [model_dim * int(m) for m in np.cumprod(dim_mult)]
         in_out = list(zip(dims[:-1], dims[1:]))
+        block = lambda i, o, ks=kernel_size: ResidualBlock1d(
+            i, o, model_dim, ks, norm_type, generator=g, vjp_kernel=use_pallas_block)
         blocks, downs = [], []
         for ind, (dim_in, dim_out) in enumerate(in_out):
-            blocks += [ResidualBlock1d(dim_in, dim_out, model_dim, kernel_size, norm_type,
-                                       generator=g),
-                       ResidualBlock1d(dim_out, dim_out, model_dim, kernel_size, norm_type,
-                                       generator=g)]
+            blocks += [block(dim_in, dim_out), block(dim_out, dim_out)]
             if ind < len(in_out) - 1:
                 downs.append(Downsample1d(dim_out, g))
                 horizon //= 2
         mid = dims[-1]
         mid_2, mid_3 = mid // 2, mid // 4
-        blocks.append(ResidualBlock1d(mid, mid_2, model_dim, 5, norm_type, generator=g))
+        blocks.append(block(mid, mid_2, 5))
         downs.append(Downsample1d(mid_2, g))
-        blocks.append(ResidualBlock1d(mid_2, mid_3, model_dim, 5, norm_type, generator=g))
+        blocks.append(block(mid_2, mid_3, 5))
         downs.append(Downsample1d(mid_3, g))
         horizon //= 4
         self.n_levels = len(in_out)

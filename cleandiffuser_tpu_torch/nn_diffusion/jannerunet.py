@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.film_resblock import film_resblock_op
+from ..ops.film_resblock_vjp import film_resblock_vjp_op
 from ..utils.blocks import (Conv1d, Dense, GroupNorm, LayerNorm, below_f32, dense,
                             lecun_normal_init, promote)
 from ..utils.embeddings import mish
@@ -98,17 +99,23 @@ class Upsample1d(nn.Module):
 
 class ResidualBlock1d(nn.Module):
     """Conv-GN-Mish x2 with FiLM-add of the time/cond embedding. With
-    `use_kernel` (groupnorm only) the block runs through `film_resblock_op`;
-    without, through the flax-style layers."""
+    `use_kernel` (groupnorm only) the block runs through `film_resblock_op`
+    (K3, a forward kernel: the U-Net's path); with `vjp_kernel` through
+    `film_resblock_vjp_op` (a forward kernel that keeps residuals and an
+    input-gradient kernel: the classifier's path, differentiated with
+    respect to x); without either, through the flax-style layers, which
+    `film_resblock_vjp_op` also takes when a parameter needs a gradient."""
 
     def __init__(self, in_dim: int, out_dim: int, emb_dim: int, kernel_size: int = 3,
                  norm_type: str = "groupnorm", use_kernel: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, vjp_kernel: bool = False):
         super().__init__()
-        if use_kernel and norm_type != "groupnorm":
+        if (use_kernel or vjp_kernel) and norm_type != "groupnorm":
             raise ValueError("the fused block computes GroupNorm: use_pallas_block needs "
                              "norm_type='groupnorm'")
-        self.kernel_size, self.use_kernel = kernel_size, use_kernel
+        if use_kernel and vjp_kernel:
+            raise ValueError("a block takes K3 (use_kernel) or the VJP kernels (vjp_kernel)")
+        self.kernel_size, self.use_kernel, self.vjp_kernel = kernel_size, use_kernel, vjp_kernel
         self.conv1 = Conv1d(in_dim, out_dim, kernel_size, generator=generator)
         self.norm1 = get_norm(out_dim, norm_type)
         self.film = dense(emb_dim, out_dim, generator=generator)
@@ -123,15 +130,20 @@ class ResidualBlock1d(nn.Module):
 
     def forward(self, x, emb):
         e = self.film(mish(emb))
-        if self.use_kernel:
+        if self.use_kernel or self.vjp_kernel:
             skip = (None, None) if self.skip is None else (self.skip.kernel[0], self.skip.bias)
             # the down/up-sampling convs return transposed views; the kernel
             # reads x row-major
-            return film_resblock_op(
-                x.contiguous(), e, self.conv1.kernel, self.conv1.bias, self.norm1.scale,
-                self.norm1.bias, self.conv2.kernel, self.conv2.bias, self.norm2.scale,
-                self.norm2.bias, *skip, K=self.kernel_size, groups=self.norm1.groups,
-                eps=self.norm1.eps)
+            args = (x.contiguous(), e, self.conv1.kernel, self.conv1.bias, self.norm1.scale,
+                    self.norm1.bias, self.conv2.kernel, self.conv2.bias, self.norm2.scale,
+                    self.norm2.bias, *skip)
+            config = dict(K=self.kernel_size, groups=self.norm1.groups, eps=self.norm1.eps)
+            if self.use_kernel:
+                return film_resblock_op(*args, **config)
+            return film_resblock_vjp_op(*args, **config, plain=lambda: self._plain(x, e))
+        return self._plain(x, e)
+
+    def _plain(self, x, e):
         h = mish(self.norm1(self.conv1(x)))
         h = h + e[:, None, :]
         h = mish(self.norm2(self.conv2(h)))

@@ -1,7 +1,9 @@
-"""The backward of the port's fused blocks: autograd through their plain
-versions, recomputed from the saved inputs. The JAX package's custom VJP of
-its fused DiT block does the same (`jax.vjp` of the XLA reference); no TPU
-kernel has a backward kernel."""
+"""The backward of the port's fused forward blocks (K1 and K3): autograd
+through their plain versions, recomputed from the saved inputs. The JAX
+package's custom VJP of its fused DiT block does the same (`jax.vjp` of the
+XLA reference); no TPU kernel has a backward kernel. The one backward
+kernel of the port is the classifier's input gradient
+(ops/film_resblock_vjp.py), which needs no weight's gradient."""
 
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ clears a threshold, and fine-tune the diffusion model on the kept set.
 Generation is a Diffuser plan without candidates: one trajectory per start
 state, the first state inpainted, the EMA U-Net (its residual blocks
 through the fused kernel when `use_pallas_block` is on) and the classifier's
-gradient at every step, the final log p returned.
+gradient at every step (its blocks through the forward and input-gradient
+kernels when the flag is on), the final log p returned.
 """
 
 from __future__ import annotations

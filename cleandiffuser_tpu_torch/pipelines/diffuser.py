@@ -12,8 +12,9 @@ the classifier's gradient added at every step, scored by the classifier's
 log p at t = 0, and the best candidate of each environment gives its first
 action, clipped to [-1, 1]. With `use_pallas_block=True` every residual
 block of the diffusion U-Net runs the fused Hopper kernel on a CUDA device
-(ops/film_resblock.py); the classifier keeps the plain block, since it is
-differentiated. With `fused_update=True` every ddpm step runs the fused
+(ops/film_resblock.py), and every residual block of the classifier, which
+is differentiated with respect to its input, the forward and
+input-gradient kernels (ops/film_resblock_vjp.py). With `fused_update=True` every ddpm step runs the fused
 solver-update kernel (ops/solver_update.py).
 
 One `train_step` = the diffusion update (AdamW, cosine schedule over
@@ -22,7 +23,8 @@ trajectory, then, for the first `classifier_gradient_steps` steps, the
 classifier's update (Adam, cosine schedule) on that trajectory noised to a
 random level, against the batch's value. With `use_pallas_block=True` the
 U-Net's forward runs K3 in every residual block, its backward autograd
-through the plain version. `terminal_penalty` and `discount` are the value
+through the plain version; the classifier's update, which needs its
+weights' gradients, takes its plain blocks. `terminal_penalty` and `discount` are the value
 targets' settings: stored as the JAX pipeline stores them and read by
 nothing here (the dataset builds the targets from its own).
 `make_train_scan` is the windowed trainer the CLI runs: a log window of
@@ -93,7 +95,8 @@ class DiffuserPipeline:
         )
         nn_classifier = HalfJannerUNet1d(
             horizon, in_dim, out_dim=1, model_dim=model_dim, emb_dim=model_dim,
-            dim_mult=dim_mult, kernel_size=3, generator=torch.Generator().manual_seed(rng + 1),
+            dim_mult=dim_mult, kernel_size=3, use_pallas_block=use_pallas_block,
+            generator=torch.Generator().manual_seed(rng + 1),
         )
         self.classifier = CumRewClassifier(
             nn_classifier,

@@ -24,6 +24,7 @@ from cleandiffuser_tpu_torch.classifier import CumRewClassifier, MSEClassifier
 from cleandiffuser_tpu_torch.nn_classifier import HalfJannerUNet1d
 from cleandiffuser_tpu_torch.nn_diffusion import jannerunet as unet
 from cleandiffuser_tpu_torch.ops import film_resblock as ops
+from cleandiffuser_tpu_torch.ops import film_resblock_vjp as vjp
 from cleandiffuser_tpu_torch.utils.jax_params import jax_params_of, load_jax_params
 
 torch.set_num_threads(1)
@@ -230,7 +231,7 @@ def test_jannerunet_fused_block_counts_no_launch_on_cpu():
     assert ops.fused_film_resblock.launches == before
 
 
-def _half_unet(seed=11):
+def _half_unet(seed=11, use_pallas_block=False):
     rng = np.random.default_rng(seed)
     D = 7
     x = _np(rng, B, H, D)
@@ -239,7 +240,8 @@ def _half_unet(seed=11):
                              dim_mult=(1, 2), kernel_size=3)
     params = _seeded(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(t)), seed + 1,
                      std=0.2)
-    port = HalfJannerUNet1d(H, D, 1, kernel_size=3, model_dim=16, emb_dim=16, dim_mult=(1, 2))
+    port = HalfJannerUNet1d(H, D, 1, kernel_size=3, model_dim=16, emb_dim=16, dim_mult=(1, 2),
+                            use_pallas_block=use_pallas_block)
     load_jax_params(port, params["params"])
     return jm, params, port, x, t
 
@@ -252,13 +254,18 @@ def test_half_jannerunet_matches_flax():
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["cumrew", "mse"])
-def test_classifier_gradients_match_jax_grad(kind):
+@pytest.mark.parametrize("kind,use_pallas_block", [("cumrew", False), ("mse", False),
+                                                    ("cumrew", True), ("mse", True)],
+                         ids=["cumrew", "mse", "cumrew-vjp-op", "mse-vjp-op"])
+def test_classifier_gradients_match_jax_grad(kind, use_pallas_block):
     """logp and d logp / dx of the classifier against the JAX classifier's
     `gradients` (jax.grad), on the same weights; from inside no_grad, as the
     sampler calls it. 1e-5 on the gradient: a backward pass through the
-    same float32 math."""
-    jm, params, port, x, t = _half_unet(13)
+    same float32 math. With `use_pallas_block` the blocks go through
+    `film_resblock_vjp_op` (on the CPU its closed-form plain versions), and
+    none takes the plain block."""
+    jm, params, port, x, t = _half_unet(13, use_pallas_block)
+    plain_before = vjp.film_resblock_vjp_op.plain_backward
     c = np.random.default_rng(14).standard_normal((B, 1)).astype(np.float32)
     if kind == "cumrew":
         jc, tc = JaxCumRewClassifier(jm), CumRewClassifier(port, device="cpu")
@@ -272,3 +279,157 @@ def test_classifier_gradients_match_jax_grad(kind):
     assert np.abs(np.asarray(g_j)).max() > 1e-3
     np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=TOL, rtol=TOL)
+    assert vjp.film_resblock_vjp_op.plain_backward == plain_before
+
+
+# ---------------------------------------------------------------------------
+# The classifier's block differentiated with respect to x (ops/film_resblock_vjp.py)
+
+# (H, Cin, Cout, K) of the ten residual blocks of the shipped Diffuser's
+# classifier (HalfJannerUNet1d: obs 17 + act 6 = 23 channels in, model_dim 32,
+# dim_mult (1, 2, 2, 2), the two mid blocks at K = 5)
+CLASSIFIER_BLOCKS = [(32, 23, 32, 3), (32, 32, 32, 3), (16, 32, 64, 3), (16, 64, 64, 3),
+                     (8, 64, 128, 3), (8, 128, 128, 3), (4, 128, 256, 3), (4, 256, 256, 3),
+                     (4, 256, 128, 5), (2, 128, 64, 5)]
+CLASSIFIER_IDS = [f"h{h}-{i}-{o}-k{k}" for h, i, o, k in CLASSIFIER_BLOCKS]
+
+
+def _vjp_case(shape, seed=21):
+    """Seeded f32 inputs of a classifier block (groups as the net builds
+    them) and a cotangent of its output."""
+    H_, Cin, Cout, K = shape
+    x, emb, ws, sk = _film_inputs(Cin, Cout, K, False, Cin != Cout, seed)
+    x = _np(np.random.default_rng(seed), B, H_, Cin)
+    g = _np(np.random.default_rng(seed + 1), B, H_, Cout)
+    return x, emb, ws, sk, g, dict(K=K, groups=min(8, Cout // 4))
+
+
+def _input_grad_args(ws, sk):
+    """The input gradient's weights, from the block's: w1, g1s, g1b, w2,
+    g2s, g2b, wskip."""
+    return (ws[0], ws[2], ws[3], ws[4], ws[6], ws[7], sk[0])
+
+
+@pytest.mark.parametrize("shape", CLASSIFIER_BLOCKS, ids=CLASSIFIER_IDS)
+def test_vjp_plain_version_matches_autograd(shape):
+    """The kernels' plain versions at each classifier block shape: the
+    forward (its output, and n1, n2 as GroupNorm's normalised values) equals
+    `film_resblock_reference`, and the closed-form input gradient from its
+    residuals equals autograd through `film_resblock_reference`."""
+    x, emb, ws, sk, g, kw = _vjp_case(shape)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    xt = t(x).requires_grad_(True)
+    args = (t(emb), *map(t, ws), *map(t, sk))
+    ref = ops.film_resblock_reference(xt, *args, **kw, eps=1e-6)
+    (want,) = torch.autograd.grad(ref, xt, t(g))
+    out, res = vjp.film_resblock_vjp_forward_reference(t(x), *args, **kw, eps=1e-6)
+    torch.testing.assert_close(out, ref.detach(), atol=TOL, rtol=TOL)
+    n1, r1, n2, r2 = res
+    assert n1.shape == n2.shape == out.shape and r1.shape == r2.shape == (B, kw["groups"])
+    # a normalised group has mean 0 and mean square var / (var + eps) ~ 1
+    grouped = n2.reshape(B, shape[0], kw["groups"], -1)
+    np.testing.assert_allclose(grouped.mean(dim=(1, 3)).numpy(), 0, atol=1e-5)
+    np.testing.assert_allclose((grouped ** 2).mean(dim=(1, 3)).numpy(), 1, atol=1e-3)
+    got = vjp.film_resblock_input_grad_reference(t(g), *res, *map(t, _input_grad_args(ws, sk)),
+                                                 **kw)
+    assert np.abs(want.numpy()).max() > 0.1
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shape", CLASSIFIER_BLOCKS, ids=CLASSIFIER_IDS)
+def test_vjp_plain_version_matches_jax_vjp(shape):
+    """The plain forward and input gradient against `jax.vjp` of the JAX
+    package's `film_resblock_reference` (GroupNorm eps 1e-5) on the same
+    inputs and cotangent."""
+    x, emb, ws, sk, g, kw = _vjp_case(shape, seed=22)
+    jargs = [jnp.asarray(emb), *map(jnp.asarray, ws),
+             *(None if a is None else jnp.asarray(a) for a in sk)]
+    want_out, pullback = jax.vjp(lambda xx: jax_film_reference(xx, *jargs, **kw), jnp.asarray(x))
+    (want,) = pullback(jnp.asarray(g))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    out, res = vjp.film_resblock_vjp_forward_reference(t(x), t(emb), *map(t, ws), *map(t, sk),
+                                                       **kw, eps=1e-5)
+    got = vjp.film_resblock_input_grad_reference(t(g), *res, *map(t, _input_grad_args(ws, sk)),
+                                                 **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_vjp_op_routes_by_what_needs_a_gradient():
+    """`film_resblock_vjp_op` on the CPU: only x needing a gradient takes the
+    autograd Function (its closed-form input gradient, the caller's plain
+    block never called); nothing needing one, the plain forward; a weight
+    needing one, the caller's plain block, counted in `plain_backward`
+    only while x needs a gradient too. No kernel counter moves."""
+    x, emb, ws, sk, g, kw = _vjp_case((8, 16, 32, 3))
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    args = [t(emb), *map(t, ws), *map(t, sk)]
+    counters = lambda: (vjp.fused_film_resblock_vjp_forward.launches,
+                        vjp.fused_film_resblock_input_grad.launches, ops.fused_film_resblock.launches)
+    before, plain_before = counters(), vjp.film_resblock_vjp_op.plain_backward
+
+    def never():
+        raise AssertionError("the plain block was taken")
+
+    xt = t(x).requires_grad_(True)
+    out = vjp.film_resblock_vjp_op(xt, *args, **kw, eps=1e-6, plain=never)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith("_FiLMResBlockVJP")
+    (got,) = torch.autograd.grad(out, xt, t(g))
+    ref = ops.film_resblock_reference(xt, *args, **kw, eps=1e-6)
+    (want,) = torch.autograd.grad(ref, xt, t(g))
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    with torch.no_grad():
+        out0 = vjp.film_resblock_vjp_op(xt, *args, **kw, eps=1e-6, plain=never)
+    torch.testing.assert_close(out0, ref.detach(), atol=TOL, rtol=TOL)
+    assert vjp.film_resblock_vjp_op.plain_backward == plain_before
+
+    args[2].requires_grad_(True)  # b1
+    calls = []
+    plain = lambda: calls.append(1) or ops.film_resblock_reference(xt, *args, **kw, eps=1e-6)
+    vjp.film_resblock_vjp_op(xt, *args, **kw, eps=1e-6, plain=plain)
+    assert calls == [1] and vjp.film_resblock_vjp_op.plain_backward == plain_before + 1
+    vjp.film_resblock_vjp_op(t(x), *args, **kw, eps=1e-6, plain=plain)  # x needs none
+    assert calls == [1, 1] and vjp.film_resblock_vjp_op.plain_backward == plain_before + 1
+    assert counters() == before
+
+
+def test_half_jannerunet_vjp_blocks_match_flax():
+    """`HalfJannerUNet1d(use_pallas_block=True)`: every residual block goes
+    through `film_resblock_vjp_op`, and the net's forward still matches
+    flax's on the same weights, with and without grad on x."""
+    jm, params, port, x, t = _half_unet(use_pallas_block=True)
+    assert all(b.vjp_kernel and not b.use_kernel for b in port.blocks) and len(port.blocks) == 6
+    want = np.asarray(jm.apply(_jax(params), jnp.asarray(x), jnp.asarray(t)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+    port.requires_grad_(False)
+    got = port(torch.from_numpy(x).requires_grad_(True), torch.from_numpy(t))
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=TOL, rtol=TOL)
+
+
+def test_classifier_update_with_the_flag_is_unchanged():
+    """The classifier's own training (`update`) with `use_pallas_block` takes
+    the plain block (the weights need gradients): the same loss, gradients
+    and updated weights, bit for bit, as the net built without the flag;
+    `plain_backward` counts the blocks whose input needed a gradient."""
+    rng = np.random.default_rng(30)
+    xs = torch.from_numpy(_np(rng, B, H, 7))
+    t = torch.tensor([1, 4, 9])
+    R = torch.from_numpy(_np(rng, B, 1))
+    runs = []
+    for flag in (False, True):
+        _, _, port, _, _ = _half_unet(17, use_pallas_block=flag)
+        clf = CumRewClassifier(port, device="cpu")
+        plain_before = vjp.film_resblock_vjp_op.plain_backward
+        grads = list(torch.autograd.grad(clf.loss(clf.params, xs, t, R),
+                                         list(clf.params.parameters())))
+        logs = [clf.update(xs, t, R)["loss"] for _ in range(2)]
+        # the net's input needs no gradient in training, every later block's
+        # input does: 5 of the 6 blocks counted in each of the 3 forwards
+        assert vjp.film_resblock_vjp_op.plain_backward - plain_before == (15 if flag else 0)
+        runs.append((logs, grads, [p.detach().clone() for p in clf.params.parameters()]))
+    (l0, g0, p0), (l1, g1, p1) = runs
+    for a, b in zip(l0 + g0 + p0, l1 + g1 + p1):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

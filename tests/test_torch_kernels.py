@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from cleandiffuser_tpu_torch.nn_diffusion import DiT1d, JannerUNet1d
+from cleandiffuser_tpu_torch.pipelines import DiffuserPipeline
 from cleandiffuser_tpu_torch.ops import dit_block as ops
 from cleandiffuser_tpu_torch.ops import film_resblock as film
+from cleandiffuser_tpu_torch.ops import film_resblock_vjp as vjp
 from cleandiffuser_tpu_torch.ops import solver_update as su
 
 # the same f32 math on both sides, summed in another order: a few 1e-6
@@ -583,6 +585,162 @@ def test_jannerunet_through_kernel_matches_plain(cuda):
         out_k, out_p = nets[0](x, t), nets[1](x, t)
     assert film.fused_film_resblock.launches - before == len(nets[0].blocks) == 8
     torch.testing.assert_close(out_k, out_p, atol=TOL, rtol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The classifier's block differentiated with respect to x: the forward with
+# residuals and the input gradient (ops/film_resblock_vjp.py)
+
+# (H, Cin, Cout, K) of the ten residual blocks of the shipped Diffuser's
+# classifier (HalfJannerUNet1d: 23 channels in, model_dim 32, dim_mult
+# (1, 2, 2, 2), the mid blocks at K = 5)
+CLASSIFIER_BLOCKS = [(32, 23, 32, 3), (32, 32, 32, 3), (16, 32, 64, 3), (16, 64, 64, 3),
+                     (8, 64, 128, 3), (8, 128, 128, 3), (4, 128, 256, 3), (4, 256, 256, 3),
+                     (4, 256, 128, 5), (2, 128, 64, 5)]
+# 3xTF32 products against f32 ones, summed in another order, through two
+# GroupNorm backwards: at most 1.0e-5 of the largest value at these shapes
+# and the antmaze ones, measured on an H100; TOL leaves ten times that
+VJP_TOL = TOL
+
+
+def _vjp_inputs(dev, B, H, Cin, Cout, K):
+    x, emb, ws, skip = _film_inputs(dev, B, H, Cin, Cout, K, False)
+    gout = torch.randn(B, H, Cout, device=dev, generator=torch.Generator(dev).manual_seed(5))
+    kw = dict(K=K, groups=min(8, Cout // 4), eps=1e-6)
+    return x, emb, ws, skip, gout, kw
+
+
+def _grad_weights(ws, skip):
+    return (ws[0], ws[2], ws[3], ws[4], ws[6], ws[7], skip[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [3200, 37], ids=["plan-batch", "ragged-B"])
+@pytest.mark.parametrize("shape", CLASSIFIER_BLOCKS,
+                         ids=[f"h{h}-{i}-{o}-k{k}" for h, i, o, k in CLASSIFIER_BLOCKS])
+def test_film_resblock_vjp_kernels_match_plain(cuda, shape, B):
+    """Both kernels at every classifier block shape, at the plan's 3,200
+    rows and at a batch that leaves the last thread block ragged: the
+    forward's output and residuals, and the input gradient from them,
+    against the plain versions (and autograd through the plain block); the
+    forward without residuals gives the same output bits."""
+    H, Cin, Cout, K = shape
+    x, emb, ws, skip, gout, kw = _vjp_inputs(cuda, B, H, Cin, Cout, K)
+    before = (vjp.fused_film_resblock_vjp_forward.launches,
+              vjp.fused_film_resblock_input_grad.launches)
+    out, res = vjp.fused_film_resblock_vjp_forward(x, emb, *ws, *skip, **kw)
+    out0, none = vjp.fused_film_resblock_vjp_forward(x, emb, *ws, *skip, residuals=False, **kw)
+    gw = _grad_weights(ws, skip)
+    dx = vjp.fused_film_resblock_input_grad(gout, *res, *gw, K=K, groups=kw["groups"])
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, out0)
+    assert (vjp.fused_film_resblock_vjp_forward.launches,
+            vjp.fused_film_resblock_input_grad.launches) == (before[0] + 2, before[1] + 1)
+    out_p, res_p = vjp.film_resblock_vjp_forward_reference(x, emb, *ws, *skip, **kw)
+    torch.testing.assert_close(out, out_p, atol=VJP_TOL, rtol=VJP_TOL)
+    for a, b in zip(res, res_p):
+        torch.testing.assert_close(a, b, atol=VJP_TOL, rtol=VJP_TOL)
+    want = vjp.film_resblock_input_grad_reference(gout, *res_p, *gw, K=K, groups=kw["groups"])
+    torch.testing.assert_close(dx, want, atol=VJP_TOL, rtol=VJP_TOL)
+    xr = x.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(film.film_resblock_reference(xr, emb, *ws, *skip, **kw), xr,
+                                  gout)
+    torch.testing.assert_close(dx, auto, atol=VJP_TOL, rtol=VJP_TOL)
+
+
+@pytest.mark.gpu
+def test_film_resblock_vjp_routes_by_requires_grad(cuda):
+    """`film_resblock_vjp_op` on the card: x alone needing a gradient
+    launches the forward with residuals and, in the backward, the input
+    gradient; under no_grad the forward alone; a weight needing a gradient
+    takes the caller's plain block, counted in `plain_backward`. K3's
+    counter never moves."""
+    x, emb, ws, skip, gout, kw = _vjp_inputs(cuda, 64, 8, 64, 128, 3)
+    counts = lambda: (vjp.fused_film_resblock_vjp_forward.launches,
+                      vjp.fused_film_resblock_input_grad.launches,
+                      vjp.film_resblock_vjp_op.plain_backward, film.fused_film_resblock.launches)
+    ref = lambda xx: film.film_resblock_reference(xx, emb, *ws, *skip, **kw)
+
+    def never():
+        raise AssertionError("the plain block was taken")
+
+    c0 = counts()
+    xr = x.clone().requires_grad_(True)
+    out = vjp.film_resblock_vjp_op(xr, emb, *ws, *skip, **kw, plain=never)
+    assert counts() == (c0[0] + 1, c0[1], c0[2], c0[3])
+    (dx,) = torch.autograd.grad(out, xr, gout)
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2], c0[3])
+    (want,) = torch.autograd.grad(ref(xr), xr, gout)
+    torch.testing.assert_close(dx, want, atol=VJP_TOL, rtol=VJP_TOL)
+    with torch.no_grad():
+        out0 = vjp.film_resblock_vjp_op(xr, emb, *ws, *skip, **kw, plain=never)
+    assert counts() == (c0[0] + 2, c0[1] + 1, c0[2], c0[3])
+    torch.testing.assert_close(out0, out.detach(), atol=0, rtol=0)
+    w1 = ws[0].clone().requires_grad_(True)
+    out = vjp.film_resblock_vjp_op(xr, emb, w1, *ws[1:], *skip, **kw, plain=lambda: ref(xr))
+    assert out.requires_grad and counts() == (c0[0] + 2, c0[1] + 1, c0[2] + 1, c0[3])
+
+
+@pytest.mark.gpu
+def test_film_resblock_vjp_kernels_reject_what_they_do_not_take(cuda):
+    x, emb, ws, skip, gout, kw = _vjp_inputs(cuda, 4, 8, 16, 32, 3)
+    fwd = vjp.fused_film_resblock_vjp_forward
+    with pytest.raises(TypeError):
+        fwd(x.double(), emb, *ws, *skip, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(x.transpose(0, 1).contiguous().transpose(0, 1), emb, *ws, *skip, **kw)
+    with pytest.raises(ValueError, match="odd"):
+        fwd(x, emb, *ws, *skip, K=4, groups=8, eps=1e-6)
+    with pytest.raises(RuntimeError, match="gradient"):
+        fwd(x.clone().requires_grad_(True), emb, *ws, *skip, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        fwd(*(t.cpu() for t in (x, emb, *ws, *skip)), **kw)
+    xh, embh, wsh, skiph, _, kwh = _vjp_inputs(cuda, 4, 12, 16, 32, 3)
+    with pytest.raises(ValueError, match="divide"):  # 64 rows a block, H = 12
+        fwd(xh, embh, *wsh, *skiph, **kwh)
+    xw, embw, wsw, skipw, _, kww = _vjp_inputs(cuda, 2, 4, 16, 520, 3)
+    with pytest.raises(ValueError, match="at most 512"):
+        fwd(xw, embw, *wsw, *skipw, **kww)
+    _, res = fwd(x, emb, *ws, *skip, **kw)
+    grad = vjp.fused_film_resblock_input_grad
+    gw = _grad_weights(ws, skip)
+    with pytest.raises(ValueError, match="must be"):
+        grad(gout[:, :4].contiguous(), *res, *gw, K=3, groups=8)
+    with pytest.raises(ValueError, match="Cin"):
+        grad(gout, *res, *gw[:-1], None, K=3, groups=8)
+    with pytest.raises(TypeError):
+        grad(gout.double(), *res, *gw, K=3, groups=8)
+
+
+@pytest.mark.gpu
+def test_diffuser_plan_through_the_vjp_kernels(cuda):
+    """A `DiffuserPipeline.act` at the benchmark cell's size (50 envs x 64
+    candidates, H 32, model_dim 32) with `use_pallas_block`: 200 input
+    gradients and 210 forwards a plan (20 steps of 10 blocks, and the final
+    log p under no_grad), no plain block, K3's 320; the same plan twice
+    gives the same bits; against the same plan with the classifier's
+    blocks plain, the candidates' log p within 1e-4 relative."""
+    pipe = DiffuserPipeline(obs_dim=17, act_dim=6, horizon=32, model_dim=32, dim_mult=(1, 2, 2, 2),
+                            predict_noise=False, use_pallas_block=True, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    obs = torch.randn(50, 17, generator=g, device=cuda)
+    noise = (torch.randn(3200, 32, 23, generator=g, device=cuda),
+             torch.randn(20, 3200, 32, 23, generator=g, device=cuda))
+    counts = lambda: (vjp.fused_film_resblock_vjp_forward.launches,
+                      vjp.fused_film_resblock_input_grad.launches,
+                      vjp.film_resblock_vjp_op.plain_backward, film.fused_film_resblock.launches)
+    c0 = counts()
+    act, info = pipe.act(obs, 64, noise=noise)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, counts())] == [210, 200, 0, 320]
+    act2, info2 = pipe.act(obs, 64, noise=noise)
+    assert torch.equal(act, act2) and torch.equal(info["candidates"], info2["candidates"])
+    assert torch.equal(info["candidate_logp"], info2["candidate_logp"])
+    for b in pipe.classifier.ema_params.blocks:
+        b.vjp_kernel = False
+    _, plain = pipe.act(obs, 64, noise=noise)
+    logp, want = info["candidate_logp"], plain["candidate_logp"]
+    assert ((logp - want).abs().max() / want.abs().max()).item() < 1e-4
 
 
 # ---------------------------------------------------------------------------
