@@ -39,7 +39,7 @@ def readings(config: dict, traffic: dict, seeds, device, plans=None):
 
     from benchmark import run
 
-    family = run.load_module(BENCH / "families" / f"{config['family']}.py")
+    family = run.load_family(config)
     out = []
     for seed in seeds:
         cell = family.Cell(config, traffic, seed, device)

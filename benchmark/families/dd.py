@@ -15,7 +15,17 @@ from benchmark import common, work
 from benchmark.reference import dd as reference
 
 
+def tiny(config: dict, traffic: dict):
+    """(configuration, traffic) cut to a CPU test's size: width, heads,
+    embedding, steps, horizon and envs shrunk; every other key kept."""
+    return (dict(config, d_model=64, n_heads=2, emb_dim=32, sampling_steps=4, horizon=8),
+            dict(traffic, envs=4))
+
+
 class Cell:
+    # the program's span around each plan (`DDPipeline.act`)
+    plan_span = "dd.plan"
+
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         self.cfg, self.seed, self.device = config, seed, device
         self.envs = traffic["envs"]

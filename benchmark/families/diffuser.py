@@ -15,11 +15,18 @@ import torch
 from benchmark import common, work
 from benchmark.reference import diffuser as reference
 
-# the span around the classifier's input gradient in a traced run
-CLS_SPAN = "bench.classifier_gradients"
+
+def tiny(config: dict, traffic: dict):
+    """(configuration, traffic) cut to a CPU test's size: width, levels,
+    steps, horizon, envs and candidates shrunk; every other key kept."""
+    return (dict(config, model_dim=8, dim_mult=[1, 2], sampling_steps=4, diffusion_steps=4,
+                 horizon=8), dict(traffic, envs=4, candidates=4))
 
 
 class Cell:
+    # the program's span around each plan (`DiffuserPipeline.act`)
+    plan_span = "diffuser.plan"
+
     def __init__(self, config: dict, traffic: dict, seed: int, device):
         self.cfg, self.seed, self.device = config, seed, device
         self.envs, self.candidates = traffic["envs"], traffic["candidates"]
@@ -99,23 +106,13 @@ class Cell:
         return {"pin_gap": pin, "cand_gap": cand, "logp_gap": logp, "choice_miss": miss,
                 "act_gap": act}
 
-    def spans(self):
-        """In a traced run, a span around each of the classifier's input
-        gradients (its forward under grad; the backward's kernels run under
-        the autograd engine's own events)."""
-        cls = self.pipe.classifier
-        gradients = cls.gradients
-
-        def traced(*args, **kwargs):
-            with torch.profiler.record_function(CLS_SPAN):
-                return gradients(*args, **kwargs)
-
-        cls.gradients = traced
-
     def work(self) -> dict:
-        """Operations of one plan (per step the U-Net, and the classifier's
-        forward and its input gradient, which costs its forward again; at
-        the end the classifier's log p), and K3's launches of one U-Net call
+        """Operations of one plan (per step the U-Net, and where it guides
+        the classifier's forward and its input gradient, which costs its
+        forward again; at the end the classifier's log p); K3's launches of
+        one U-Net call, and the VJP pair's of one plan (per guided step the
+        classifier's blocks forward, keeping their residuals, then their
+        input gradients in reverse; at the end the blocks forward alone),
         with their operations and bytes."""
         c = self.cfg
         N, H, md = self.candidates * self.envs, c["horizon"], c["model_dim"]
@@ -130,15 +127,24 @@ class Cell:
         unet += sum(work.conv_transpose1d(N, length, 4, ch, ch) for length, ch in ups)
         unet += work.conv1d(N, H, 5, md, md) + work.conv1d(N, H, 1, md, F_)
         cls = time_mlp
+        forward, grad, score = [], [], []
         for h, ci, co, k in reference.classifier_blocks(c):
             cls += work.film_resblock(N, h, ci, co, k)[0] + work.dense(N, md, co)
+            g = reference.groups(co)
+            forward.append(work.film_vjp_forward(N, h, ci, co, k, g))
+            grad.insert(0, work.film_vjp_input_grad(N, h, ci, co, k, g))
+            score.append(work.film_vjp_forward(N, h, ci, co, k, g, residuals=False))
         cls += sum(work.conv1d(N, length, 3, ch, ch) for length, ch in reference.classifier_downs(c))
         head = reference.spec(c)["classifier.head1.weight"][0]
         cls += work.dense(N, head[1], head[0]) + work.dense(N, head[0], 1)
         steps = c["sampling_steps"]
-        return {"plan_ops": steps * (unet + 2 * cls) + cls,
+        guided = steps if c["w_cg"] != 0 else 0
+        pair = guided * (forward + grad) + score
+        return {"plan_ops": steps * unet + guided * 2 * cls + cls,
                 "kernels": {"k3": {"match": "film_resblock_kernel", "launches": k3,
-                                   "per_plan": steps * len(k3)}}}
+                                   "per_plan": steps * len(k3)},
+                            "vjp": {"match": "film_vjp_", "launches": pair,
+                                    "per_plan": len(pair)}}}
 
     def free(self):
         self.pipe = None

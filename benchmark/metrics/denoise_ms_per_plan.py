@@ -8,4 +8,4 @@ from benchmark import program_spans
 
 
 def read(ctx):
-    return program_spans.span_ms_per_plan(ctx.host_trace, "sampler.denoise")
+    return program_spans.span_ms_per_plan(ctx.host_trace, ctx.plan_span, "sampler.denoise")

@@ -2,14 +2,15 @@
 run's record of the host and the device.
 
 The port opens its spans through `annotate` (its utils/profiling.py): one
-`dd.plan` or `diffuser.plan` around each plan, and in every sampler step
-`sampler.denoise` (the network's forward under CFG), `sampler.guide` (the
-classifier's input gradient, where it guides) and `sampler.update` (the
-solver's update). A stage's value is the device time of the kernels
-launched while its spans were open (`Trace.device_time_under`) over the
-number of plan spans in the window. A program that opens no plan span, or
-whose stage launched no kernel there, has nothing to read: None. Imports
-nothing of the program.
+around each plan, which the cell's family names (`Cell.plan_span`, such as
+`dd.plan` or `diffuser.plan`, handed on as `ctx.plan_span`), and in every
+sampler step `sampler.denoise` (the network's forward under CFG),
+`sampler.guide` (the classifier's input gradient, where it guides) and
+`sampler.update` (the solver's update). A stage's value is the device time
+of the kernels launched while its spans were open
+(`Trace.device_time_under`) over the number of plan spans in the window.
+A program that opens no plan span, or whose stage launched no kernel
+there, has nothing to read: None. Imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import bisect
 
 from benchmark import tracing
 
-PLAN_SPANS = ("dd.plan", "diffuser.plan")
 GUIDE_SPAN = "sampler.guide"
 # the autograd engine's event around each backward node it runs
 BACKWARD = "autograd::engine::evaluate_function"
@@ -32,22 +32,22 @@ def host_spans(trace, names):
                   and trace.start <= e.time_range.start < trace.end)
 
 
-def ms_per_plan(trace, is_root):
+def ms_per_plan(trace, plan_span: str, is_root):
     """Device milliseconds under the host events for which `is_root` holds,
-    over the window's plan spans."""
-    plans = len(host_spans(trace, PLAN_SPANS))
+    over the window's spans named `plan_span`."""
+    plans = len(host_spans(trace, (plan_span,)))
     if not plans:
         return None
     seconds = trace.device_time_under(is_root)
     return seconds * 1e3 / plans if seconds > 0 else None
 
 
-def span_ms_per_plan(trace, name: str):
+def span_ms_per_plan(trace, plan_span: str, name: str):
     """Device milliseconds per plan under the spans named `name`."""
-    return ms_per_plan(trace, lambda e: e.name == name)
+    return ms_per_plan(trace, plan_span, lambda e: e.name == name)
 
 
-def guide_ms_per_plan(trace):
+def guide_ms_per_plan(trace, plan_span: str):
     """Device milliseconds per plan under `sampler.guide`, and under every
     autograd engine event that starts while one is open: on a CUDA device
     the backward's kernels are launched from the engine's own thread, whose
@@ -59,5 +59,5 @@ def guide_ms_per_plan(trace):
         j = bisect.bisect_right(starts, t) - 1
         return j >= 0 and t < spans[j][1]
 
-    return ms_per_plan(trace, lambda e: e.name == GUIDE_SPAN or (
+    return ms_per_plan(trace, plan_span, lambda e: e.name == GUIDE_SPAN or (
         e.name.startswith(BACKWARD) and in_guide(e.time_range.start)))

@@ -137,16 +137,17 @@ def spec(cfg: dict) -> dict:
     return out
 
 
-def _groups(c: int) -> int:
+def groups(c: int) -> int:
+    """GroupNorm's groups over c channels."""
     return min(8, c // 4)
 
 
 def res_block(w: dict, p: str, x, te):
     co = w[f"{p}.conv1.bias"].shape[0]
     e = plain.linear(w, f"{p}.film", plain.mish(te))
-    h = plain.mish(plain.group_norm(w, f"{p}.norm1", plain.conv(w, f"{p}.conv1", x), _groups(co)))
+    h = plain.mish(plain.group_norm(w, f"{p}.norm1", plain.conv(w, f"{p}.conv1", x), groups(co)))
     h = h + e[:, None]
-    h = plain.mish(plain.group_norm(w, f"{p}.norm2", plain.conv(w, f"{p}.conv2", h), _groups(co)))
+    h = plain.mish(plain.group_norm(w, f"{p}.norm2", plain.conv(w, f"{p}.conv2", h), groups(co)))
     return h + (plain.conv(w, f"{p}.skip", x) if f"{p}.skip.kernel" in w else x)
 
 
@@ -173,7 +174,7 @@ def unet(w: dict, cfg: dict, x, t):
         x = plain.conv_transpose(w, f"diffusion.ups.{i}.conv", x)
     h = plain.mish(plain.group_norm(w, "diffusion.final_norm",
                                     plain.conv(w, "diffusion.final_conv", x),
-                                    _groups(cfg["model_dim"])))
+                                    groups(cfg["model_dim"])))
     return plain.conv(w, "diffusion.out_conv", h)
 
 

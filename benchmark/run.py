@@ -6,8 +6,11 @@ from the root of a checkout. The cell (`BENCHMARK.json` "workloads") names a
 configuration (its file under `benchmark/configs/`, whose "family" names
 `benchmark/families/<family>.py` and `benchmark/reference/<family>.py`) and
 a traffic mix (`benchmark/traffic/<traffic>.json`); each metric is read by
-`benchmark/metrics/<name>.py`. So a cell, a configuration, a mix or a metric
-is added with files and manifest entries alone.
+`benchmark/metrics/<name>.py`. A family's file holds its `Cell`, which
+names the program's span around a plan (`plan_span`), and `tiny`, its size
+for the CPU tests; its planted faults are in
+`benchmark/tests/faults/<family>.py`. So a cell, a configuration, a mix, a
+metric or a whole family is added with files and manifest entries alone.
 
 A run is one process: set-up (the program's import, seeded weights on the
 card, the pipeline, its kernels, the warm-up plans of the cell's shapes),
@@ -74,6 +77,11 @@ def load_module(path: Path):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_family(config: dict):
+    """The module of a configuration's family, `families/<family>.py`."""
+    return load_module(BENCH / "families" / f"{config['family']}.py")
 
 
 def find_cell(manifest: dict, workload: str):
@@ -162,14 +170,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, mani
     config, traffic = config or file_config, traffic or file_traffic
     torch.backends.cuda.matmul.allow_tf32 = config["tf32"]
     torch.backends.cudnn.allow_tf32 = config["tf32"]
-    family = load_module(BENCH / "families" / f"{config['family']}.py")
-    cell = family.Cell(config, traffic, seed, device)
+    cell = load_family(config).Cell(config, traffic, seed, device)
 
     cell.build()
     for k in range(traffic["warmup_plans"]):
         cell.serve(cell.request(-2 - k))
-    if trace and hasattr(cell, "spans"):
-        cell.spans()
     _sync(device)
     setup_s = time.perf_counter() - t_start
 
@@ -215,8 +220,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, mani
     result = {"correct": False, "attempted": n_plans, "failed": failed}
     ctx = SimpleNamespace(config=config, traffic=traffic, work=work, plans=n_plans,
                           actions=cell.actions_per_plan * n_plans, latencies_s=record.latencies,
-                          window_s=window_s, setup_s=setup_s, trace=None, host_trace=None,
-                          peaks=None)
+                          window_s=window_s, setup_s=setup_s, plan_span=cell.plan_span,
+                          trace=None, host_trace=None, peaks=None)
     if trace:
         from benchmark import work as counting
 

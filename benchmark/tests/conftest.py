@@ -1,6 +1,8 @@
-"""Shared helpers of the benchmark's tests: the cells at a size the CPU runs
-in about a second, and a card fixture for the tests marked `gpu`, which run
-on the card with `python3 -m pytest benchmark/tests -m gpu`."""
+"""Shared helpers of the benchmark's tests: the manifest's cells, each cut
+to a size the CPU runs in about a second by its family's `tiny`, the faults
+planted in its family's program (`faults/<family>.py`), and a card fixture
+for the tests marked `gpu`, which run on the card with
+`python3 -m pytest benchmark/tests -m gpu`."""
 
 from __future__ import annotations
 
@@ -15,22 +17,37 @@ if str(ROOT) not in sys.path:
 
 from benchmark import run  # noqa: E402
 
-WORKLOADS = ("diffuser_mujoco.eval50x64", "dd_mujoco.eval1024")
+# every cell of BENCHMARK.json, in its order
+WORKLOADS = tuple(c["name"] for c in run.load_manifest()["workloads"])
+
+
+def family(workload: str):
+    """The module of the cell's family (`benchmark/families/<family>.py`)."""
+    return run.load_family(run.find_cell(run.load_manifest(), workload)[1])
+
+
+def faults(workload: str):
+    """The faults planted in the program of the cell's family: the module
+    `faults/<family>.py`, whose `plant(monkeypatch, fault)` plants one."""
+    _, cfg, _ = run.find_cell(run.load_manifest(), workload)
+    return run.load_module(Path(__file__).resolve().parent / "faults" / f"{cfg['family']}.py")
 
 
 def tiny(workload: str):
-    """(configuration, traffic) of a cell cut to a CPU test's size: widths,
-    depth, horizon, steps and batch shrunk; everything else as the cell's
-    files say."""
+    """(configuration, traffic) of a cell cut to a CPU test's size by its
+    family's `tiny`, with a plan or two in each phase of a run."""
     _, cfg, traffic = run.find_cell(run.load_manifest(), workload)
-    if cfg["family"] == "dd":
-        cfg.update(d_model=64, n_heads=2, emb_dim=32, sampling_steps=4, horizon=8)
-        traffic.update(envs=4)
-    else:
-        cfg.update(model_dim=8, dim_mult=[1, 2], sampling_steps=4, diffusion_steps=4, horizon=8)
-        traffic.update(envs=4, candidates=4)
+    cfg, traffic = run.load_family(cfg).tiny(cfg, traffic)
     traffic.update(warmup_plans=1, check_plans=2, trace_plans=2, trace_host_plans=1)
     return cfg, traffic
+
+
+def halve(t, axis: int):
+    """A planted fault's half batch: the second half of t along `axis`
+    replaced, in place, by the mean of the first."""
+    n = t.shape[axis]
+    rest = t.narrow(axis, n // 2, n - n // 2)
+    rest.copy_(t.narrow(axis, 0, n // 2).float().mean(axis, keepdim=True).expand_as(rest))
 
 
 def run_tiny(workload: str, seed: int = 2 ** 33 + 7, trace: bool = False, seconds: float = 0.05,

@@ -3,10 +3,11 @@ port's CPU path, each fault a cell can have read as not correct, and the
 control (the reference in TF32) on the card.
 
 The faults are planted in the program underneath a run whose look for a
-chip is skipped: a sampler step that returns its state unchanged, half of
-the batch left out with the mean of the other half in its place, and an
-answer altered where it is produced. The exchange between chips has no
-cell here (every cell runs on one chip)."""
+chip is skipped, each family's in its own file (`faults/<family>.py`): a
+sampler step that returns its state unchanged, half of the batch left out
+with the mean of the other half in its place, and an answer altered where
+it is produced. The exchange between chips has no cell here (every cell
+runs on one chip). Every test runs on every cell of BENCHMARK.json."""
 
 from __future__ import annotations
 
@@ -14,12 +15,10 @@ import pytest
 import torch
 
 from benchmark import run
-from conftest import WORKLOADS, run_tiny, tiny
-
-TINY = ("dd_mujoco.eval1024", "diffuser_mujoco.eval50x64")
+from conftest import WORKLOADS, faults, run_tiny, tiny
 
 
-@pytest.mark.parametrize("workload", TINY)
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_port_matches_the_reference_on_the_cpu(workload):
     result, checks = run_tiny(workload)
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 1
@@ -29,50 +28,15 @@ def test_port_matches_the_reference_on_the_cpu(workload):
         assert value <= 1e-4 * (1 if name != "logp_gap" else 10), name
 
 
-def _halve(outputs: dict, envs_axis: dict):
-    """The second half of the envs replaced by the mean of the first."""
-    for key, axis in envs_axis.items():
-        t = outputs[key]
-        n = t.shape[axis]
-        first = t.narrow(axis, 0, n // 2)
-        t.narrow(axis, n // 2, n - n // 2).copy_(first.float().mean(axis, keepdim=True)
-                                                 .expand_as(t.narrow(axis, n // 2, n - n // 2)))
-
-
-def _plant(monkeypatch, workload: str, fault: str):
-    from cleandiffuser_tpu_torch.diffusion import diffusionsde
-    from cleandiffuser_tpu_torch.pipelines import DDPipeline, DiffuserPipeline
-
-    if fault == "step_unchanged":
-        monkeypatch.setattr(diffusionsde, "solver_step", lambda solver, xt, *a, **k: xt)
-        return
-    cls = DDPipeline if workload.startswith("dd_") else DiffuserPipeline
-    act = cls.act
-
-    def broken(self, *args, **kwargs):
-        a, info = act(self, *args, **kwargs)
-        if fault == "half_batch":
-            if cls is DDPipeline:
-                _halve({"a": a, "traj": info["traj"]}, {"a": 0, "traj": 0})
-            else:
-                _halve({"a": a, "c": info["candidates"], "l": info["candidate_logp"]},
-                       {"a": 0, "c": 1, "l": 1})
-        else:  # an answer altered where it is produced
-            a[0, 0] -= 0.01 * torch.sign(a[0, 0])
-        return a, info
-
-    monkeypatch.setattr(cls, "act", broken)
-
-
 @pytest.mark.parametrize("fault", ["step_unchanged", "half_batch", "answer_altered"])
-@pytest.mark.parametrize("workload", TINY)
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_a_fault_reads_not_correct(monkeypatch, workload, fault):
-    _plant(monkeypatch, workload, fault)
+    faults(workload).plant(monkeypatch, fault)
     result, checks = run_tiny(workload)
     assert not result["correct"], checks
 
 
-@pytest.mark.parametrize("workload", TINY)
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_traced_run_is_judged_alike(workload):
     result, _ = run_tiny(workload, trace=True, seconds=60)
     assert result["correct"] and result["attempted"] == 3
@@ -94,11 +58,11 @@ def test_control_in_tf32_reads_not_correct(card, workload):
     assert any(v > cfg["limits"][k] for r in readings for k, v in r.items()), readings
 
 
-def test_tiny_sizes_keep_the_cells_configuration_keys():
-    for workload in WORKLOADS:
-        cfg, traffic = tiny(workload)
-        _, file_cfg, file_traffic = run.find_cell(run.load_manifest(), workload)
-        assert set(cfg) == set(file_cfg) and set(traffic) == set(file_traffic)
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_tiny_sizes_keep_the_cells_configuration_keys(workload):
+    cfg, traffic = tiny(workload)
+    _, file_cfg, file_traffic = run.find_cell(run.load_manifest(), workload)
+    assert set(cfg) == set(file_cfg) and set(traffic) == set(file_traffic)
 
 
 def test_record_keeps_a_seeded_sample_of_bounded_size():

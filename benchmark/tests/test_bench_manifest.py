@@ -9,7 +9,7 @@ import re
 import pytest
 
 from benchmark import run
-from conftest import ROOT, WORKLOADS
+from conftest import ROOT, WORKLOADS, faults
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -86,21 +86,34 @@ def test_per_layer_metrics():
             assert m["unit"] == "%"
 
 
-def test_cells():
+def test_cell_pairs_and_chips():
     cells = MANIFEST["workloads"]
-    assert [c["name"] for c in cells] == list(WORKLOADS)
     pairs = [(c["config"], c["traffic"]) for c in cells]
     assert len(pairs) == len(set(pairs))
     assert sum(c["chips"] == 4 for c in cells) <= max(1, len(cells) // 4)
     used = {c["config"] for c in cells}
     assert used == {c["name"] for c in MANIFEST["configs"]}
-    for c in cells:
-        assert set(c) == {"name", "config", "traffic", "chips", "why"} and c["chips"] in (1, 4)
-        e2e = [m["name"] for m in run.metrics_of(MANIFEST, c["name"], "end_to_end")]
-        assert "setup_s" in e2e and len(e2e) >= 2
-        assert run.metrics_of(MANIFEST, c["name"], "per_layer")
-        for m in run.metrics_of(MANIFEST, c["name"], "per_layer"):
-            assert m["moves"] in e2e
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_cells(workload):
+    """What a cell needs: its keys and metrics, and its family's files and
+    hooks (the family's `Cell` with its plan span and `tiny`, the
+    reference, the planted faults)."""
+    c = next(c for c in MANIFEST["workloads"] if c["name"] == workload)
+    assert set(c) == {"name", "config", "traffic", "chips", "why"} and c["chips"] in (1, 4)
+    e2e = [m["name"] for m in run.metrics_of(MANIFEST, workload, "end_to_end")]
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert run.metrics_of(MANIFEST, workload, "per_layer")
+    for m in run.metrics_of(MANIFEST, workload, "per_layer"):
+        assert m["moves"] in e2e
+    _, config, _ = run.find_cell(MANIFEST, workload)
+    assert (run.BENCH / "reference" / f"{config['family']}.py").exists()
+    family = run.load_family(config)
+    assert callable(family.tiny) and isinstance(family.Cell.plan_span, str)
+    for hook in ("build", "request", "serve", "reference", "invalid", "judge", "work", "free"):
+        assert callable(getattr(family.Cell, hook)), hook
+    assert callable(faults(workload).plant)
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)

@@ -54,6 +54,32 @@ def film_resblock(B: int, H: int, c_in: int, c_out: int, k: int):
     return ops, F32 * (B * H * c_in + B * c_out + weights + B * H * c_out)
 
 
+def film_vjp_forward(B: int, H: int, c_in: int, c_out: int, k: int, groups: int,
+                     residuals: bool = True):
+    """The classifier VJP pair's forward, the FiLM residual block of
+    `film_resblock` (same operations, reads and output): (operations,
+    bytes). With `residuals` it also writes what the input gradient reads:
+    both GroupNorms' normalised values n1, n2 (B, H, c_out) and their
+    1 / sqrt(var + eps) r1, r2 (B, groups)."""
+    ops, nbytes = film_resblock(B, H, c_in, c_out, k)
+    kept = 2 * B * H * c_out + 2 * B * groups if residuals else 0
+    return ops, nbytes + F32 * kept
+
+
+def film_vjp_input_grad(B: int, H: int, c_in: int, c_out: int, k: int, groups: int):
+    """The pair's input gradient, d/dx of the block: (operations, bytes).
+    The adjoints of the two convs and the skip, the forward's
+    multiply-adds again; reads the gradient at the output (B, H, c_out),
+    n1, n2, r1, r2, both convs, the norms' scales and shifts and the skip's
+    kernel, writes dx (B, H, c_in)."""
+    skip = c_in != c_out
+    ops = film_resblock(B, H, c_in, c_out, k)[0]
+    weights = k * c_in * c_out + k * c_out * c_out + 4 * c_out
+    weights += c_in * c_out if skip else 0
+    reads = 3 * B * H * c_out + 2 * B * groups + weights
+    return ops, F32 * (reads + B * H * c_in)
+
+
 def peaks(device_kind: str):
     """The peak table's entry for a device name, or None for a device the
     table does not hold."""
